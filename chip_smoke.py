@@ -1,0 +1,654 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase` on one
+NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. print the card (nvidia-smi name, power limit); build the CUDA kernels
+     and the host C++ engines from the checkout's sources, in parallel;
+  2. hold every kernel against its plain PyTorch twin on the card, at the
+     benchmark shapes: K1 on 131072 pairs of 29x32 and on a ragged batch
+     with lx, ly in 1..1024 (RLE on and off); K2 on packs of 128 problems
+     with lx, ly ~ 2000-5000 at band widths 32 and 128, RLE on and off. LUT
+     logAdd: identical bits; exact logAdd: max |diff| <= 1e-4;
+  3. run `python -m margin_tpu_torch phase` (its `cli.main`, LUT logAdd)
+     on a seeded synthetic 1 Mb contig at 30x (5-30 kb reads, ~8% errors,
+     ~1000 het SNVs, 30 het SVs of 50-2000 bp); the launch counters are
+     zeroed right before and read right after. Checks: K1 and K2 launched,
+     >= half the true het sites phased, haplotags agree with the simulated
+     origin on >= 90% of tagged reads;
+  4. rerun a 200 kb sub-region with the kernels and then with the plain
+     twins bound in their place: byte-identical phased VCF and
+     phaseset.bed;
+  5. hold each kernel against its twin, and time both, on the largest
+     batch / pack the main path gave it (for K2: W=128, RLE off, LUT).
+The line before last is {"kernels": [...]} (times from this run, bounds
+from this run's inputs), the one before it the card, and the last line
+{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
+# HBM bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# float ops per band cell. logAdd, LUT: max, min, sub, 4 compares, cubic
+# (3 mul + 3 add), add, select = 15; exact: max, sub, abs, exp, log1p,
+# add = 6. Forward cell: 3 states x (3 transition adds + 2 logAdds +
+# emission add + clamp). Backward cell: 3 states x (6 adds + 2 logAdds +
+# clamp) + 3 posteriors x (add, sub, min, exp).
+_LOGADD = {True: 15, False: 6}
+
+
+def fwd_ops_per_cell(lut):
+    return 3 * (5 + 2 * _LOGADD[lut])
+
+
+def bwd_ops_per_cell(lut):
+    return 3 * (7 + 2 * _LOGADD[lut]) + 12
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps=5, warmup=1):
+    """Median CUDA-event time of fn() in ms, after warm-up runs."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bound_ms(ops, nbytes):
+    t_ops = ops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def compare(name, got, want, lut):
+    """LUT: identical bits; exact: max |diff| <= 1e-4."""
+    import torch
+    if lut:
+        if not torch.equal(got, want):
+            diff = (got - want).abs().max().item()
+            raise AssertionError(f"{name}: LUT results differ (max {diff})")
+        return 0.0
+    diff = (got - want).abs().max().item()
+    if not diff <= 1e-4:
+        raise AssertionError(f"{name}: exact results differ by {diff} > 1e-4")
+    return diff
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def tables(device, rle):
+    import numpy as np
+    from margin_tpu_torch.ops import pairhmm
+    from margin_tpu_torch.params import RepeatSubMatrix, StateMachineParams
+    rep = None
+    if rle:
+        rep = RepeatSubMatrix.empty()
+        rep.log_probs = np.random.default_rng(11).uniform(-4.0, -0.05,
+                                                          (4, 51, 51))
+    return pairhmm.PairHmmTables.from_params(
+        StateMachineParams.default_nucleotide(), repeat=rep, device=device)
+
+
+def k1_batch(device, B, lx_range, ly_range, seed, rle=False):
+    import numpy as np
+    from margin_tpu_torch.ops import pairhmm
+    rng = np.random.default_rng(seed)
+    lxs = rng.integers(lx_range[0], lx_range[1] + 1, B)
+    lys = rng.integers(ly_range[0], ly_range[1] + 1, B)
+    pairs = [(rng.integers(0, 4, a).astype(np.uint8),
+              rng.integers(0, 4, b).astype(np.uint8))
+             for a, b in zip(lxs, lys)]
+    reps = ([(rng.integers(1, 12, a), rng.integers(1, 12, b))
+             for a, b in zip(lxs, lys)] if rle else None)
+    return pairhmm.make_batch(pairs, strands=rng.integers(0, 2, B),
+                              ragged_left=rng.random(B) < 0.1,
+                              ragged_right=rng.random(B) < 0.1,
+                              rep_pairs=reps, device=device)
+
+
+def k2_items(n, w_bucket, expansion, seed, rle):
+    """n problems with lx ~ 2000-5000: y an erroneous copy of x, anchored
+    every few bases along the true alignment so every band falls in the
+    width bucket w_bucket (32 or 128)."""
+    import numpy as np
+    from margin_tpu_torch.ops import banded
+    rng = np.random.default_rng(seed)
+    spacing = {32: 8, 128: 64}[w_bucket]
+    lo = {32: 16, 128: 64}[w_bucket]
+    items = []
+    while len(items) < n:
+        lx = int(rng.integers(2000, 5001))
+        x = rng.integers(0, 4, lx).astype(np.uint8)
+        y = x.copy()
+        flip = rng.random(lx) < 0.06
+        y[flip] = (y[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
+        keep = rng.random(lx) > 0.03
+        ypos = np.cumsum(keep) - 1
+        y = y[keep]
+        xa = np.nonzero(keep)[0][::spacing][1:-1]
+        it = {"x_sym": x, "y_sym": y, "strand": int(rng.integers(0, 2)),
+              "anchors": [(int(a), int(ypos[a]), expansion) for a in xa]}
+        if rle:
+            it["rep_x"] = rng.integers(1, 12, lx).astype(np.int32)
+            it["rep_y"] = rng.integers(1, 12, len(y)).astype(np.int32)
+        w = banded._item_geom(it, expansion, False).w_pad
+        if lo < w <= w_bucket:
+            items.append(it)
+    return items
+
+
+def k2_pack(device, tabs, items, w_bucket, expansion, rle):
+    from margin_tpu_torch.ops import banded, cuda_banded
+    geoms = [banded._item_geom(it, expansion, False) for it in items]
+    return cuda_banded._pack_host(tabs, items, w_bucket, expansion, False,
+                                  rle, geoms, device=device)
+
+
+# ---------------------------------------------------------------------------
+# bytes and operations of each kernel's work on its inputs
+# ---------------------------------------------------------------------------
+
+def k1_work(batch, tabs, lut):
+    lx = batch.lxs.long()
+    ly = batch.lys.long()
+    cells = int(((lx + 1) * (ly + 1) - 1).clamp(min=0).sum())
+    nbytes = (batch.xs.numel() + batch.ys.numel() + 4 * 3 * batch.lxs.numel()
+              + 2 * batch.lxs.numel() + 4 * batch.lxs.numel())
+    if batch.rep_x is not None and tabs.repeat is not None:
+        nbytes += 4 * (batch.rep_x.numel() + batch.rep_y.numel())
+        nbytes += tabs.repeat.numel() * 4
+    return cells * fwd_ops_per_cell(lut), nbytes
+
+
+def k2_work(pack, lut, sweep):
+    from margin_tpu_torch.ops import banded
+    cells = sum(banded._true_band_cells(g) for g in pack.geoms)
+    grid = pack.n_rows * 3 * pack.W * 4
+    nbytes = (pack.xs.numel() + pack.ys.numel() + 12 * pack.n_rows
+              + pack.B * (4 * (35 + 9 + 6) + 4 * 5 + 8 * 3))
+    if pack.rep_x is not None:
+        nbytes += 4 * (pack.xs.numel() + pack.ys.numel())
+        nbytes += pack.rep_tab.numel() * 4
+    if sweep == "fwd":
+        return cells * fwd_ops_per_cell(lut), nbytes + grid + 4 * pack.B
+    return cells * bwd_ops_per_cell(lut), nbytes + 2 * grid + 4 * pack.B
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def card_line():
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        return res.stdout.strip().splitlines()[0] if res.stdout else \
+            "nvidia-smi: no output"
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def phase_build():
+    from margin_tpu_torch import _ext
+    t0 = time.perf_counter()
+    names = list(_ext.KERNEL_SOURCES) + ["marginio", "marginfb", "marginrp"]
+    errors = _ext.build(names, log=log)
+    for k in _ext.KERNEL_SOURCES:
+        if errors[k] is not None:
+            raise RuntimeError(f"kernel {k} failed to build:\n{errors[k]}")
+        _ext.kernel_lib(k)
+    engines = {n: _ext.native_lib(n) is not None
+               for n in ("marginio", "marginfb", "marginrp")}
+    for n, ok in engines.items():
+        if not ok:  # the port then takes the pure-Python host path
+            tail = [ln for ln in (errors.get(n) or "").splitlines()
+                    if ln.strip()][-3:]
+            log(f"host engine {n} did not build: {' | '.join(tail)}")
+    secs = time.perf_counter() - t0
+    log(f"build: {secs:.1f} s; host engines loaded: {engines}")
+    return {"build_s": secs, "engines": engines,
+            "per_source_s": dict(_ext.BUILD_SECONDS)}
+
+
+def phase_k1(device):
+    from margin_tpu_torch.ops import pairhmm
+    rows = []
+    shapes = [("131072 x 29x32", 131072, (29, 29), (32, 32), False),
+              ("2048 ragged 1..1024", 2048, (1, 1024), (1, 1024), False),
+              ("2048 ragged 1..1024, RLE", 2048, (1, 1024), (1, 1024), True)]
+    for si, (label, B, lxr, lyr, rle) in enumerate(shapes):
+        tabs = tables(device, rle)
+        batch = k1_batch(device, B, lxr, lyr, seed=100 + si, rle=rle)
+        for lut in ((True, False) if si < 2 else (True,)):
+            got = pairhmm.forward_total(tabs, batch, use_lut=lut)
+            want = pairhmm.forward_total_plain(tabs, batch, use_lut=lut)
+            diff = compare(f"K1 {label}", got, want, lut)
+            if not bool(got.isfinite().all()):
+                raise AssertionError(f"K1 {label}: non-finite totals")
+            ms = cuda_ms(lambda: pairhmm.forward_total(tabs, batch, lut))
+            pms = cuda_ms(lambda: pairhmm.forward_total_plain(tabs, batch,
+                                                              lut),
+                          reps=3 if B > 4096 else 1, warmup=0)
+            ops, nbytes = k1_work(batch, tabs, lut)
+            bms, by = bound_ms(ops, nbytes)
+            rows.append({"kernel": "K1", "shape": label, "lut": lut,
+                         "max_abs_err": diff, "ms": ms, "plain_ms": pms,
+                         "bound_ms": bms, "bound_by": by})
+            log(f"K1 {label} {'LUT' if lut else 'exact'}: kernel {ms:.3f} ms"
+                f", plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), "
+                f"max|diff| {diff}")
+    return rows
+
+
+def phase_k2(device, n=128):
+    from margin_tpu_torch.ops import cuda_banded
+    rows = []
+    # every width, RLE state and logAdd flavour appears; the plain twins,
+    # a Python loop over ~10^4 diagonals, run once per configuration
+    configs = [(32, False, True), (32, True, False), (128, True, True),
+               (128, False, False)]
+    for ci, (w, rle, lut) in enumerate(configs):
+        tabs = tables(device, rle)
+        items = k2_items(n, w, 20, seed=200 + ci, rle=rle)
+        pack = k2_pack(device, tabs, items, w, 20, rle)
+        fk, tk = cuda_banded.fb_forward(pack, lut)
+        pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+        t0 = time.perf_counter()
+        fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+        torch_sync()
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        pp = cuda_banded.fb_backward_plain(pack, fp, tp, lut)
+        torch_sync()
+        pb_ms = (time.perf_counter() - t0) * 1e3
+        label = f"{n} x lx,ly 2000-5000, W={w}, RLE {'on' if rle else 'off'}"
+        d_tot = compare(f"K2 totals {label}", tk, tp, lut)
+        d_fwd = compare(f"K2-fwd grid {label}", fk, fp, lut)
+        d_post = compare(f"K2-bwd posteriors {label}", pk, pp, lut)
+        if not bool(tk.isfinite().all()):
+            raise AssertionError(f"K2 {label}: non-finite totals")
+        f_ms = cuda_ms(lambda: cuda_banded.fb_forward(pack, lut), reps=5)
+        b_ms = cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk, lut),
+                       reps=5)
+        for name, ms, pms, sweep, diff in (
+                ("K2-fwd", f_ms, pf_ms, "fwd", max(d_tot, d_fwd)),
+                ("K2-bwd", b_ms, pb_ms, "bwd", d_post)):
+            bms, by = bound_ms(*k2_work(pack, lut, sweep))
+            rows.append({"kernel": name, "shape": label, "lut": lut,
+                         "rows": pack.n_rows, "max_abs_err": diff,
+                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                         "bound_by": by})
+            log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel "
+                f"{ms:.2f} ms, plain {pms:.0f} ms, bound {bms:.4f} ms "
+                f"({by}), max|diff| {diff}")
+        del fk, pk, fp, pp
+    return rows
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+class Recorder:
+    """For the main-path run: sums each kernel's device time from CUDA
+    events recorded on the launch stream right before and after its C
+    launch call (so the wrappers' host-side checks are not counted), and
+    keeps the largest input each kernel was given. The launch counters
+    stay the wrappers' own."""
+
+    def __init__(self):
+        from margin_tpu_torch.ops import cuda_banded, pairhmm
+        self.pairhmm, self.cuda_banded = pairhmm, cuda_banded
+        self.orig = (pairhmm.forward_total, cuda_banded.fb_forward,
+                     pairhmm._k1, cuda_banded._k2)
+        self.events = {"K1": [], "K2-fwd": [], "K2-bwd": []}
+        self.k1_max = None    # (cells, tables, batch, use_lut)
+        self.k2_max = None    # (rows*W, pack, use_lut)
+
+    def _timed(self, name, fn):
+        import torch
+
+        def call(*args):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            rc = fn(*args)
+            e.record()
+            self.events[name].append((s, e))
+            return rc
+        return call
+
+    def install(self):
+        ft, ff, k1, k2 = self.orig
+        timed_k1 = self._timed("K1", k1())
+        lib = k2()
+
+        class TimedK2:
+            k2_forward = staticmethod(self._timed("K2-fwd", lib.k2_forward))
+            k2_backward = staticmethod(self._timed("K2-bwd",
+                                                   lib.k2_backward))
+
+        def forward_total(tables, batch, use_lut=False):
+            size = batch.xs.shape[0] * (batch.xs.shape[1]
+                                        + batch.ys.shape[1]) * \
+                (batch.ys.shape[1] + 1)
+            if self.k1_max is None or size > self.k1_max[0]:
+                self.k1_max = (size, tables, batch, use_lut)
+            return ft(tables, batch, use_lut)
+
+        def fb_forward(pack, use_lut):
+            if self.k2_max is None or pack.n_rows * pack.W > self.k2_max[0]:
+                self.k2_max = (pack.n_rows * pack.W, pack, use_lut)
+            return ff(pack, use_lut)
+        self.pairhmm.forward_total = forward_total
+        self.cuda_banded.fb_forward = fb_forward
+        self.pairhmm._k1 = lambda: timed_k1
+        self.cuda_banded._k2 = lambda: TimedK2
+
+    def restore(self):
+        (self.pairhmm.forward_total, self.cuda_banded.fb_forward,
+         self.pairhmm._k1, self.cuda_banded._k2) = self.orig
+
+    def kernel_ms(self):
+        torch_sync()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.events.items()}
+
+
+def run_cli(argv, log_path):
+    from margin_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch_sync()
+    wall = time.perf_counter() - t0
+    with open(log_path, "a") as fh:
+        fh.write(buf.getvalue())
+    if rc != 0:
+        raise RuntimeError(f"phase exited {rc}; log in {log_path}")
+    return wall
+
+
+def accuracy(ds, base):
+    """(phased share of the true het sites, haplotag agreement with the
+    simulated origin on tagged reads, tagged reads)."""
+    import struct
+    from margin_tpu_torch.io import bam as bamio
+    phased = total = 0
+    with open(f"{base}.phased.vcf") as fh:
+        for line in fh:
+            if line.startswith("#"):
+                continue
+            total += 1
+            phased += line.split("\t")[9].split(":")[0] in ("0|1", "1|0")
+    agree = tagged = 0
+    with bamio.BamReader(f"{base}.haplotagged.bam") as r:
+        for rec in r:
+            blob = rec.tags_blob()
+            i = blob.find(b"HPi")
+            if i < 0:
+                continue
+            hp = struct.unpack_from("<i", blob, i + 3)[0]
+            tagged += 1
+            agree += hp == ds.read_hap[rec.name]
+    share = agree / max(tagged, 1)
+    # haplotype labels are arbitrary: score the better of the two
+    return phased / max(total, 1), max(share, 1 - share), tagged
+
+
+def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
+              n_sv=30, region_len=200_000):
+    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
+    from margin_tpu_torch.testing.synth import SynthConfig, write_dataset
+    t0 = time.perf_counter()
+    ds = write_dataset(work, SynthConfig(
+        contig_len=contig_len, coverage=30.0, read_len=(5000, 30000),
+        n_snv=n_snv, n_sv=n_sv, sv_len=(50, 2000), sv_short_fraction=2 / 3,
+        sv_short_max=500, sv_min_gap=min(27_000, contig_len // (n_sv + 1)),
+        p_sub=0.03, p_ins=0.02, p_del=0.03, sv_handling=50,
+        sv_expansion=1024, seed=7))
+    gen_s = time.perf_counter() - t0
+    n_sv_true = sum(v.kind != "snv" for v in ds.variants)
+    log(f"dataset: {contig_len} bp, {len(ds.read_hap)} reads, "
+        f"{len(ds.variants)} het variants ({n_sv_true} SVs), "
+        f"generated in {gen_s:.1f} s")
+    log_path = os.path.join(out_dir, "chip_smoke_phase.log")
+    common = [ds.bam, ds.fasta, ds.params, ds.vcf, "--device", device]
+
+    # --- the main path: counters zeroed right before, read right after
+    from margin_tpu_torch.parallel.executor import DEVICE_STATS
+    rec = Recorder()
+    rec.install()
+    banded.ROUTES.reset()
+    DEVICE_STATS.reset()
+    pairhmm.FORWARD_TOTAL.launches = 0
+    cuda_banded.FB_FORWARD.launches = 0
+    cuda_banded.FB_BACKWARD.launches = 0
+    try:
+        wall = run_cli(["phase"] + common + ["-o", f"{work}/full",
+                                            "--profile"], log_path)
+    finally:
+        rec.restore()
+    launches = {"K1": pairhmm.FORWARD_TOTAL.launches,
+                "K2-fwd": cuda_banded.FB_FORWARD.launches,
+                "K2-bwd": cuda_banded.FB_BACKWARD.launches}
+    routes = {"k2_items": banded.ROUTES.pack_items,
+              "host_items": banded.ROUTES.host_items,
+              "packs": banded.ROUTES.packs}
+    scoring = DEVICE_STATS.snapshot()
+    kms = rec.kernel_ms()
+    with open(f"{work}/full.profile.json") as fh:
+        prof = json.load(fh)
+    phased, agree, tagged = accuracy(ds, f"{work}/full")
+    log(f"phase 1 Mb: wall {wall:.1f} s; launches {launches}; kernel ms "
+        f"{ {k: round(v, 1) for k, v in kms.items()} }; SV items: "
+        f"{routes['k2_items']} on K2 in {routes['packs']} packs, "
+        f"{routes['host_items']} on the host engine; phased "
+        f"{phased:.3f} of true hets; haplotag agreement {agree:.4f} on "
+        f"{tagged} reads")
+    log(f"scoring calls (dense batches + banded packs): {scoring}")
+    log(f"stages: {prof.get('stages_s')}; chunk stages: "
+        f"{prof.get('chunk_stage_totals_s')}")
+    if launches["K1"] == 0 or launches["K2-fwd"] == 0 \
+            or launches["K2-bwd"] == 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    if phased < 0.5:
+        raise AssertionError(f"only {phased:.3f} of the het sites phased")
+    if agree < 0.9:
+        raise AssertionError(f"haplotag agreement {agree:.4f} < 0.9")
+
+    # --- a sub-region through the kernels, then through the plain twins
+    mid = contig_len // 2
+    region = (f"{ds.contig}:{mid - region_len // 2 + 1}-"
+              f"{mid + region_len // 2}")
+    t0 = time.perf_counter()
+    run_cli(["phase"] + common + ["-o", f"{work}/kern", "-r", region,
+                                  "-a", "CRITICAL"], log_path)
+    kern_s = time.perf_counter() - t0
+    saved = (pairhmm.forward_total, cuda_banded.fb_forward,
+             cuda_banded.fb_backward)
+    pairhmm.forward_total = pairhmm.forward_total_plain
+    cuda_banded.fb_forward = cuda_banded.fb_forward_plain
+    cuda_banded.fb_backward = cuda_banded.fb_backward_plain
+    try:
+        t0 = time.perf_counter()
+        run_cli(["phase"] + common + ["-o", f"{work}/plain", "-r", region,
+                                      "-a", "CRITICAL"], log_path)
+        plain_s = time.perf_counter() - t0
+    finally:
+        (pairhmm.forward_total, cuda_banded.fb_forward,
+         cuda_banded.fb_backward) = saved
+    for ext in ("phased.vcf", "phaseset.bed"):
+        with open(f"{work}/kern.{ext}", "rb") as a, \
+                open(f"{work}/plain.{ext}", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{region}: kernel and plain {ext} "
+                                     "differ")
+    log(f"{region}: kernels {kern_s:.1f} s, plain twins {plain_s:.1f} s, "
+        "phased VCF and phaseset.bed byte-identical")
+    return {"wall_s": wall, "launches": launches, "routes": routes,
+            "kernel_ms": kms, "scoring": scoring, "phased_share": phased,
+            "haplotag_agreement": agree, "tagged_reads": tagged,
+            "profile": prof, "region": region, "region_kernel_s": kern_s,
+            "region_plain_s": plain_s, "dataset_s": gen_s}, rec
+
+
+def phase_main_path_shapes(rec):
+    """Each kernel against its twin on the largest input the main path
+    gave it."""
+    from margin_tpu_torch.ops import cuda_banded, pairhmm
+    out = {}
+    _, tabs, batch, lut = rec.k1_max
+    got = pairhmm.forward_total(tabs, batch, use_lut=lut)
+    torch_sync()
+    t0 = time.perf_counter()
+    want = pairhmm.forward_total_plain(tabs, batch, use_lut=lut)
+    torch_sync()
+    p1 = (time.perf_counter() - t0) * 1e3
+    d1 = compare("K1 main-path batch", got, want, lut)
+    ops, nbytes = k1_work(batch, tabs, lut)
+    bms, by = bound_ms(ops, nbytes)
+    shape = f"B={batch.xs.shape[0]} Lx={batch.xs.shape[1]} " \
+        f"Ly={batch.ys.shape[1]}"
+    out["K1"] = {"shape": shape, "max_abs_err": d1,
+                 "ms": cuda_ms(lambda: pairhmm.forward_total(tabs, batch,
+                                                             lut)),
+                 "plain_ms": p1,
+                 "bound_ms": bms, "bound_by": by}
+    _, pack, lut = rec.k2_max
+    fk, tk = cuda_banded.fb_forward(pack, lut)
+    pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+    t0 = time.perf_counter()
+    fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+    torch_sync()
+    pf = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pp = cuda_banded.fb_backward_plain(pack, fp, tp, lut)
+    torch_sync()
+    pb = (time.perf_counter() - t0) * 1e3
+    d_f = max(compare("K2 main-path totals", tk, tp, lut),
+              compare("K2-fwd main-path grid", fk, fp, lut))
+    d_b = compare("K2-bwd main-path posteriors", pk, pp, lut)
+    shape = f"B={pack.B} rows={pack.n_rows} W={pack.W}"
+    for name, sweep, pms, diff, fn in (
+            ("K2-fwd", "fwd", pf, d_f,
+             lambda: cuda_banded.fb_forward(pack, lut)),
+            ("K2-bwd", "bwd", pb, d_b,
+             lambda: cuda_banded.fb_backward(pack, fk, tk, lut))):
+        bms, by = bound_ms(*k2_work(pack, lut, sweep))
+        out[name] = {"shape": shape, "max_abs_err": diff, "ms": cuda_ms(fn),
+                     "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+    for k, v in out.items():
+        log(f"{k} on the main path's largest input ({v['shape']}): kernel "
+            f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']}), max|diff| "
+            f"{v['max_abs_err']}")
+    return out
+
+
+SOURCES = {
+    "K1": ("margin_tpu_torch/csrc/pairhmm_forward.cu",
+           "margin_tpu/ops/pairhmm.py:194"),
+    "K2-fwd": ("margin_tpu_torch/csrc/banded_fb.cu",
+               "margin_tpu/ops/pallas_banded.py:174"),
+    "K2-bwd": ("margin_tpu_torch/csrc/banded_fb.cu",
+               "margin_tpu/ops/pallas_banded.py:253"),
+}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script measures the GPU port only",
+              file=sys.stderr)
+        return 2
+    if not os.path.isfile(os.path.join(ROOT, "margin_tpu_torch",
+                                       "__init__.py")):
+        print("chip_smoke: run from a checkout of the repository (no "
+              "margin_tpu_torch package beside this script)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    card = card_line()
+    log(f"card: {card}")
+    t_start = time.perf_counter()
+    report = {"card": card, "device": torch.cuda.get_device_name(0)}
+    report["build"] = phase_build()
+    report["k1"] = phase_k1("cuda")
+    report["k2"] = phase_k2("cuda")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        report["phase"], rec = phase_e2e("cuda", work, out_dir)
+        report["main_path_shapes"] = phase_main_path_shapes(rec)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["total_s"] = time.perf_counter() - t_start
+    kernels = []
+    for name, (src, rep) in SOURCES.items():
+        m = report["main_path_shapes"][name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep,
+                        "launches": report["phase"]["launches"][name],
+                        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                        "bound_by": m["bound_by"], "library_ms": None})
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
+        json.dump(report, fh, indent=1, default=str)
+    log(f"total {report['total_s']:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,319 @@
+"""Seeded synthetic dataset for `margin phase`: numpy only, nothing read
+from outside the repository.
+
+`write_dataset(out_dir, SynthConfig(...))` writes:
+  * ref.fa          a random reference contig;
+  * calls.vcf       het SNVs and het SVs (insertions and deletions) as
+                    unphased 0/1 calls, PASS;
+  * reads.bam(.bai) ONT-like reads drawn from the two haplotypes on both
+                    strands, with substitution, insertion and deletion
+                    errors and their true alignments to the reference;
+                    read names carry the source haplotype ("..._h1");
+  * params.json     the default nucleotide HMM
+                    (StateMachineParams.default_nucleotide) in the
+                    `from_hmm_json` format, with SV handling on
+                    (phase.indelSizeForSVHandling).
+and returns the paths with the truth (het sites, read origins).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import struct
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from margin_tpu_torch.io import bam as bamio
+from margin_tpu_torch.io.fasta import write_fasta
+from margin_tpu_torch.params import StateMachineParams
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+_NT16 = np.full(256, 15, dtype=np.uint8)
+for _i, _c in enumerate(b"=ACMGRSVTWYHKDBN"):
+    _NT16[_c] = _i
+M, I, D, S = 0, 1, 2, 4  # BAM cigar ops
+
+
+@dataclass
+class SynthConfig:
+    contig: str = "chr1"
+    contig_len: int = 20_000
+    coverage: float = 12.0
+    read_len: Tuple[int, int] = (2000, 6000)
+    n_snv: int = 15
+    n_sv: int = 2
+    sv_len: Tuple[int, int] = (100, 300)
+    sv_short_fraction: float = 1.0   # share of SVs below sv_short_max
+    sv_short_max: int = 500
+    sv_min_gap: int = 5000           # between SVs, and from the ends
+    p_sub: float = 0.03
+    p_ins: float = 0.02
+    p_del: float = 0.03
+    sv_handling: int = 50            # phase.indelSizeForSVHandling
+    sv_expansion: int = 1024         # referenceExpansionForStructuralVariants
+    seed: int = 0
+
+
+@dataclass
+class Variant:
+    pos: int          # 0-based reference position of the first REF base
+    ref: str
+    alt: str
+    hap: int          # haplotype (1 or 2) carrying ALT
+    kind: str         # "snv", "ins" or "del"
+
+
+@dataclass
+class SynthDataset:
+    bam: str
+    fasta: str
+    vcf: str
+    params: str
+    contig: str
+    variants: List[Variant] = field(default_factory=list)
+    read_hap: Dict[str, int] = field(default_factory=dict)
+
+
+def hmm_json(sm: StateMachineParams) -> dict:
+    """The asymmetric (type 3) trained-HMM JSON whose `from_hmm_json`
+    load gives back `sm` (params.py:101-128)."""
+    e = math.exp
+    trans = [[e(sm.t_match_continue), e(sm.t_gap_open_x), e(sm.t_gap_open_y)],
+             [e(sm.t_match_from_gap_x), e(sm.t_gap_extend_x),
+              e(sm.t_gap_switch_to_y)],
+             [e(sm.t_match_from_gap_y), e(sm.t_gap_switch_to_x),
+              e(sm.t_gap_extend_y)]]
+    emissions = (np.exp(sm.match_probs[:4, :4]).ravel().tolist()
+                 + np.exp(sm.gap_x_probs[:4]).tolist()
+                 + np.exp(sm.gap_y_probs[:4]).tolist())
+    return {"type": 3, "emissionsType": 0,
+            "transitions": [v for row in trans for v in row],
+            "emissions": emissions}
+
+
+def build_bam_record(name: str, flag: int, ref_id: int, pos: int, mapq: int,
+                     cigar: List[Tuple[int, int]], seq: bytes,
+                     quals: Optional[bytes], tags: bytes = b"",
+                     mate_ref_id: int = -1, mate_pos: int = -1,
+                     tlen: int = 0) -> bytes:
+    """A BAM-format record payload (copy of margin_tpu/io/cram.py:565,
+    returning the raw bytes; the 4-bit sequence packing is vectorised)."""
+    name_b = name.encode() + b"\x00"
+    cigar_b = b"".join(struct.pack("<I", (ln << 4) | op) for op, ln in cigar)
+    codes = _NT16[np.frombuffer(seq, dtype=np.uint8)]
+    if len(codes) % 2:
+        codes = np.append(codes, 0)
+    seq_b = ((codes[0::2] << 4) | codes[1::2]).astype(np.uint8).tobytes()
+    qual_b = quals if quals is not None else b"\xff" * len(seq)
+    return struct.pack("<iiBBHHHiiii", ref_id, pos, len(name_b), mapq, 0,
+                       len(cigar), flag, len(seq), mate_ref_id, mate_pos,
+                       tlen) + name_b + cigar_b + seq_b + qual_b + tags
+
+
+def _place_variants(rng, cfg: SynthConfig, ref: np.ndarray) -> List[Variant]:
+    L = cfg.contig_len
+    taken = np.zeros(L, dtype=bool)
+    out: List[Variant] = []
+    # SVs: evenly spread slots, jittered, at least sv_min_gap apart
+    n_sv = cfg.n_sv
+    if n_sv:
+        span = L - 2 * cfg.sv_min_gap
+        if span < 0 or (n_sv > 1 and span / (n_sv - 1) < cfg.sv_min_gap):
+            raise ValueError("contig too short for the SVs asked for")
+        slots = (np.linspace(cfg.sv_min_gap, L - cfg.sv_min_gap, n_sv)
+                 if n_sv > 1 else np.array([L / 2]))
+        jitter = max(0, int((span / max(n_sv - 1, 1) - cfg.sv_min_gap) / 2))
+        n_short = int(round(cfg.sv_short_fraction * n_sv))
+        for j, c in enumerate(slots):
+            p = int(c) + (int(rng.integers(-jitter, jitter + 1))
+                          if jitter else 0)
+            lo, hi = cfg.sv_len
+            if j < n_short:
+                ln = int(rng.integers(lo, min(hi, cfg.sv_short_max) + 1))
+            else:
+                ln = int(rng.integers(max(lo, cfg.sv_short_max), hi + 1))
+            hap = int(rng.integers(1, 3))
+            r0 = chr(ref[p])
+            if rng.random() < 0.5:
+                ins = _BASES[rng.integers(0, 4, ln)].tobytes().decode()
+                out.append(Variant(p, r0, r0 + ins, hap, "ins"))
+                taken[max(0, p - 300):p + 300] = True
+            else:
+                seq = ref[p:p + 1 + ln].tobytes().decode()
+                out.append(Variant(p, seq, r0, hap, "del"))
+                taken[max(0, p - 300):p + ln + 300] = True
+    # het SNVs, at least 50 bp apart and away from the SVs
+    n = 0
+    tries = 0
+    while n < cfg.n_snv and tries < 100 * cfg.n_snv:
+        tries += 1
+        p = int(rng.integers(200, L - 200))
+        if taken[p]:
+            continue
+        taken[max(0, p - 50):p + 50] = True
+        r0 = chr(ref[p])
+        alt = chr(_BASES[(int(np.nonzero(_BASES == ref[p])[0][0])
+                          + int(rng.integers(1, 4))) % 4])
+        out.append(Variant(p, r0, alt, int(rng.integers(1, 3)), "snv"))
+        n += 1
+    out.sort(key=lambda v: v.pos)
+    return out
+
+
+def _haplotype(ref: np.ndarray, variants: List[Variant], hap: int):
+    """Sequence of haplotype `hap` and its map to the reference (-1 for
+    inserted bases)."""
+    seqs, maps = [], []
+    cur = 0
+    for v in variants:
+        if v.hap != hap:
+            continue
+        seqs.append(ref[cur:v.pos])
+        maps.append(np.arange(cur, v.pos))
+        alt = np.frombuffer(v.alt.encode(), dtype=np.uint8)
+        if v.kind == "snv":
+            seqs.append(alt)
+            maps.append(np.array([v.pos]))
+            cur = v.pos + 1
+        elif v.kind == "ins":
+            seqs.append(alt)
+            maps.append(np.concatenate([[v.pos],
+                                        np.full(len(alt) - 1, -1)]))
+            cur = v.pos + 1
+        else:  # deletion keeps the first REF base
+            seqs.append(alt)
+            maps.append(np.array([v.pos]))
+            cur = v.pos + len(v.ref)
+    seqs.append(ref[cur:])
+    maps.append(np.arange(cur, len(ref)))
+    return (np.concatenate(seqs).astype(np.uint8),
+            np.concatenate(maps).astype(np.int64))
+
+
+def _read_alignment(rng, cfg: SynthConfig, hap_seq, hap_map, start, end):
+    """Sample one read from hap_seq[start:end] with errors; returns
+    (ref_pos, cigar, read bases) or None if nothing aligns."""
+    hb = hap_seq[start:end]
+    m = hap_map[start:end]
+    n = len(hb)
+    u = rng.random(n)
+    deleted = u < cfg.p_del
+    sub = (u >= cfg.p_del) & (u < cfg.p_del + cfg.p_sub)
+    hb = hb.copy()
+    shift = rng.integers(1, 4, int(sub.sum()))
+    idx = np.searchsorted(_BASES, hb[sub])
+    hb[sub] = _BASES[(idx + shift) % 4]
+    ins = (rng.random(n) < cfg.p_ins).astype(np.int64)
+    mapped = m >= 0
+    # reference bases skipped before each mapped hap base (haplotype
+    # deletions), none before the read's first mapped base
+    last = np.maximum.accumulate(np.where(mapped, m, -1))
+    prev = np.concatenate([[-1], last[:-1]])
+    dref = np.where(mapped & (prev >= 0), m - prev - 1, 0)
+    keep_op = np.where(mapped, np.where(deleted, D, M),
+                       np.where(deleted, -1, I))
+    keep_n = (keep_op >= 0).astype(np.int64)
+    seg_n = np.stack([dref, ins, keep_n], axis=1).ravel()
+    seg_op = np.stack([np.full(n, D), np.full(n, I), keep_op],
+                      axis=1).ravel()
+    cols = np.repeat(seg_op, seg_n)
+    emit_n = np.stack([np.zeros(n, np.int64), ins,
+                       (keep_op == M) | (keep_op == I)], axis=1).ravel()
+    seg_id = np.repeat(np.arange(3 * n), emit_n.astype(np.int64))
+    kind = seg_id % 3
+    rnd = _BASES[rng.integers(0, 4, len(seg_id))]
+    bases = np.where(kind == 2, hb[seg_id // 3], rnd).astype(np.uint8)
+    is_m = np.nonzero(cols == M)[0]
+    if len(is_m) == 0:
+        return None
+    first, last_m = int(is_m[0]), int(is_m[-1])
+    lead, trail = cols[:first], cols[last_m + 1:]
+    body = cols[first:last_m + 1]
+    first_ref = int(m[np.nonzero(mapped)[0][0]])
+    pos = first_ref + int((lead == D).sum())
+    clip_l, clip_r = int((lead == I).sum()), int((trail == I).sum())
+    cigar = []
+    if clip_l:
+        cigar.append((S, clip_l))
+    change = np.nonzero(np.diff(body))[0] + 1
+    starts = np.concatenate([[0], change])
+    lens = np.diff(np.concatenate([starts, [len(body)]]))
+    cigar += [(int(body[s]), int(ln)) for s, ln in zip(starts, lens)]
+    if clip_r:
+        cigar.append((S, clip_r))
+    return pos, cigar, bases
+
+
+def write_dataset(out_dir: str, cfg: SynthConfig) -> SynthDataset:
+    rng = np.random.default_rng(cfg.seed)
+    os.makedirs(out_dir, exist_ok=True)
+    ref = _BASES[rng.integers(0, 4, cfg.contig_len)]
+    variants = _place_variants(rng, cfg, ref)
+    haps = {h: _haplotype(ref, variants, h) for h in (1, 2)}
+
+    fasta = os.path.join(out_dir, "ref.fa")
+    write_fasta(fasta, [(cfg.contig, ref.tobytes().decode())])
+
+    vcf = os.path.join(out_dir, "calls.vcf")
+    with open(vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write(f"##contig=<ID={cfg.contig},length={cfg.contig_len}>\n")
+        fh.write('##FORMAT=<ID=GT,Number=1,Type=String,'
+                 'Description="Genotype">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"
+                 "\tSAMPLE\n")
+        for v in variants:
+            info = "." if v.kind == "snv" else \
+                f"SVTYPE={'INS' if v.kind == 'ins' else 'DEL'}"
+            fh.write(f"{cfg.contig}\t{v.pos + 1}\t.\t{v.ref}\t{v.alt}\t50"
+                     f"\tPASS\t{info}\tGT\t0/1\n")
+
+    # reads: per haplotype, half the coverage each, both strands
+    records = []
+    read_hap: Dict[str, int] = {}
+    lo, hi = cfg.read_len
+    target = cfg.coverage * cfg.contig_len
+    total, idx = 0, 0
+    while total < target:
+        h = 1 + idx % 2
+        seq, hmap = haps[h]
+        ln = int(rng.integers(lo, hi + 1))
+        ln = min(ln, len(seq))
+        start = int(rng.integers(0, len(seq) - ln + 1))
+        aln = _read_alignment(rng, cfg, seq, hmap, start, start + ln)
+        if aln is None:
+            continue
+        pos, cigar, bases = aln
+        name = f"read{idx:06d}_h{h}"
+        reverse = bool(rng.integers(0, 2))
+        quals = rng.integers(8, 30, len(bases)).astype(np.uint8).tobytes()
+        raw = build_bam_record(name, 16 if reverse else 0, 0, pos, 60, cigar,
+                               bases.tobytes(), quals)
+        records.append((pos, name, raw))
+        read_hap[name] = h
+        total += len(bases)
+        idx += 1
+    records.sort(key=lambda r: (r[0], r[1]))
+    bam = os.path.join(out_dir, "reads.bam")
+    header = bamio.BamHeader(
+        f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{cfg.contig}\t"
+        f"LN:{cfg.contig_len}\n", [cfg.contig], [cfg.contig_len])
+    with bamio.BamWriter(bam, header) as w:
+        for _, _, raw in records:
+            w.write_raw(raw)
+    bamio.build_bai(bam)
+
+    params = os.path.join(out_dir, "params.json")
+    sm = StateMachineParams.default_nucleotide()
+    with open(params, "w") as fh:
+        json.dump({"polish": {"hmmForwardStrandReadGivenReference":
+                              hmm_json(sm)},
+                   "phase": {"indelSizeForSVHandling": cfg.sv_handling,
+                             "referenceExpansionForStructuralVariants":
+                                 cfg.sv_expansion}}, fh, indent=1)
+    return SynthDataset(bam, fasta, vcf, params, cfg.contig, variants,
+                        read_hap)
