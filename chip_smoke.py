@@ -1,28 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase` on one
-NVIDIA GPU and check it end to end.
+"""Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase` and
+haploid `margin polish` on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      and the host C++ engines from the checkout's sources, in parallel;
-  2. hold every kernel against its plain PyTorch twin on the card, at the
-     benchmark shapes: K1 on 131072 pairs of 29x32 and on a ragged batch
-     with lx, ly in 1..1024 (RLE on and off); K2 on packs of 128 problems
-     with lx, ly ~ 2000-5000 at band widths 32 and 128, RLE on and off. LUT
-     logAdd: identical bits; exact logAdd: max |diff| <= 1e-4;
+  2. hold every kernel against its plain PyTorch twin on the card: K1 on
+     131072 pairs of 29x32 and on a ragged batch with lx, ly in 1..1024
+     (RLE on and off); K2 on packs of 128 problems with lx, ly ~ 500-1200
+     at band widths 32 and 128, RLE on and off, and timed on packs of
+     lx, ly ~ 2000-5000. LUT logAdd: identical bits; exact logAdd:
+     max |diff| <= 1e-4;
   3. run `python -m margin_tpu_torch phase` (its `cli.main`, LUT logAdd)
      on a seeded synthetic 1 Mb contig at 30x (5-30 kb reads, ~8% errors,
      ~1000 het SNVs, 30 het SVs of 50-2000 bp); the launch counters are
      zeroed right before and read right after. Checks: K1 and K2 launched,
      >= half the true het sites phased, haplotags agree with the simulated
      origin on >= 90% of tagged reads;
-  4. rerun a 200 kb sub-region with the kernels and then with the plain
+  4. rerun a 100 kb sub-region with the kernels and then with the plain
      twins bound in their place: byte-identical phased VCF and
      phaseset.bed;
+  2b. hold the segmented kernels K3-fwd / K3-bwd against K2 on packs of 64
+     problems with lx, ly ~ 2000-5000 (identical words and totals) and
+     against their twins on packs of lx, ly ~ 500-1200 (LUT: identical
+     words and totals; exact: totals within 1e-4, identical pair sets), at
+     widths 32 and 128, RLE on and off, both logAdds, in segments of 256
+     diagonals;
+     then time K3 alone on a deep pack (128 problems, lx, ly ~ 30k-70k,
+     W = 32, the default segment depth);
   5. hold each kernel against its twin, and time both, on the largest
-     batch / pack the main path gave it (for K2: W=128, RLE off, LUT).
+     batch / pack the phase run gave it (for K2: W=128, RLE off, LUT);
+  6. run `python -m margin_tpu_torch polish` (cli.main, LUT logAdd) on a
+     seeded synthetic 205 kb draft at 30x (5-30 kb reads, ~8% errors,
+     100 kb chunks with 1 kb boundaries: three chunks, two stitch seams;
+     205 kb, cut from 300 kb to keep the run near four minutes, the last
+     chunk 5 kb);
+     launch counters zeroed right before, read right after. Checks: K1,
+     K2 and K3 launched, items on the segmented route, and the polished
+     contig's edit distance to the truth at most half the draft's;
+  7. polish a 4 kb sub-region in process (run_polish, no POA-consensus
+     iteration) with SEG_MIN_D lowered to 2048, through the kernels and
+     then through the plain twins bound in their place: byte-identical
+     FASTA; then hold K3 against its
+     twin and against K2 on the largest K3 pack of phase 6 (cut to its
+     shallowest problems so the twin stays within about a minute).
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -140,8 +163,8 @@ def k1_batch(device, B, lx_range, ly_range, seed, rle=False):
                               rep_pairs=reps, device=device)
 
 
-def k2_items(n, w_bucket, expansion, seed, rle):
-    """n problems with lx ~ 2000-5000: y an erroneous copy of x, anchored
+def k2_items(n, w_bucket, expansion, seed, rle, lx_range=(2000, 5000)):
+    """n problems with lx in lx_range: y an erroneous copy of x, anchored
     every few bases along the true alignment so every band falls in the
     width bucket w_bucket (32 or 128)."""
     import numpy as np
@@ -151,7 +174,7 @@ def k2_items(n, w_bucket, expansion, seed, rle):
     lo = {32: 16, 128: 64}[w_bucket]
     items = []
     while len(items) < n:
-        lx = int(rng.integers(2000, 5001))
+        lx = int(rng.integers(lx_range[0], lx_range[1] + 1))
         x = rng.integers(0, 4, lx).astype(np.uint8)
         y = x.copy()
         flip = rng.random(lx) < 0.06
@@ -208,6 +231,109 @@ def k2_work(pack, lut, sweep):
     return cells * bwd_ops_per_cell(lut), nbytes + 2 * grid + 4 * pack.B
 
 
+def k3_work(pack, lut, sweep, seg_d, n_words=0):
+    """The segmented sweeps' work on their inputs: the forward's cell
+    operations and its checkpoints and totals written (K3-fwd); the
+    backward's cell operations, the checkpoints read and the words written
+    (K3-bwd). The recompute is the design's cost, not work."""
+    from margin_tpu_torch.ops import banded, cuda_banded
+    cells = sum(banded._true_band_cells(g) for g in pack.geoms)
+    nbytes = (pack.xs.numel() + pack.ys.numel() + 12 * pack.n_rows
+              + pack.B * (4 * (35 + 9 + 6) + 4 * 5 + 8 * 3))
+    if pack.rep_x is not None:
+        nbytes += 4 * (pack.xs.numel() + pack.ys.numel())
+        nbytes += pack.rep_tab.numel() * 4
+    ckpt = cuda_banded.seg_layout(pack, seg_d)[1] * 2 * 3 * pack.W * 4
+    if sweep == "fwd":
+        return cells * fwd_ops_per_cell(lut), nbytes + ckpt + 4 * pack.B
+    return (cells * bwd_ops_per_cell(lut),
+            nbytes + ckpt + 4 * pack.B + 8 * n_words)
+
+
+def word_set(totals, lo, hi):
+    """(totals as host float32, {(lo, hi)}) of one pack's extraction."""
+    return (totals.cpu().numpy(),
+            set(zip(lo.cpu().tolist(), hi.cpu().tolist())))
+
+
+def compare_words(name, got, want, lut):
+    """LUT: identical totals and words; exact: totals within 1e-4 and
+    identical pair sets (problem, state, diagonal, k). Returns max
+    |diff| of the totals."""
+    (tg, wg), (tw, ww) = got, want
+    diff = float(abs(tg - tw).max()) if len(tg) else 0.0
+    if lut:
+        if not (diff == 0.0 and (tg == tw).all() and wg == ww):
+            raise AssertionError(f"{name}: LUT results differ (totals "
+                                 f"{diff}, words {len(wg ^ ww)})")
+        return 0.0
+    cells = {(h, lo >> 24) for lo, h in wg}
+    if not (diff <= 1e-4 and cells == {(h, lo >> 24) for lo, h in ww}):
+        raise AssertionError(f"{name}: exact results differ (totals "
+                             f"{diff})")
+    return diff
+
+
+def k2_words(pack, lut, threshold=0.01):
+    """The monolithic kernels' extraction words of a pack."""
+    from margin_tpu_torch.ops import banded, cuda_banded
+    fk, tk = cuda_banded.fb_forward(pack, lut)
+    pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+    packed = banded.extract_packed(pk, tk, pack, threshold).cpu().numpy()
+    n, c = pack.B, int(packed[0])
+    return (packed[1:1 + n].view("float32"),
+            set(zip(packed[1 + n:1 + n + c].tolist(),
+                    packed[1 + n + c:].tolist())))
+
+
+def k3_run(pack, lut, seg_d, threshold=0.01):
+    """K3-fwd then K3-bwd on a pack: (ckpt, totals, lo, hi)."""
+    from margin_tpu_torch.ops import cuda_banded
+    ck, tk = cuda_banded.seg_forward(pack, lut, seg_d)
+    lo, hi = cuda_banded.seg_backward(pack, ck, tk, lut, seg_d, threshold)
+    if not bool(tk.isfinite().all()):
+        raise AssertionError("K3: non-finite totals")
+    return ck, tk, lo, hi
+
+
+def k3_against(pack, lut, seg_d, label, threshold=0.01, twin=True):
+    """K3 against K2 and (twin=True) against its twin on one pack, with
+    the times of both sweeps; returns the rows for K3-fwd and K3-bwd."""
+    from margin_tpu_torch.ops import cuda_banded
+    ck, tk, lo, hi = k3_run(pack, lut, seg_d, threshold)
+    got = word_set(tk, lo, hi)
+    compare_words(f"K3 vs K2 {label}", got, k2_words(pack, lut, threshold),
+                  True)
+    diff, pf_ms, pb_ms = None, None, None
+    if twin:
+        t0 = time.perf_counter()
+        cp, tp = cuda_banded.seg_forward_plain(pack, lut, seg_d)
+        torch_sync()
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        lp, hp = cuda_banded.seg_backward_plain(pack, cp, tp, lut, seg_d,
+                                                threshold)
+        torch_sync()
+        pb_ms = (time.perf_counter() - t0) * 1e3
+        diff = compare_words(f"K3 {label}", got, word_set(tp, lp, hp), lut)
+    f_ms = cuda_ms(lambda: cuda_banded.seg_forward(pack, lut, seg_d), reps=3)
+    b_ms = cuda_ms(lambda: cuda_banded.seg_backward(
+        pack, ck, tk, lut, seg_d, threshold, cap=lo.numel() + 1), reps=3)
+    rows = []
+    for name, ms, pms, sweep in (("K3-fwd", f_ms, pf_ms, "fwd"),
+                                 ("K3-bwd", b_ms, pb_ms, "bwd")):
+        bms, by = bound_ms(*k3_work(pack, lut, sweep, seg_d, lo.numel()))
+        rows.append({"kernel": name, "shape": label, "lut": lut,
+                     "rows": pack.n_rows, "words": lo.numel(),
+                     "max_abs_err": diff, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by})
+        plain = "" if pms is None else f", plain {pms:.0f} ms"
+        log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel {ms:.2f} "
+            f"ms{plain}, bound {bms:.4f} ms ({by}); words equal K2's"
+            + ("" if diff is None else f" and the twin's (max|diff| {diff})"))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -226,14 +352,14 @@ def card_line():
 def phase_build():
     from margin_tpu_torch import _ext
     t0 = time.perf_counter()
-    names = list(_ext.KERNEL_SOURCES) + ["marginio", "marginfb", "marginrp"]
+    names = list(_ext.KERNEL_SOURCES) + list(_ext.NATIVE_ENGINES)
     errors = _ext.build(names, log=log)
     for k in _ext.KERNEL_SOURCES:
         if errors[k] is not None:
             raise RuntimeError(f"kernel {k} failed to build:\n{errors[k]}")
         _ext.kernel_lib(k)
     engines = {n: _ext.native_lib(n) is not None
-               for n in ("marginio", "marginfb", "marginrp")}
+               for n in _ext.NATIVE_ENGINES}
     for n, ok in engines.items():
         if not ok:  # the port then takes the pure-Python host path
             tail = [ln for ln in (errors.get(n) or "").splitlines()
@@ -276,48 +402,106 @@ def phase_k1(device):
 
 
 def phase_k2(device, n=128):
+    """K2 timed on packs of lx, ly 2000-5000 and held against its twins on
+    packs of lx, ly 500-1200 (the twins walk ~1 ms per diagonal)."""
     from margin_tpu_torch.ops import cuda_banded
     rows = []
-    # every width, RLE state and logAdd flavour appears; the plain twins,
-    # a Python loop over ~10^4 diagonals, run once per configuration
+    # every width, RLE state and logAdd flavour appears
     configs = [(32, False, True), (32, True, False), (128, True, True),
                (128, False, False)]
     for ci, (w, rle, lut) in enumerate(configs):
         tabs = tables(device, rle)
-        items = k2_items(n, w, 20, seed=200 + ci, rle=rle)
-        pack = k2_pack(device, tabs, items, w, 20, rle)
-        fk, tk = cuda_banded.fb_forward(pack, lut)
-        pk = cuda_banded.fb_backward(pack, fk, tk, lut)
-        t0 = time.perf_counter()
-        fp, tp = cuda_banded.fb_forward_plain(pack, lut)
-        torch_sync()
-        pf_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        pp = cuda_banded.fb_backward_plain(pack, fp, tp, lut)
-        torch_sync()
-        pb_ms = (time.perf_counter() - t0) * 1e3
-        label = f"{n} x lx,ly 2000-5000, W={w}, RLE {'on' if rle else 'off'}"
-        d_tot = compare(f"K2 totals {label}", tk, tp, lut)
-        d_fwd = compare(f"K2-fwd grid {label}", fk, fp, lut)
-        d_post = compare(f"K2-bwd posteriors {label}", pk, pp, lut)
-        if not bool(tk.isfinite().all()):
-            raise AssertionError(f"K2 {label}: non-finite totals")
-        f_ms = cuda_ms(lambda: cuda_banded.fb_forward(pack, lut), reps=5)
-        b_ms = cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk, lut),
-                       reps=5)
-        for name, ms, pms, sweep, diff in (
-                ("K2-fwd", f_ms, pf_ms, "fwd", max(d_tot, d_fwd)),
-                ("K2-bwd", b_ms, pb_ms, "bwd", d_post)):
-            bms, by = bound_ms(*k2_work(pack, lut, sweep))
-            rows.append({"kernel": name, "shape": label, "lut": lut,
-                         "rows": pack.n_rows, "max_abs_err": diff,
-                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                         "bound_by": by})
-            log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel "
-                f"{ms:.2f} ms, plain {pms:.0f} ms, bound {bms:.4f} ms "
-                f"({by}), max|diff| {diff}")
-        del fk, pk, fp, pp
+        for lx_range, twin in (((2000, 5000), False), ((500, 1200), True)):
+            items = k2_items(n, w, 20, seed=200 + 10 * ci + twin, rle=rle,
+                             lx_range=lx_range)
+            pack = k2_pack(device, tabs, items, w, 20, rle)
+            label = (f"{n} x lx,ly {lx_range[0]}-{lx_range[1]}, W={w}, RLE "
+                     f"{'on' if rle else 'off'}")
+            fk, tk = cuda_banded.fb_forward(pack, lut)
+            pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+            if not bool(tk.isfinite().all()):
+                raise AssertionError(f"K2 {label}: non-finite totals")
+            diffs = {"fwd": None, "bwd": None}
+            plain = {"fwd": None, "bwd": None}
+            if twin:
+                t0 = time.perf_counter()
+                fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+                torch_sync()
+                plain["fwd"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                pp = cuda_banded.fb_backward_plain(pack, fp, tp, lut)
+                torch_sync()
+                plain["bwd"] = (time.perf_counter() - t0) * 1e3
+                diffs["fwd"] = max(
+                    compare(f"K2 totals {label}", tk, tp, lut),
+                    compare(f"K2-fwd grid {label}", fk, fp, lut))
+                diffs["bwd"] = compare(f"K2-bwd posteriors {label}", pk, pp,
+                                       lut)
+                del fp, pp
+            f_ms = cuda_ms(lambda: cuda_banded.fb_forward(pack, lut), reps=5)
+            b_ms = cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk,
+                                                           lut), reps=5)
+            for name, ms, sweep in (("K2-fwd", f_ms, "fwd"),
+                                    ("K2-bwd", b_ms, "bwd")):
+                bms, by = bound_ms(*k2_work(pack, lut, sweep))
+                rows.append({"kernel": name, "shape": label, "lut": lut,
+                             "rows": pack.n_rows,
+                             "max_abs_err": diffs[sweep], "ms": ms,
+                             "plain_ms": plain[sweep], "bound_ms": bms,
+                             "bound_by": by})
+                pms = "" if plain[sweep] is None else \
+                    f", plain {plain[sweep]:.0f} ms"
+                log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel "
+                    f"{ms:.2f} ms{pms}, bound {bms:.4f} ms ({by})"
+                    + ("" if diffs[sweep] is None
+                       else f", max|diff| {diffs[sweep]}"))
+            del fk, pk
     return rows
+
+
+def phase_k3(device, n=64, seg_d=256):
+    """K3 against K2 on packs of lx, ly 2000-5000; K3 against its twin on
+    packs of lx, ly 500-1200 (the twin walks ~0.6 ms per diagonal on the
+    card, so the full shapes would take minutes)."""
+    rows = []
+    configs = [(32, False, True), (32, True, False), (128, True, True),
+               (128, False, False)]
+    for ci, (w, rle, lut) in enumerate(configs):
+        tabs = tables(device, rle)
+        for lx_range, twin in (((2000, 5000), False), ((500, 1200), True)):
+            items = k2_items(n, w, 20, seed=300 + 10 * ci + twin, rle=rle,
+                             lx_range=lx_range)
+            pack = k2_pack(device, tabs, items, w, 20, rle)
+            label = (f"{n} x lx,ly {lx_range[0]}-{lx_range[1]}, W={w}, RLE "
+                     f"{'on' if rle else 'off'}, S={seg_d}")
+            rows += k3_against(pack, lut, seg_d, label, twin=twin)
+    return rows
+
+
+def phase_k3_deep(device, n=128):
+    """K3 alone on a pack of production-depth problems."""
+    from margin_tpu_torch.ops import cuda_banded
+    t0 = time.perf_counter()
+    items = k2_items(n, 32, 20, seed=400, rle=False,
+                     lx_range=(30_000, 70_000))
+    pack = k2_pack(device, tables(device, False), items, 32, 20, False)
+    prep_s = time.perf_counter() - t0
+    seg_d = cuda_banded.SEG_D[32]
+    ck, tk, lo, hi = k3_run(pack, True, seg_d)
+    if lo.numel() == 0:
+        raise AssertionError("K3 deep pack: no posterior above threshold")
+    f_ms = cuda_ms(lambda: cuda_banded.seg_forward(pack, True, seg_d),
+                   reps=3)
+    b_ms = cuda_ms(lambda: cuda_banded.seg_backward(
+        pack, ck, tk, True, seg_d, 0.01, cap=lo.numel() + 1), reps=3)
+    out = {"shape": f"{n} x lx 30000-70000, W=32, S={seg_d}, LUT",
+           "rows": pack.n_rows, "words": lo.numel(), "prep_s": prep_s}
+    for name, ms, sweep in (("K3-fwd", f_ms, "fwd"), ("K3-bwd", b_ms, "bwd")):
+        bms, by = bound_ms(*k3_work(pack, True, sweep, seg_d, lo.numel()))
+        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        log(f"{name} deep pack ({out['shape']}, {pack.n_rows} rows): kernel "
+            f"{ms:.1f} ms, bound {bms:.3f} ms ({by})")
+    return out
 
 
 def torch_sync():
@@ -336,10 +520,13 @@ class Recorder:
         from margin_tpu_torch.ops import cuda_banded, pairhmm
         self.pairhmm, self.cuda_banded = pairhmm, cuda_banded
         self.orig = (pairhmm.forward_total, cuda_banded.fb_forward,
-                     pairhmm._k1, cuda_banded._k2)
-        self.events = {"K1": [], "K2-fwd": [], "K2-bwd": []}
+                     pairhmm._k1, cuda_banded._k2, cuda_banded._k3,
+                     cuda_banded.fb_posteriors_seg)
+        self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [], "K3-fwd": [],
+                       "K3-bwd": []}
         self.k1_max = None    # (cells, tables, batch, use_lut)
         self.k2_max = None    # (rows*W, pack, use_lut)
+        self.k3_max = None    # (rows*W, fb_posteriors_seg arguments)
 
     def _timed(self, name, fn):
         import torch
@@ -355,14 +542,28 @@ class Recorder:
         return call
 
     def install(self):
-        ft, ff, k1, k2 = self.orig
+        ft, ff, k1, k2, k3, fps = self.orig
         timed_k1 = self._timed("K1", k1())
         lib = k2()
+        lib3 = k3()
 
         class TimedK2:
             k2_forward = staticmethod(self._timed("K2-fwd", lib.k2_forward))
             k2_backward = staticmethod(self._timed("K2-bwd",
                                                    lib.k2_backward))
+
+        class TimedK3:
+            k3_forward = staticmethod(self._timed("K3-fwd",
+                                                  lib3.k3_forward))
+            k3_backward = staticmethod(self._timed("K3-bwd",
+                                                   lib3.k3_backward))
+
+        def fb_posteriors_seg(*args, **kw):
+            out = fps(*args, **kw)
+            pack = out[1]
+            if self.k3_max is None or pack.n_rows * pack.W > self.k3_max[0]:
+                self.k3_max = (pack.n_rows * pack.W, args, kw)
+            return out
 
         def forward_total(tables, batch, use_lut=False):
             size = batch.xs.shape[0] * (batch.xs.shape[1]
@@ -380,10 +581,13 @@ class Recorder:
         self.cuda_banded.fb_forward = fb_forward
         self.pairhmm._k1 = lambda: timed_k1
         self.cuda_banded._k2 = lambda: TimedK2
+        self.cuda_banded._k3 = lambda: TimedK3
+        self.cuda_banded.fb_posteriors_seg = fb_posteriors_seg
 
     def restore(self):
         (self.pairhmm.forward_total, self.cuda_banded.fb_forward,
-         self.pairhmm._k1, self.cuda_banded._k2) = self.orig
+         self.pairhmm._k1, self.cuda_banded._k2, self.cuda_banded._k3,
+         self.cuda_banded.fb_posteriors_seg) = self.orig
 
     def kernel_ms(self):
         torch_sync()
@@ -402,7 +606,7 @@ def run_cli(argv, log_path):
     with open(log_path, "a") as fh:
         fh.write(buf.getvalue())
     if rc != 0:
-        raise RuntimeError(f"phase exited {rc}; log in {log_path}")
+        raise RuntimeError(f"{argv[0]} exited {rc}; log in {log_path}")
     return wall
 
 
@@ -434,7 +638,7 @@ def accuracy(ds, base):
 
 
 def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
-              n_sv=30, region_len=200_000):
+              n_sv=30, region_len=100_000):
     from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
     from margin_tpu_torch.testing.synth import SynthConfig, write_dataset
     t0 = time.perf_counter()
@@ -584,6 +788,182 @@ def phase_main_path_shapes(rec):
     return out
 
 
+def zero_counters():
+    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
+    from margin_tpu_torch.parallel.executor import DEVICE_STATS
+    banded.ROUTES.reset()
+    DEVICE_STATS.reset()
+    for c in (pairhmm.FORWARD_TOTAL, cuda_banded.FB_FORWARD,
+              cuda_banded.FB_BACKWARD, cuda_banded.SEG_FORWARD,
+              cuda_banded.SEG_BACKWARD):
+        c.launches = 0
+
+
+def read_counters():
+    from margin_tpu_torch.ops import cuda_banded, pairhmm
+    return {"K1": pairhmm.FORWARD_TOTAL.launches,
+            "K2-fwd": cuda_banded.FB_FORWARD.launches,
+            "K2-bwd": cuda_banded.FB_BACKWARD.launches,
+            "K3-fwd": cuda_banded.SEG_FORWARD.launches,
+            "K3-bwd": cuda_banded.SEG_BACKWARD.launches}
+
+
+def fasta_seq(path):
+    with open(path) as fh:
+        return "".join(line.strip() for line in fh if not line.startswith(">"))
+
+
+def phase_polish(device, work, out_dir, span=205_000):
+    """`margin polish` end to end on a seeded synthetic draft."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.parallel.executor import DEVICE_STATS
+    from margin_tpu_torch.testing.synth import (PolishSynthConfig,
+                                                banded_edit_distance,
+                                                write_polish_dataset)
+    t0 = time.perf_counter()
+    ds = write_polish_dataset(f"{work}/polish", PolishSynthConfig(
+        contig_len=span, coverage=30.0, read_len=(5000, 30000), p_sub=0.03,
+        p_ins=0.02, p_del=0.03, chunk_size=100_000, chunk_boundary=1000,
+        seed=11))
+    gen_s = time.perf_counter() - t0
+    log(f"polish dataset: {span} bp draft with {len(ds.draft_edits)} "
+        f"edits, generated in {gen_s:.1f} s")
+    log_path = os.path.join(out_dir, "chip_smoke_polish.log")
+    rec = Recorder()
+    rec.install()
+    zero_counters()
+    try:
+        wall = run_cli(["polish", ds.bam, ds.draft, ds.params, "-o",
+                        f"{work}/pol", "--device", device, "--profile"],
+                       log_path)
+    finally:
+        rec.restore()
+    launches = read_counters()
+    routes = {"k2_items": banded.ROUTES.pack_items,
+              "k3_items": banded.ROUTES.seg_items,
+              "host_items": banded.ROUTES.host_items,
+              "k2_packs": banded.ROUTES.packs,
+              "k3_packs": banded.ROUTES.seg_packs}
+    scoring = DEVICE_STATS.snapshot()
+    kms = rec.kernel_ms()
+    with open(f"{work}/pol.profile.json") as fh:
+        prof = json.load(fh)
+    truth, draft = fasta_seq(ds.truth), fasta_seq(ds.draft)
+    polished = fasta_seq(f"{work}/pol.fa")
+    t0 = time.perf_counter()
+    # the band follows the line between the two ends; a banded distance
+    # is an upper bound, so the check below cannot pass by its error
+    ed_draft = banded_edit_distance(draft, truth, 300)
+    ed_pol = banded_edit_distance(polished, truth, 300)
+    ed_s = time.perf_counter() - t0
+    log(f"polish {span} bp: wall {wall:.1f} s; launches {launches}; kernel "
+        f"ms { {k: round(v, 1) for k, v in kms.items()} }; routes {routes}; "
+        f"edit distance to the truth: draft {ed_draft}, polished {ed_pol} "
+        f"(lengths {len(truth)} / {len(draft)} / {len(polished)}; "
+        f"{ed_s:.1f} s)")
+    log(f"polish stages: {prof.get('stages_s')}; chunk stages: "
+        f"{prof.get('chunk_stage_totals_s')}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels of the polish path never launched: "
+                             f"{missing}")
+    if routes["k3_items"] == 0:
+        raise AssertionError("no item took the segmented route")
+    if not 2 * ed_pol <= ed_draft:
+        raise AssertionError(f"polish did not halve the draft's edit "
+                             f"distance ({ed_draft} -> {ed_pol})")
+    return {"wall_s": wall, "launches": launches, "routes": routes,
+            "kernel_ms": kms, "scoring": scoring, "profile": prof,
+            "edit_distance_draft": ed_draft, "edit_distance_polished": ed_pol,
+            "lengths": [len(truth), len(draft), len(polished)],
+            "dataset_s": gen_s, "span": span}, ds, rec
+
+
+def phase_polish_region(ds, work, region_len=4_000):
+    """A sub-region in process through the kernels, then through the plain
+    twins bound in their place: byte-identical FASTA. A 4 kb region and no
+    POA-consensus iteration (the realignment and the bubble pass) keep the
+    twins' run near a minute (they walk ~0.6 ms per diagonal)."""
+    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
+    from margin_tpu_torch.params import Params
+    from margin_tpu_torch.polish.driver import run_polish
+    params = Params.load(ds.params)
+    params.polish.maxPoaConsensusIterations = 0
+    mid = len(fasta_seq(ds.draft)) // 2
+    region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
+    saved_min = banded.SEG_MIN_D
+    banded.SEG_MIN_D = 2048
+    twins = {
+        (pairhmm, "forward_total"): pairhmm.forward_total_plain,
+        (cuda_banded, "fb_forward"): cuda_banded.fb_forward_plain,
+        (cuda_banded, "fb_backward"): cuda_banded.fb_backward_plain,
+        (cuda_banded, "seg_forward"): cuda_banded.seg_forward_plain,
+        (cuda_banded, "seg_backward"):
+            lambda pack, ckpt, totals, use_lut, seg_d, threshold, cap=None:
+            cuda_banded.seg_backward_plain(pack, ckpt, totals, use_lut,
+                                           seg_d, threshold)}
+    saved = {k: getattr(*k) for k in twins}
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        run_polish(ds.bam, ds.draft, params, f"{work}/rk",
+                   region=region, use_lut=True, device="cuda",
+                   log=lambda *a: None)
+        torch_sync()
+        kern_s = time.perf_counter() - t0
+        launches = read_counters()
+        seg_items = banded.ROUTES.seg_items
+        for (mod, name), fn in twins.items():
+            setattr(mod, name, fn)
+        t0 = time.perf_counter()
+        run_polish(ds.bam, ds.draft, params, f"{work}/rp",
+                   region=region, use_lut=True, device="cuda",
+                   log=lambda *a: None)
+        torch_sync()
+        plain_s = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+        banded.SEG_MIN_D = saved_min
+    if launches["K3-fwd"] == 0 or seg_items == 0:
+        raise AssertionError(f"{region}: K3 did not run ({launches})")
+    with open(f"{work}/rk.fa", "rb") as a, open(f"{work}/rp.fa", "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError(f"{region}: kernel and plain polished "
+                                 "FASTA differ")
+    log(f"polish {region} (SEG_MIN_D 2048, {seg_items} items on K3): "
+        f"kernels {kern_s:.1f} s, plain twins {plain_s:.1f} s, FASTA "
+        "byte-identical")
+    return {"region": region, "kernel_s": kern_s, "plain_s": plain_s,
+            "launches": launches, "k3_items": seg_items}
+
+
+def phase_k3_main_path(rec, max_d=18_000, max_b=16):
+    """K3 against its twin and K2 on the largest K3 pack of the polish
+    run, cut to its shallowest problems (at most max_b, depth <= max_d)
+    so the twin stays within about a minute."""
+    from margin_tpu_torch.ops import cuda_banded
+    _, args, kw = rec.k3_max
+    (tabs, items, w_pad, expansion, use_lut, dynamic, use_rle, threshold,
+     seg_d) = args[:9]
+    geoms = kw.get("geoms_in")
+    order = sorted(range(len(items)),
+                   key=lambda i: len(items[i]["x_sym"])
+                   + len(items[i]["y_sym"]))
+    keep = [i for i in order
+            if len(items[i]["x_sym"]) + len(items[i]["y_sym"]) < max_d]
+    keep = (keep or order[:1])[:max_b]
+    pack = cuda_banded._pack_host(
+        tabs, [items[i] for i in keep], w_pad, expansion, dynamic, use_rle,
+        None if geoms is None else [geoms[i] for i in keep],
+        device=tabs.device)
+    label = (f"B={pack.B} of {len(items)} rows={pack.n_rows} W={w_pad} "
+             f"S={seg_d}")
+    rows = k3_against(pack, use_lut, seg_d, label, threshold)
+    return {r["kernel"]: {k: v for k, v in r.items() if k != "kernel"}
+            for r in rows}
+
+
 SOURCES = {
     "K1": ("margin_tpu_torch/csrc/pairhmm_forward.cu",
            "margin_tpu/ops/pairhmm.py:194"),
@@ -591,6 +971,10 @@ SOURCES = {
                "margin_tpu/ops/pallas_banded.py:174"),
     "K2-bwd": ("margin_tpu_torch/csrc/banded_fb.cu",
                "margin_tpu/ops/pallas_banded.py:253"),
+    "K3-fwd": ("margin_tpu_torch/csrc/banded_seg.cu",
+               "margin_tpu/ops/pallas_banded.py:873"),
+    "K3-bwd": ("margin_tpu_torch/csrc/banded_seg.cu",
+               "margin_tpu/ops/pallas_banded.py:964"),
 }
 
 
@@ -623,19 +1007,25 @@ def main() -> int:
     report["build"] = phase_build()
     report["k1"] = phase_k1("cuda")
     report["k2"] = phase_k2("cuda")
+    report["k3"] = phase_k3("cuda")
+    report["k3_deep"] = phase_k3_deep("cuda")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         report["phase"], rec = phase_e2e("cuda", work, out_dir)
         report["main_path_shapes"] = phase_main_path_shapes(rec)
+        report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
+        report["polish_region"] = phase_polish_region(ds, work)
+        report["main_path_shapes"].update(phase_k3_main_path(prec))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["total_s"] = time.perf_counter() - t_start
     kernels = []
     for name, (src, rep) in SOURCES.items():
         m = report["main_path_shapes"][name]
+        path = "polish" if name.startswith("K3") else "phase"
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep,
-                        "launches": report["phase"]["launches"][name],
+                        "launches": report[path]["launches"][name],
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": None})

@@ -10,7 +10,8 @@ package.
     -Xcompiler -fPIC` into its own shared library with a plain C ABI and
     loaded with `ctypes`. `--fmad=false` keeps `a*b+c` unfused, as the JAX
     kernels and `native/` do, so the LUT logAdd flavour agrees bit for bit.
-  * Host engines (`native/marginio.cc`, `marginfb.cc`, `marginrp.cc`) are
+  * Host engines (`native/marginio.cc`, `marginfb.cc`, `marginrp.cc`,
+    `marginpoa.cc`) are
     compiled from their sources with the flags of `native/Makefile`. When
     one fails to build, `native_lib` returns None and the caller takes the
     same pure-Python path the JAX package takes (host code, not a device
@@ -47,14 +48,17 @@ _NATIVE_FLAGS = {
     "marginfb": _CXX + ["-march=native", "-funroll-loops",
                         "-ffp-contract=off"],
     "marginrp": _CXX + ["-march=native", "-ffp-contract=off", "-pthread"],
+    "marginpoa": _CXX + ["-ffp-contract=off"],
 }
 _NATIVE_LIBS = {
     "marginio": ["-shared", "-lz", "-ldeflate"],
     "marginfb": ["-shared", "-lm"],
     "marginrp": ["-shared", "-lm"],
+    "marginpoa": ["-shared", "-lm"],
 }
 
-KERNEL_SOURCES = ("pairhmm_forward", "banded_fb")
+KERNEL_SOURCES = ("pairhmm_forward", "banded_fb", "banded_seg")
+NATIVE_ENGINES = tuple(_NATIVE_FLAGS)
 
 _loaded: Dict[str, Optional[ctypes.CDLL]] = {}
 BUILD_SECONDS: Dict[str, float] = {}
@@ -82,10 +86,19 @@ def _command(name: str, out: str) -> List[str]:
     return [nvcc_path()] + NVCC_FLAGS + ["-o", out, src]
 
 
+def _inputs(name: str) -> List[str]:
+    """The source and, for a kernel, the shared headers it includes."""
+    if name in _NATIVE_FLAGS:
+        return [_source(name)]
+    return [_source(name)] + sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def _fresh(name: str) -> bool:
     so = _so_path(name)
     return (os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(_source(name)))
+            and all(os.path.getmtime(so) >= os.path.getmtime(src)
+                    for src in _inputs(name)))
 
 
 class _BuildLock:
@@ -137,11 +150,11 @@ def build(names, log=None) -> Dict[str, Optional[str]]:
 
 
 def native_lib(name: str) -> Optional[ctypes.CDLL]:
-    """The host engine `name` (marginio, marginfb or marginrp), built on
-    first use together with its siblings; None when it cannot be built."""
+    """The host engine `name` (one of NATIVE_ENGINES), built on first use
+    together with its siblings; None when it cannot be built."""
     if name not in _loaded:
         if not _fresh(name):
-            build(list(_NATIVE_FLAGS))
+            build(list(NATIVE_ENGINES))
         lib = None
         if _fresh(name):
             try:

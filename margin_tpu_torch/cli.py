@@ -1,11 +1,13 @@
-"""Command line interface: `python -m margin_tpu_torch phase ...`.
+"""Command line interface: `python -m margin_tpu_torch phase|polish ...`.
 
-Counterpart of `margin_tpu/cli.py` (margin.c dispatch + phase.c argument
-handling): the common flags, the `phase` subcommand and `--device
-{cuda,cpu}`, which takes the place of JAX_PLATFORMS. `polish`, the aux
-tools, `--workers process`, `--hosts`/`--host-id`/`--coordinator` and
-`--jaxTrace` are not ported yet and stop with an error naming their
-ROADMAP item.
+Counterpart of `margin_tpu/cli.py` (margin.c dispatch + phase.c/polish.c
+argument handling): the common flags, the `phase` subcommand, the haploid
+`polish` subcommand and `--device {cuda,cpu}`, which takes the place of
+JAX_PLATFORMS. The aux tools, `--workers process`,
+`--hosts`/`--host-id`/`--coordinator`, `--jaxTrace` and the polish flags
+of diploid polish, HELEN features, supplementary outputs and VCF-guided
+polish are not ported yet and stop with an error naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -16,6 +18,47 @@ import sys
 
 _AUX_TOOLS = ("calcLocalPhasingCorrectness", "tagFromIds",
               "tagFromPhasedVcf", "runLengthMatrix")
+
+_DIPLOID = "Diploid polish"
+_HELEN = "HELEN, EM with K4, and the aux tools"
+# polish flags of margin_tpu/cli.py:108-156 this package does not run yet:
+# (flags, dest, what, ROADMAP queue 1 item)
+_UNPORTED_POLISH = [
+    (("-2", "--diploid"), "diploid", "diploid polish", _DIPLOID),
+    (("-v", "--vcf"), "vcf", "VCF-guided polish", _DIPLOID),
+    (("-A", "--onlyVcfAlleles"), "onlyVcfAlleles", "VCF-only alleles",
+     _DIPLOID),
+    (("-T", "--skipOutputFasta"), "skipOutputFasta",
+     "polish without a FASTA", _DIPLOID),
+    (("-S", "--skipFilteredReads"), "skipFilteredReads",
+     "filtered-read haplotyping", _DIPLOID),
+    (("-R", "--skipRealignment"), "skipRealignment",
+     "CIGAR-only haplotyping", _DIPLOID),
+    (("-M", "--skipHaplotypeBAM"), "skipHaplotypeBAM",
+     "the haplotagged polish BAM", _DIPLOID),
+    (("-n", "--outputHaplotypeReads"), "outputHaplotypeReads",
+     "phased-read outputs", _DIPLOID),
+    (("-s", "--outputPhasingState"), "outputPhasingState",
+     "phasing-state outputs", _DIPLOID),
+    (("-f", "--produceFeatures"), "produceFeatures", "HELEN features",
+     _HELEN),
+    (("-F", "--featureType"), "featureType", "HELEN features", _HELEN),
+    (("-L", "--splitRleWeightMaxRL"), "splitRleWeightMaxRL",
+     "HELEN features", _HELEN),
+    (("-u", "--trueReferenceBam"), "trueReferenceBam",
+     "HELEN feature labels", _HELEN),
+    (("--fullFeatureOutput",), "fullFeatureOutput", "HELEN features",
+     _HELEN),
+    (("-i", "--outputRepeatCounts"), "outputRepeatCounts",
+     "supplementary repeat-count outputs", _DIPLOID),
+    (("-j", "--outputPoaCsv"), "outputPoaCsv", "supplementary POA outputs",
+     _DIPLOID),
+    (("-d", "--outputPoaDot"), "outputPoaDot", "supplementary POA outputs",
+     _DIPLOID),
+]
+# flags that take a value
+_UNPORTED_WITH_VALUE = {"vcf", "featureType", "splitRleWeightMaxRL",
+                        "trueReferenceBam"}
 
 
 def _add_common(p):
@@ -92,19 +135,29 @@ def main(argv=None):
     ph.add_argument("vcf", help="VCF with variants to phase")
     ph.add_argument("-M", "--skipHaplotypeBAM", action="store_true")
     ph.add_argument("-V", "--skipPhasedVCF", action="store_true")
-    sub.add_parser("polish", help="polish an assembly (not ported yet)",
-                   add_help=False)
+    po = sub.add_parser("polish", help="polish an assembly (haploid)")
+    _add_common(po)
+    for flags, dest, _what, _item in _UNPORTED_POLISH:
+        if dest in _UNPORTED_WITH_VALUE:
+            po.add_argument(*flags, dest=dest, default=None,
+                            help=argparse.SUPPRESS)
+        else:
+            po.add_argument(*flags, dest=dest, action="store_true",
+                            help=argparse.SUPPRESS)
 
-    if argv and argv[0] == "polish":
-        top.exit(2, "margin_tpu_torch: polish is not ported yet (ROADMAP "
-                 "queue 1, \"slice 2, haploid polish\")\n")
     args = top.parse_args(argv)
 
     if args.tempFilesToDisk:
         args.checkpoint = True
-    if args.skipHaplotypeBAM and args.skipPhasedVCF:
+    if args.command == "phase" and args.skipHaplotypeBAM \
+            and args.skipPhasedVCF:
         top.error("With --skipHaplotypeBAM and --skipPhasedVCF there "
                   "will be no output.")
+    if args.command == "polish":
+        for flags, dest, what, item in _UNPORTED_POLISH:
+            if getattr(args, dest) not in (None, False):
+                top.error(f"{flags[-1]}: {what} is not ported yet (ROADMAP "
+                          f"queue 1, \"{item}\")")
     if args.workers == "process" and args.threads > 1:
         top.error("--workers process is not ported yet (ROADMAP queue 1, "
                   "\"IPC workers, multi-GPU and multi-host\")")
@@ -142,15 +195,25 @@ def main(argv=None):
     # --logLevel); DEBUG and INFO both print them here
     log = (lambda *a: None) if args.logLevel == "CRITICAL" else print
 
-    from margin_tpu_torch.phase.driver import run_phase
     from margin_tpu_torch.utils import profiling
     profiler = profiling.Profiler(enabled=args.profile)
-    run_phase(args.bam, args.reference, args.vcf, params, args.outputBase,
-              region=args.region, write_bam=not args.skipHaplotypeBAM,
-              write_vcf=not args.skipPhasedVCF, seed=args.seed,
-              use_lut=args.lut_logadd, checkpoint=args.checkpoint,
-              shard=shard, profiler=profiler, rng_mode=args.rngMode,
-              threads=args.threads, device=args.device, log=log)
+    if args.command == "phase":
+        from margin_tpu_torch.phase.driver import run_phase
+        run_phase(args.bam, args.reference, args.vcf, params,
+                  args.outputBase, region=args.region,
+                  write_bam=not args.skipHaplotypeBAM,
+                  write_vcf=not args.skipPhasedVCF, seed=args.seed,
+                  use_lut=args.lut_logadd, checkpoint=args.checkpoint,
+                  shard=shard, profiler=profiler, rng_mode=args.rngMode,
+                  threads=args.threads, device=args.device, log=log)
+    else:
+        from margin_tpu_torch.polish.driver import run_polish
+        run_polish(args.bam, args.reference, params, args.outputBase,
+                   region=args.region, seed=args.seed,
+                   use_lut=args.lut_logadd, checkpoint=args.checkpoint,
+                   shard=shard, profiler=profiler, threads=args.threads,
+                   device=args.device, log=log)
+        profiler.log_summary(log)
     profiler.write(f"{args.outputBase}.profile.json")
     return 0
 

@@ -1,7 +1,9 @@
 """Batched banded pair-HMM forward-backward with posterior extraction.
 
 Counterpart of the part of `margin_tpu/ops/banded.py` that `margin phase`
-reaches: `BandGeometry` (:40-125), `_bucket_w` (:126), `_true_band_cells`
+and haploid `margin polish` reach: `BandGeometry` (:40-125), `_bucket_w`
+(:126), `get_split_points` (:534), `banded_posteriors_split` (:567),
+`banded_posteriors` (:776), `split_sub_items` (:1404), `_true_band_cells`
 (:1465), `_item_geom` (:1473), the flat posterior extraction
 (`_device_extract_flat` / `_unpack_extract` / `_store_pack_results`,
 :704-773 and :974-1000) and `banded_posteriors_many` (:1637-1798).
@@ -11,12 +13,19 @@ Band geometry: cell k of diagonal d is xmy = xmyL[d] + 2k, with
 x = (d+xmy)/2, y = (d-xmy)/2.
 
 Routing, as the JAX package routes on an accelerator
-(banded.py:1140-1183): an item whose smoothed band is at most 128 cells
-wide goes to the pack kernels (ops/cuda_banded.py, K2); a wider one goes
-to the host C++ engine (native/marginfb.cc). Three TPU workarounds are
-not carried over: the launch-latency threshold `_device_min_cells`, the
-6144-diagonal floor and the diagonal bucketing `_bucket_dpad` — a CUDA
-block walks each problem's own depth. The worker-process branch and the
+(banded.py:1140-1183), a property of the item alone: an item whose
+smoothed band is wider than 128 cells, or with more than 2^22 diagonals,
+goes to the host C++ engine (native/marginfb.cc); an item with more than
+SEG_MIN_D diagonals (lx + ly + 1), or whose own grids would not fit
+cuda_banded.FB_GRID_BUDGET_BYTES, to the segmented kernels (K3); every
+other item to the monolithic pack kernels (K2). Packs hold at most 128
+problems of one (width bucket, RLE) kind. The JAX package's
+`_bucket_dpad(d) > 16384` is exactly `d > 16384`. Three TPU workarounds
+are not carried over: the launch-latency threshold `_device_min_cells`,
+the 6144-diagonal floor and the diagonal bucketing `_bucket_dpad` — a
+CUDA block walks each problem's own depth. The single-item
+`banded_posteriors`, which the JAX package runs on its XLA scan (K4),
+takes the same pack route here. The worker-process branch and the
 cross-chunk funnel `_FbFunnel` wait for a later slice; results do not
 depend on them.
 """
@@ -37,6 +46,9 @@ from margin_tpu_torch.testing.oracle import build_band
 
 MATCH, GAPX, GAPY = 0, 1, 2
 PACK_MAX_B = 128  # the extraction word's 9-bit tag holds 3*128+2
+# items with more diagonals take the segmented kernels (banded.py:882-889)
+SEG_MIN_D = 16384
+MAX_DIAGONALS = 1 << 22  # the extraction word's 22-bit diagonal
 
 
 @dataclass
@@ -134,16 +146,22 @@ class RouteStats:
         self.pack_items = 0   # the pack kernels (K2, or their plain twins)
         self.host_items = 0   # the host engine (native/marginfb.cc)
         self.packs = 0
+        self.seg_items = 0    # the segmented kernels (K3, or their twins)
+        self.seg_packs = 0
 
-    def add(self, pack_items=0, host_items=0, packs=0):
+    def add(self, pack_items=0, host_items=0, packs=0, seg_items=0,
+            seg_packs=0):
         with self._lock:
             self.pack_items += pack_items
             self.host_items += host_items
             self.packs += packs
+            self.seg_items += seg_items
+            self.seg_packs += seg_packs
 
     def reset(self):
         with self._lock:
             self.pack_items = self.host_items = self.packs = 0
+            self.seg_items = self.seg_packs = 0
 
 
 ROUTES = RouteStats()
@@ -245,28 +263,35 @@ def _solve_native_items(tables, items, expansion, threshold, use_lut,
         return list(ex.map(one, range(len(items))))
 
 
-def _packs(entries, w_pad: int):
-    """Cut (lx+ly, item index) entries of one width bucket into packs of at most
-    PACK_MAX_B problems whose grids fit the memory budget, deepest first
-    so problems of like depth share a pack."""
+def _packs(entries, w_pad: int, seg: bool):
+    """Cut (lx+ly, item index) entries of one bucket into packs of at most
+    PACK_MAX_B problems, deepest first so problems of like depth share a
+    pack; monolithic packs also keep their grids within the memory budget
+    (every item there fits it alone, see _route)."""
     entries = sorted(entries, key=lambda e: -e[0])
     pack, rows = [], 0
     for d, ref in entries:
         need = d + 1
-        if cuda_banded.grid_bytes(need, w_pad) > \
-                cuda_banded.FB_GRID_BUDGET_BYTES:
-            raise NotImplementedError(
-                f"a banded problem of {need} diagonals at width {w_pad} "
-                "exceeds the pack memory budget; it needs the segmented "
-                "kernels K3 (ROADMAP queue 1, slice 2)")
-        if pack and (len(pack) == PACK_MAX_B or cuda_banded.grid_bytes(
-                rows + need, w_pad) > cuda_banded.FB_GRID_BUDGET_BYTES):
+        if pack and (len(pack) == PACK_MAX_B or (not seg and (
+                cuda_banded.grid_bytes(rows + need, w_pad)
+                > cuda_banded.FB_GRID_BUDGET_BYTES))):
             yield pack
             pack, rows = [], 0
         pack.append(ref)
         rows += need
     if pack:
         yield pack
+
+
+def _route(geom: BandGeometry) -> str:
+    """'host', 'seg' or 'pack' for one item (see the module docstring)."""
+    d = geom.lx + geom.ly + 1
+    if geom.w_pad > 128 or d > MAX_DIAGONALS:
+        return "host"
+    if d > SEG_MIN_D or cuda_banded.grid_bytes(
+            d, _bucket_w(geom.w_pad)) > cuda_banded.FB_GRID_BUDGET_BYTES:
+        return "seg"
+    return "pack"
 
 
 def banded_posteriors_many(tables, items, expansion: int,
@@ -280,7 +305,7 @@ def banded_posteriors_many(tables, items, expansion: int,
     from margin_tpu_torch.ops import native_fb
 
     results = [None] * len(items)
-    buckets: dict = {}        # (w_pad, use_rle) -> [(lx+ly, (results, i))]
+    buckets: dict = {}        # (w_pad, use_rle, seg) -> [(lx+ly, i)]
     host_idx = []
     for i, it in enumerate(items):
         lx, ly = len(it["x_sym"]), len(it["y_sym"])
@@ -289,12 +314,13 @@ def banded_posteriors_many(tables, items, expansion: int,
             results[i] = ((empty, empty, empty), 0.0)
             continue
         geom = _item_geom(it, expansion, dynamic)
-        if geom.w_pad > 128:
+        route = _route(geom)
+        if route == "host":
             host_idx.append(i)
             continue
         use_rle = it.get("rep_x") is not None and tables.repeat is not None
-        buckets.setdefault((_bucket_w(geom.w_pad), use_rle), []).append(
-            (lx + ly, i))
+        buckets.setdefault((_bucket_w(geom.w_pad), use_rle, route == "seg"),
+                           []).append((lx + ly, i))
 
     # wide bands run on the host engine while the device solves the packs
     pool = fut = None
@@ -316,13 +342,17 @@ def banded_posteriors_many(tables, items, expansion: int,
                         expansion, use_lut, dynamic, threshold,
                         [(results, i)])
     try:
-        for (w_pad, use_rle), entries in buckets.items():
-            for idxs in _packs(entries, w_pad):
-                _solve_pack(tables, [items[i] for i in idxs],
-                            [items[i]["_geom"] for i in idxs], w_pad,
-                            use_rle, expansion, use_lut, dynamic, threshold,
-                            [(results, i) for i in idxs])
-                ROUTES.add(pack_items=len(idxs), packs=1)
+        for (w_pad, use_rle, seg), entries in buckets.items():
+            for idxs in _packs(entries, w_pad, seg):
+                (_solve_seg_pack if seg else _solve_pack)(
+                    tables, [items[i] for i in idxs],
+                    [items[i]["_geom"] for i in idxs], w_pad, use_rle,
+                    expansion, use_lut, dynamic, threshold,
+                    [(results, i) for i in idxs])
+                if seg:
+                    ROUTES.add(seg_items=len(idxs), seg_packs=1)
+                else:
+                    ROUTES.add(pack_items=len(idxs), packs=1)
     finally:
         if fut is not None:
             host_res = fut.result()
@@ -348,3 +378,155 @@ def _solve_pack(tables, items, geoms, w_pad, use_rle, expansion, use_lut,
     t0 = time.perf_counter()
     packed = extract_packed(post, totals, pack, threshold).cpu().numpy()
     _store_pack_results(refs, packed, pack, time.perf_counter() - t0)
+
+
+def _solve_seg_pack(tables, items, geoms, w_pad, use_rle, expansion,
+                    use_lut, dynamic, threshold, refs):
+    t0 = time.perf_counter()
+    packed, pack = cuda_banded.fb_posteriors_seg(
+        tables, items, w_pad, expansion, use_lut, dynamic, use_rle,
+        threshold, cuda_banded.SEG_D[w_pad], geoms_in=geoms,
+        device=tables.device)
+    packed = packed.cpu().numpy()
+    _store_pack_results(refs, packed, pack, time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# single items and large-gap splits
+# ---------------------------------------------------------------------------
+
+def get_split_points(anchors, lx: int, ly: int, split_bigger_than: int,
+                     ragged_left: bool, ragged_right: bool):
+    """getSplitPoints (pairwiseAligner.c:913-966): split the DP into
+    sub-rectangles around anchor gaps whose area exceeds
+    splitMatrixBiggerThanThis. Returns [(x1, y1, x2, y2)]."""
+    import math
+    out = []
+    state = [0, 0]  # current region origin (x1, y1)
+
+    def split_p(x2, y2, x3, y3, skip_block):
+        lx2, ly2 = x3 - x2, y3 - y2
+        if lx2 * ly2 > split_bigger_than:
+            max_len = int(math.sqrt(split_bigger_than))
+            hx = max_len if lx2 // 2 > max_len else lx2 // 2
+            hy = max_len if ly2 // 2 > max_len else ly2 // 2
+            if not skip_block:
+                out.append((state[0], state[1], x2 + hx, y2 + hy))
+            state[0] = x3 - hx
+            state[1] = y3 - hy
+            return True
+        return False
+
+    x2 = y2 = 0
+    for i, a in enumerate(anchors):
+        x3, y3 = int(a[0]), int(a[1])
+        split_p(x2, y2, x3, y3, ragged_left and i == 0)
+        x2, y2 = x3 + 1, y3 + 1
+    if (not split_p(x2, y2, lx, ly, ragged_left and len(anchors) == 0)
+            or not ragged_right):
+        out.append((state[0], state[1], lx, ly))
+    return out
+
+
+def _sub_anchors(anchors, j: int, x1: int, y1: int, x2: int, y2: int):
+    """Anchors from index j with x + y < x2 + y2, shifted to (x1, y1);
+    returns (shifted anchors, next j)."""
+    sub = []
+    while j < len(anchors):
+        x, y = anchors[j][0], anchors[j][1]
+        if x + y >= x2 + y2:
+            break
+        sub.append((x - x1, y - y1) + tuple(anchors[j][2:]))
+        j += 1
+    return sub, j
+
+
+def split_sub_items(item, split_bigger_than: int):
+    """Segment one problem at large anchor gaps into ragged sub-items
+    (getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps,
+    pairwiseAligner.c:984-1040) so long-gap reads ride the batched solver
+    with everything else. Returns (sub_items, (x1, y1) offsets)."""
+    x_sym, y_sym = item["x_sym"], item["y_sym"]
+    anchors = [] if item["anchors"] is None else \
+        [tuple(int(v) for v in a) for a in item["anchors"]]
+    splits = get_split_points(anchors, len(x_sym), len(y_sym),
+                              split_bigger_than, False, False)
+    subs, offs = [], []
+    j = 0
+    for i, (x1, y1, x2, y2) in enumerate(splits):
+        sub_anchors, j = _sub_anchors(anchors, j, x1, y1, x2, y2)
+        sub = {"x_sym": x_sym[x1:x2], "y_sym": y_sym[y1:y2],
+               "anchors": sub_anchors, "strand": item["strand"],
+               "ragged_left": i > 0, "ragged_right": i < len(splits) - 1}
+        if item.get("rep_x") is not None:
+            sub["rep_x"] = item["rep_x"][x1:x2]
+            sub["rep_y"] = item["rep_y"][y1:y2]
+        subs.append(sub)
+        offs.append((x1, y1))
+    return subs, offs
+
+
+def banded_posteriors(tables, x_sym, y_sym, anchors, expansion: int,
+                      strand: int, ragged_left=False, ragged_right=False,
+                      threshold: float = 0.01, use_lut: bool = False,
+                      dynamic: bool = False, rep_x=None, rep_y=None):
+    """One problem (getAlignedPairsWithIndelsUsingAnchors,
+    pairwiseAligner.c:1144-1171): ((matches, gapx, gapy), total), pair
+    lists of (prob scaled by 1e7, x, y) >= threshold. gapX pairs are
+    reference-consuming (deletes in the POA's frame); gapY are
+    read-consuming (inserts). Routed like any item of
+    banded_posteriors_many."""
+    item = {"x_sym": np.asarray(x_sym), "y_sym": np.asarray(y_sym),
+            "anchors": [] if anchors is None else anchors,
+            "strand": int(strand), "ragged_left": bool(ragged_left),
+            "ragged_right": bool(ragged_right)}
+    if rep_x is not None:
+        item["rep_x"], item["rep_y"] = rep_x, rep_y
+    return banded_posteriors_many(tables, [item], expansion,
+                                  threshold=threshold, use_lut=use_lut,
+                                  dynamic=dynamic)[0]
+
+
+def banded_posteriors_split(tables, x_sym, y_sym, anchors, expansion: int,
+                            strand: int, split_bigger_than: int,
+                            ragged_left=False, ragged_right=False,
+                            threshold: float = 0.01, use_lut: bool = False,
+                            dynamic: bool = False, rep_x=None, rep_y=None):
+    """getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps
+    (pairwiseAligner.c:984-1040): banded_posteriors per sub-rectangle,
+    pair lists merged with coordinate correction, totals summed."""
+    lx, ly = len(x_sym), len(y_sym)
+    anchors = [] if anchors is None else [tuple(int(v) for v in a)
+                                          for a in anchors]
+    splits = get_split_points(anchors, lx, ly, split_bigger_than,
+                              bool(ragged_left), bool(ragged_right))
+    if len(splits) == 1 and splits[0] == (0, 0, lx, ly):
+        return banded_posteriors(tables, x_sym, y_sym, anchors, expansion,
+                                 strand, ragged_left, ragged_right,
+                                 threshold, use_lut, dynamic=dynamic,
+                                 rep_x=rep_x, rep_y=rep_y)
+    out_m, out_gx, out_gy = [], [], []
+    total = 0.0
+    j = 0
+    for i, (x1, y1, x2, y2) in enumerate(splits):
+        sub_anchors, j = _sub_anchors(anchors, j, x1, y1, x2, y2)
+        (m, gx, gy), t = banded_posteriors(
+            tables, x_sym[x1:x2], y_sym[y1:y2], sub_anchors, expansion,
+            strand,
+            ragged_left=(ragged_left or i > 0),
+            ragged_right=(ragged_right or i < len(splits) - 1),
+            threshold=threshold, use_lut=use_lut, dynamic=dynamic,
+            rep_x=rep_x[x1:x2] if rep_x is not None else None,
+            rep_y=rep_y[y1:y2] if rep_y is not None else None)
+        for arr, acc in ((m, out_m), (gx, out_gx), (gy, out_gy)):
+            if len(arr):
+                arr = arr.copy()
+                arr[:, 1] += x1
+                arr[:, 2] += y1
+            acc.append(arr)
+        total += t
+    empty = np.zeros((0, 3), dtype=np.int64)
+
+    def cat(lst):
+        return np.concatenate(lst) if lst else empty
+    return (cat(out_m), cat(out_gx), cat(out_gy)), total

@@ -1,12 +1,15 @@
-"""Banded pair-HMM forward-backward over a pack of problems (kernels
-K2-fwd and K2-bwd).
+"""Banded pair-HMM forward-backward over a pack of problems: the
+monolithic kernels K2-fwd / K2-bwd and the segmented kernels K3-fwd /
+K3-bwd.
 
 Counterpart of `margin_tpu/ops/pallas_banded.py` (the one module of the
 port whose name differs from its JAX counterpart's): host prep
 `_pack_host` (pallas_banded.py:649-735), the per-diagonal geometry of
 `_derive_geom` (:546-575), and `fb_posteriors_group` (:738-825), whose two
-Pallas kernels become the CUDA kernels of `csrc/banded_fb.cu`. Parity:
-getPosteriorProbsWithBanding (pairwiseAligner.c:706-844).
+Pallas kernels become the CUDA kernels of `csrc/banded_fb.cu`, and
+`fb_posteriors_group_seg` (:1346-1397), whose segmented Pallas kernels
+become those of `csrc/banded_seg.cu`. Parity: getPosteriorProbsWithBanding
+(pairwiseAligner.c:706-844).
 
 Layout. A pack holds up to 128 problems, each with its own depth
 D_b = lx+ly+1. Per-diagonal arrays (xmy, width, k_lo) are flat and
@@ -14,9 +17,17 @@ problem-major: problem b's diagonal d is row geo_off[b] + d. The forward
 and posterior grids have the same rows, each (3, W): 3 states by band
 storage offset k. W is uniform within a pack (the band-width bucket).
 
-On a CUDA device `fb_forward` / `fb_backward` launch the kernels; on the
-CPU they run `fb_forward_plain` / `fb_backward_plain`, the same
-recurrences in plain PyTorch vectorised over the pack's problems.
+The segmented kernels keep no grid: the forward stores the carry (the two
+previous diagonals) at the start of every segment of S diagonals, and the
+backward recomputes each segment's forward from its carry, runs the
+backward through it and compacts the posterior cells above the threshold
+into the extraction words of `banded.extract_packed`. Checkpoints are
+(segments, 2, 3, W), problem b's segments from `seg_layout(pack, S)[0][b]`.
+
+On a CUDA device `fb_forward` / `fb_backward` / `seg_forward` /
+`seg_backward` launch the kernels; on the CPU they run the `*_plain`
+twins, the same recurrences in plain PyTorch vectorised over the pack's
+problems (the segmented twins walk the same segments).
 """
 
 from __future__ import annotations
@@ -41,10 +52,14 @@ MATCH, GAPX, GAPY = 0, 1, 2
 _REP = MAXIMUM_REPEAT_LENGTH
 
 # The port's memory budget for one pack's forward + posterior grids. The
-# monolithic kernels run any depth whose grids fit; a pack is split into
-# fewer problems to fit, and a single problem beyond it raises (the
-# segmented kernels K3 are not ported yet).
+# monolithic kernels run any pack whose grids fit; a problem whose own
+# grids do not fit takes the segmented kernels.
 FB_GRID_BUDGET_BYTES = 8 << 30
+
+# Segment depth of the segmented kernels per band-width bucket, as the JAX
+# package's `_seg_d` (pallas_banded.py:863-870): a pack's recompute scratch
+# (128, S, 3, W) float32 is ~100 MB at every width.
+SEG_D = {16: 2048, 32: 2048, 64: 1024, 128: 512}
 
 
 def grid_bytes(n_rows: int, w: int) -> int:
@@ -194,6 +209,8 @@ def derive_geom(pack: BandPack):
 
 FB_FORWARD = _Counter()
 FB_BACKWARD = _Counter()
+SEG_FORWARD = _Counter()
+SEG_BACKWARD = _Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,6 +221,18 @@ def _k2():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _k3():
+    lib = _ext.kernel_lib("banded_seg")
+    lib.k3_forward.restype = ctypes.c_int
+    lib.k3_forward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.k3_backward.restype = ctypes.c_int
+    lib.k3_backward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -232,11 +261,13 @@ def _validate(pack: BandPack):
                dev)
 
 
-def _args(pack: BandPack, fwd, totals, post):
+def _args(pack: BandPack, *extra):
+    """The 18 pack pointers of csrc/banded_cell.cuh:BandArgs, then the
+    kernel's own buffers."""
     ptrs = [pack.xs, pack.ys, pack.rep_x, pack.rep_y, pack.x_off, pack.y_off,
             pack.lxs, pack.lys, pack.geo_off, pack.xmy, pack.width, pack.klo,
             pack.k_final, pack.tabs, pack.trans, pack.init, pack.end_w,
-            pack.rep_tab, fwd, totals, post]
+            pack.rep_tab, *extra]
     return (ctypes.c_void_p * len(ptrs))(
         *[None if p is None else p.data_ptr() for p in ptrs])
 
@@ -249,9 +280,8 @@ def fb_forward(pack: BandPack, use_lut: bool):
         return fb_forward_plain(pack, use_lut)
     _validate(pack)
     if grid_bytes(pack.n_rows, pack.W) > FB_GRID_BUDGET_BYTES:
-        raise NotImplementedError(
-            "pack grids exceed FB_GRID_BUDGET_BYTES; deeper problems need "
-            "the segmented kernels K3 (ROADMAP queue 1, slice 2)")
+        raise ValueError("pack grids exceed FB_GRID_BUDGET_BYTES; deep "
+                         "problems take the segmented kernels (seg_forward)")
     dev = pack.device
     fwd = torch.empty((pack.n_rows, 3, pack.W), dtype=torch.float32,
                       device=dev)
@@ -281,6 +311,83 @@ def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     _ext.check_launch(rc, "banded backward (K2-bwd)")
     FB_BACKWARD.launches += 1
     return post
+
+
+def seg_layout(pack: BandPack, seg_d: int):
+    """Checkpoint layout of the segmented kernels: (seg_off (B,) int64
+    first segment of each problem, total segments). Problem b has
+    (lx+ly) // seg_d + 1 segments, covering its diagonals 0..lx+ly."""
+    n_seg = torch.div(pack.lxs.long() + pack.lys.long(), seg_d,
+                      rounding_mode="floor") + 1
+    seg_off = torch.cumsum(n_seg, 0) - n_seg
+    return seg_off.contiguous(), int(n_seg.sum())
+
+
+def _validate_seg(pack: BandPack, seg_d: int):
+    _validate(pack)
+    if seg_d < 2:
+        raise ValueError(f"segment depth must be >= 2, got {seg_d}")
+    d_max = int((pack.lxs.long() + pack.lys.long()).max())
+    if d_max >= 1 << 22:
+        raise ValueError(f"diagonal {d_max} beyond the extraction word's "
+                         "22-bit budget")
+
+
+def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):
+    """Checkpointing forward of a pack: returns (ckpt (segments, 2, 3, W)
+    f32, the carry into each segment; totals (B,) f32). CUDA: K3-fwd; CPU:
+    the plain twin."""
+    if pack.device.type != "cuda":
+        return seg_forward_plain(pack, use_lut, seg_d)
+    _validate_seg(pack, seg_d)
+    dev = pack.device
+    seg_off, n_total = seg_layout(pack, seg_d)
+    ckpt = torch.empty((n_total, 2, 3, pack.W), dtype=torch.float32,
+                       device=dev)
+    totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _k3().k3_forward(_args(pack, seg_off, ckpt, totals), pack.B, pack.W,
+                          seg_d, int(bool(use_lut)), stream)
+    _ext.check_launch(rc, "segmented banded forward (K3-fwd)")
+    SEG_FORWARD.launches += 1
+    return ckpt, totals
+
+
+def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
+                 use_lut: bool, seg_d: int, threshold: float,
+                 cap: Optional[int] = None):
+    """Recompute + backward + posterior + extraction of a pack from its
+    checkpoints: returns (lo, hi) int32 extraction words (see
+    banded.extract_packed), in no particular order. CUDA: K3-bwd, launched
+    again with the exact capacity when the first guess `cap` overflows;
+    CPU: the plain twin."""
+    if pack.device.type != "cuda":
+        return seg_backward_plain(pack, ckpt, totals, use_lut, seg_d,
+                                  threshold)
+    _validate_seg(pack, seg_d)
+    dev = pack.device
+    seg_off, n_total = seg_layout(pack, seg_d)
+    _check(ckpt, "ckpt", torch.float32, (n_total, 2, 3, pack.W), dev)
+    _check(totals, "totals", torch.float32, (pack.B,), dev)
+    scratch = torch.empty((pack.B, seg_d, 3, pack.W), dtype=torch.float32,
+                          device=dev)
+    if cap is None:
+        cap = 2 * pack.n_rows + 16384
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    while True:
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        lo = torch.empty(cap, dtype=torch.int32, device=dev)
+        hi = torch.empty(cap, dtype=torch.int32, device=dev)
+        rc = _k3().k3_backward(
+            _args(pack, seg_off, ckpt, totals, scratch, count, lo, hi),
+            pack.B, pack.W, seg_d, int(bool(use_lut)), float(threshold), cap,
+            stream)
+        _ext.check_launch(rc, "segmented banded backward (K3-bwd)")
+        SEG_BACKWARD.launches += 1
+        n = int(count.item())
+        if n <= cap:
+            return lo[:n], hi[:n]
+        cap = n
 
 
 # ---------------------------------------------------------------------------
@@ -362,117 +469,246 @@ def _padded(arr: torch.Tensor) -> torch.Tensor:
     return torch.cat([pad, arr, pad], dim=-1)
 
 
+_ARANGE: dict = {}
+
+
 def _shift(padded: torch.Tensor, sel: torch.Tensor, W: int):
     """Read a _padded (B, ..., W+2) array at k + sel[b] for k in [0, W):
     LOG_ZERO beyond the band storage."""
-    idx = (torch.arange(W, device=padded.device)[None, :] + sel[:, None]
-           + 1).clamp(0, W + 1)
+    k1 = _ARANGE.get((W, padded.device))
+    if k1 is None:   # k + 1, the storage offset past the left pad
+        k1 = _ARANGE[(W, padded.device)] = torch.arange(
+            1, W + 1, device=padded.device)[None, :]
+    idx = (k1 + sel[:, None]).clamp(0, W + 1)
     idx = idx.view((idx.shape[0],) + (1,) * (padded.dim() - 2) + (W,))
     return torch.gather(padded, -1, idx.expand(padded.shape[:-1] + (W,)))
+
+
+class _Sweep:
+    """What one plain sweep needs besides the carry: the padded views and
+    emissions (_Padded), the transition columns, the logAdd flavour and
+    the LOG_ZERO constant."""
+
+    def __init__(self, pack: BandPack, sweep: str, use_lut: bool):
+        self.P = _Padded(pack, sweep)
+        self.la = logmath.log_add_fn(use_lut)
+        self.tr = tr = [pack.trans[:, i:i + 1] for i in range(9)]
+        # the backward's transitions per source term, state-major
+        self.tr_bwd = [torch.stack([tr[i] for i in idx], dim=1) for idx in (
+            (T_OPEN_X, T_EXT_X, T_SW_X), (T_MM, T_M_FROM_GX, T_M_FROM_GY),
+            (T_OPEN_Y, T_SW_Y, T_EXT_Y))]
+        self.neg = torch.tensor(LOG_ZERO, dtype=torch.float32,
+                                device=pack.device)
+
+    def la3(self, a, b, c):
+        return self.la(self.la(a, b), c)
+
+    def empty(self):
+        """(B, 3, W) of LOG_ZERO."""
+        return torch.full((self.P.B, 3, self.P.W), LOG_ZERO,
+                          dtype=torch.float32, device=self.neg.device)
+
+
+def _init_diag(pack: BandPack, sw: _Sweep) -> torch.Tensor:
+    """Diagonal 0: start weights at k = 0 (stateMachine.c:521-530)."""
+    cur = torch.where(sw.P.k[:, None, :] == 0, pack.init[:, :, None], sw.neg)
+    return cur.expand(sw.P.B, 3, sw.P.W).contiguous()
+
+
+def _fwd_step(sw: _Sweep, g: int, prev1, prev2):
+    """Forward diagonal g >= 1 of every problem from the _padded previous
+    two: returns (grid rows of diagonal g, cells (B, 3, W))."""
+    P, tr, W = sw.P, sw.tr, sw.P.W
+    xm = P.xmy[:, g]
+    s1 = torch.div(xm - 1 - P.xmy[:, g - 1], 2, rounding_mode="floor")
+    s2 = (torch.div(xm - P.xmy[:, g - 2], 2, rounding_mode="floor")
+          if g >= 2 else torch.zeros_like(xm))
+    low = _shift(prev1, s1, W)        # (x-1, y)
+    up = _shift(prev1, s1 + 1, W)     # (x, y-1)
+    mid = _shift(prev2, s2, W)        # (x-1, y-1)
+    rows, vm, e_m, e_gx, e_gy = P.at(g)
+    # the three states' 3-way logAdds in one call, state-major (m, gx, gy):
+    # each element sees the Pallas kernel's operations in its order
+    a = torch.stack([mid[:, MATCH] + tr[T_MM], low[:, MATCH] + tr[T_OPEN_X],
+                     up[:, MATCH] + tr[T_OPEN_Y]], dim=1)
+    b = torch.stack([mid[:, GAPX] + tr[T_M_FROM_GX],
+                     low[:, GAPX] + tr[T_EXT_X],
+                     up[:, GAPY] + tr[T_EXT_Y]], dim=1)
+    c = torch.stack([mid[:, GAPY] + tr[T_M_FROM_GY],
+                     low[:, GAPY] + tr[T_SW_X],
+                     up[:, GAPX] + tr[T_SW_Y]], dim=1)
+    cur = torch.stack([e_m, e_gx, e_gy], dim=1) + sw.la3(a, b, c)
+    return rows, torch.maximum(torch.where(vm, cur, sw.neg), sw.neg)
+
+
+def _bwd_step(sw: _Sweep, g: int, next1, next2, bwd_final):
+    """Backward diagonal g of every problem from the _padded next two:
+    returns (grid rows, band mask (B, 1, W), cells (B, 3, W)); the final
+    diagonal carries the end weights (pairwiseAligner.c:882-892)."""
+    P, W = sw.P, sw.P.W
+    xm = P.xmy[:, g]
+    t1 = torch.div(xm + 1 - P.xmy[:, g + 1], 2, rounding_mode="floor")
+    t2 = torch.div(xm - P.xmy[:, g + 2], 2, rounding_mode="floor")
+    gx_n = _shift(next1[:, GAPX], t1, W)       # (x+1, y)
+    gy_n = _shift(next1[:, GAPY], t1 - 1, W)   # (x, y+1)
+    m_n = _shift(next2[:, MATCH], t2, W)       # (x+1, y+1)
+    rows, vm, e_m, e_gx, e_gy = P.at(g)
+    # the three states' 3-way logAdds in one call, state-major (m, gx, gy)
+    t_gx, t_m, t_gy = sw.tr_bwd
+    a = (gx_n + e_gx)[:, None] + t_gx
+    b = (m_n + e_m)[:, None] + t_m
+    c = (gy_n + e_gy)[:, None] + t_gy
+    computed = torch.maximum(torch.where(vm, sw.la3(a, b, c), sw.neg),
+                             sw.neg)
+    at_final = (P.D == g)[:, None, None]
+    return rows, vm, torch.where(at_final, bwd_final, computed)
+
+
+def _bwd_final(pack: BandPack, sw: _Sweep) -> torch.Tensor:
+    kf = pack.k_final.long()[:, None]
+    return torch.where((sw.P.k == kf)[:, None, :], pack.end_w[:, :, None],
+                       sw.neg)                                  # (B, 3, W)
+
+
+def _posterior(f, b, total, vm):
+    """exp(min(f + b - total, 0)) in the band, 0 outside."""
+    zero = torch.zeros((), dtype=torch.float32, device=f.device)
+    return torch.where(vm, torch.exp(torch.minimum(f + b - total, zero)),
+                       zero)
+
+
+def _corner_totals(pack: BandPack, sw: _Sweep, last: torch.Tensor):
+    """Total log prob at the final corner with the end weights
+    (pallas_banded.py:401-411); last = (B, 3, W) final diagonals."""
+    f3 = torch.gather(last, 2, pack.k_final.long()[:, None, None]
+                      .expand(sw.P.B, 3, 1))[:, :, 0]
+    t = f3 + pack.end_w
+    return sw.la(sw.la(t[:, 0], t[:, 1]), t[:, 2])
 
 
 def fb_forward_plain(pack: BandPack, use_lut: bool):
     """Plain PyTorch twin of K2-fwd (the Pallas `_fwd_kernel` recurrence,
     pallas_banded.py:206-247), vectorised over the pack's problems."""
-    la = logmath.log_add_fn(use_lut)
-    P = _Padded(pack, "fwd")
-    dev = pack.device
-    B, W = P.B, P.W
-    neg = torch.tensor(LOG_ZERO, dtype=torch.float32, device=dev)
-    tr = [pack.trans[:, i:i + 1] for i in range(9)]
-    fwd = torch.empty((pack.n_rows, 3, W), dtype=torch.float32, device=dev)
-    # diagonal 0: start weights at k = 0 (stateMachine.c:521-530)
-    cur = torch.where(P.k[:, None, :] == 0, pack.init[:, :, None], neg)
-    cur = cur.expand(B, 3, W).contiguous()
+    sw = _Sweep(pack, "fwd", use_lut)
+    P = sw.P
+    fwd = torch.empty((pack.n_rows, 3, P.W), dtype=torch.float32,
+                      device=pack.device)
+    cur = _init_diag(pack, sw)
     fwd[pack.geo_off] = cur
-    prev1 = _padded(cur)
-    prev2 = _padded(torch.full((B, 3, W), LOG_ZERO, dtype=torch.float32,
-                               device=dev))
-
-    def la3(a, b, c):
-        return la(la(a, b), c)
-
+    prev1, prev2 = _padded(cur), _padded(sw.empty())
     for g in range(1, P.Dmax):
-        xm = P.xmy[:, g]
-        s1 = torch.div(xm - 1 - P.xmy[:, g - 1], 2, rounding_mode="floor")
-        s2 = (torch.div(xm - P.xmy[:, g - 2], 2, rounding_mode="floor")
-              if g >= 2 else torch.zeros_like(xm))
-        low = _shift(prev1, s1, W)        # (x-1, y)
-        up = _shift(prev1, s1 + 1, W)     # (x, y-1)
-        mid = _shift(prev2, s2, W)        # (x-1, y-1)
-        rows, vm, e_m, e_gx, e_gy = P.at(g)
-        new_gx = e_gx + la3(low[:, MATCH] + tr[T_OPEN_X],
-                            low[:, GAPX] + tr[T_EXT_X],
-                            low[:, GAPY] + tr[T_SW_X])
-        new_m = e_m + la3(mid[:, MATCH] + tr[T_MM],
-                          mid[:, GAPX] + tr[T_M_FROM_GX],
-                          mid[:, GAPY] + tr[T_M_FROM_GY])
-        new_gy = e_gy + la3(up[:, MATCH] + tr[T_OPEN_Y],
-                            up[:, GAPY] + tr[T_EXT_Y],
-                            up[:, GAPX] + tr[T_SW_Y])
-        cur = torch.stack([new_m, new_gx, new_gy], dim=1)       # (B, 3, W)
-        cur = torch.maximum(torch.where(vm, cur, neg), neg)
+        rows, cur = _fwd_step(sw, g, prev1, prev2)
         live = g <= P.D
         fwd[rows[live]] = cur[live]
-        prev2 = prev1
-        prev1 = _padded(cur)
-    # total at the final corner with the end weights (:401-411)
-    last = fwd[pack.geo_off + P.D]                               # (B, 3, W)
-    f3 = torch.gather(last, 2, pack.k_final.long()[:, None, None]
-                      .expand(B, 3, 1))[:, :, 0]
-    t = f3 + pack.end_w
-    totals = la(la(t[:, 0], t[:, 1]), t[:, 2])
-    return fwd, totals
+        prev2, prev1 = prev1, _padded(cur)
+    return fwd, _corner_totals(pack, sw, fwd[pack.geo_off + P.D])
 
 
 def fb_backward_plain(pack: BandPack, fwd: torch.Tensor,
                       totals: torch.Tensor, use_lut: bool) -> torch.Tensor:
     """Plain PyTorch twin of K2-bwd (the Pallas `_bwd_kernel` recurrence,
     pallas_banded.py:294-340)."""
-    la = logmath.log_add_fn(use_lut)
-    P = _Padded(pack, "bwd")
-    dev = pack.device
-    B, W = P.B, P.W
-    neg = torch.tensor(LOG_ZERO, dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    tr = [pack.trans[:, i:i + 1] for i in range(9)]
+    sw = _Sweep(pack, "bwd", use_lut)
+    P = sw.P
     post = torch.zeros_like(fwd)
-    next1 = _padded(torch.full((B, 3, W), LOG_ZERO, dtype=torch.float32,
-                               device=dev))
-    next2 = next1
-    kf = pack.k_final.long()[:, None]
-    bwd_final = torch.where((P.k == kf)[:, None, :], pack.end_w[:, :, None],
-                            neg)                                  # (B, 3, W)
+    next1 = next2 = _padded(sw.empty())
+    bwd_final = _bwd_final(pack, sw)
     total = totals[:, None, None]
-
-    def la3(a, b, c):
-        return la(la(a, b), c)
-
     for g in range(P.Dmax - 1, -1, -1):
-        xm = P.xmy[:, g]
-        t1 = torch.div(xm + 1 - P.xmy[:, g + 1], 2, rounding_mode="floor")
-        t2 = torch.div(xm - P.xmy[:, g + 2], 2, rounding_mode="floor")
-        gx_n = _shift(next1[:, GAPX], t1, W)       # (x+1, y)
-        gy_n = _shift(next1[:, GAPY], t1 - 1, W)   # (x, y+1)
-        m_n = _shift(next2[:, MATCH], t2, W)       # (x+1, y+1)
-        rows, vm, e_m, e_gx, e_gy = P.at(g)
-        b_m = la3(gx_n + e_gx + tr[T_OPEN_X], m_n + e_m + tr[T_MM],
-                  gy_n + e_gy + tr[T_OPEN_Y])
-        b_gx = la3(gx_n + e_gx + tr[T_EXT_X], m_n + e_m + tr[T_M_FROM_GX],
-                   gy_n + e_gy + tr[T_SW_Y])
-        b_gy = la3(gx_n + e_gx + tr[T_SW_X], m_n + e_m + tr[T_M_FROM_GY],
-                   gy_n + e_gy + tr[T_EXT_Y])
-        computed = torch.maximum(
-            torch.where(vm, torch.stack([b_m, b_gx, b_gy], dim=1), neg), neg)
-        at_final = (P.D == g)[:, None, None]
-        cur = torch.where(at_final, bwd_final, computed)
+        rows, vm, cur = _bwd_step(sw, g, next1, next2, bwd_final)
         live = g <= P.D
         r = rows[live]
-        p = torch.exp(torch.minimum(fwd[r] + cur[live] - total[live], zero))
-        post[r] = torch.where(vm[live], p, zero)
-        next2 = next1
-        next1 = _padded(cur)
+        post[r] = _posterior(fwd[r], cur[live], total[live], vm[live])
+        next2, next1 = next1, _padded(cur)
     return post
+
+
+def seg_forward_plain(pack: BandPack, use_lut: bool, seg_d: int):
+    """Plain twin of K3-fwd: the K2 twin's forward steps, keeping only the
+    carry into every segment of seg_d diagonals and the final corners."""
+    sw = _Sweep(pack, "fwd", use_lut)
+    P = sw.P
+    seg_off, n_total = seg_layout(pack, seg_d)
+    ckpt = torch.full((n_total, 2, 3, P.W), LOG_ZERO, dtype=torch.float32,
+                      device=pack.device)
+    cur = _init_diag(pack, sw)
+    last = cur.clone()
+    prev1, prev2 = _padded(cur), _padded(sw.empty())
+    for g in range(1, P.Dmax):
+        live = g <= P.D
+        if g % seg_d == 0:
+            idx = seg_off[live] + g // seg_d
+            ckpt[idx, 0] = prev1[live][..., 1:-1]
+            ckpt[idx, 1] = prev2[live][..., 1:-1]
+        _, cur = _fwd_step(sw, g, prev1, prev2)
+        hit = P.D == g
+        last[hit] = cur[hit]
+        prev2, prev1 = prev1, _padded(cur)
+    return ckpt, _corner_totals(pack, sw, last)
+
+
+def seg_backward_plain(pack: BandPack, ckpt: torch.Tensor,
+                       totals: torch.Tensor, use_lut: bool, seg_d: int,
+                       threshold: float):
+    """Plain twin of K3-bwd: per segment, last first, the forward recomputed
+    from its checkpoint into a (B, seg_d, 3, W) block, then the backward
+    through it with the carry of the later segments, and the posterior
+    cells >= threshold as extraction words (lo, hi)."""
+    fw = _Sweep(pack, "fwd", use_lut)
+    sw = _Sweep(pack, "bwd", use_lut)
+    P = sw.P
+    B, W = P.B, P.W
+    seg_off, _ = seg_layout(pack, seg_d)
+    k = P.k
+    next1 = next2 = _padded(sw.empty())
+    bwd_final = _bwd_final(pack, sw)
+    total = totals[:, None, None]
+    los, his = [], []
+    for seg in range(int(P.D.max()) // seg_d, -1, -1):
+        d0 = seg * seg_d
+        d1 = min(d0 + seg_d, P.Dmax)
+        blk = torch.empty((B, d1 - d0, 3, W), dtype=torch.float32,
+                          device=pack.device)
+        if seg == 0:
+            cur = _init_diag(pack, fw)
+            blk[:, 0] = cur
+            prev1, prev2 = _padded(cur), _padded(fw.empty())
+            g0 = 1
+        else:
+            live = d0 <= P.D
+            carry = torch.full((B, 2, 3, W), LOG_ZERO, dtype=torch.float32,
+                               device=pack.device)
+            carry[live] = ckpt[seg_off[live] + seg]
+            prev1, prev2 = _padded(carry[:, 0]), _padded(carry[:, 1])
+            g0 = d0
+        for g in range(g0, d1):
+            _, cur = _fwd_step(fw, g, prev1, prev2)
+            blk[:, g - d0] = cur
+            prev2, prev1 = prev1, _padded(cur)
+        post = torch.empty_like(blk)
+        for g in range(d1 - 1, d0 - 1, -1):
+            _, vm, cur = _bwd_step(sw, g, next1, next2, bwd_final)
+            post[:, g - d0] = _posterior(blk[:, g - d0], cur, total, vm)
+            next2, next1 = next1, _padded(cur)
+        # extraction (banded.extract_packed's selection and words)
+        diag = torch.arange(d0, d1, device=pack.device)             # (n,)
+        xm = P.xmy[:, d0:d1]                                        # (B, n)
+        xb = torch.div(diag + xm, 2, rounding_mode="floor") - 1
+        yb = torch.div(diag - xm, 2, rounding_mode="floor") - 1
+        x_ok = (xb[..., None] + 1 + k) > 0                          # (B,n,W)
+        y_ok = (yb[..., None] + 1 - k) > 0
+        sel = post >= threshold
+        sel[:, :, MATCH] &= x_ok & y_ok
+        sel[:, :, GAPX] &= x_ok
+        sel[:, :, GAPY] &= y_ok
+        sel &= (diag[None, :] <= P.D[:, None])[:, :, None, None]
+        b_i, d_i, s_i, k_i = torch.nonzero(sel, as_tuple=True)
+        probs = torch.floor(torch.clamp(post[b_i, d_i, s_i, k_i], max=1.0)
+                            * 10_000_000).to(torch.int32)
+        los.append(probs | (k_i.to(torch.int32) << 24))
+        his.append((d0 + d_i).to(torch.int32)
+                   | ((b_i * 3 + s_i).to(torch.int32) << 22))
+    return torch.cat(los), torch.cat(his)
 
 
 def fb_posteriors_group(tables, items, w_pad: int, expansion: int,
@@ -489,3 +725,35 @@ def fb_posteriors_group(tables, items, w_pad: int, expansion: int,
     post = fb_backward(pack, fwd, totals, use_lut)
     return post, totals, pack
 
+
+def _fused(totals, lo, hi) -> torch.Tensor:
+    """[count, totals (bit-cast), lo words, hi words], the layout of
+    banded.extract_packed."""
+    count = torch.tensor([lo.numel()], dtype=torch.int32, device=lo.device)
+    return torch.cat([count, totals.contiguous().view(torch.int32), lo, hi])
+
+
+def fb_posteriors_seg(tables, items, w_pad: int, expansion: int,
+                      use_lut: bool, dynamic: bool, use_rle: bool,
+                      threshold: float, seg_d: int, geoms_in=None,
+                      device="cuda"):
+    """Solve one deep pack with the segmented forward-backward (K3-fwd,
+    K3-bwd on a CUDA device). Returns (the fused int32 readback
+    [count, totals, lo words, hi words] on `device`, pack); the words are
+    those `banded.extract_packed` builds from the monolithic posteriors,
+    in another order."""
+    pack = _pack_host(tables, items, w_pad, expansion, dynamic, use_rle,
+                      geoms_in, device)
+    ckpt, totals = seg_forward(pack, use_lut, seg_d)
+    lo, hi = seg_backward(pack, ckpt, totals, use_lut, seg_d, threshold)
+    return _fused(totals, lo, hi), pack
+
+
+def fb_posteriors_seg_plain(pack: BandPack, use_lut: bool, threshold: float,
+                            seg_d: int) -> torch.Tensor:
+    """The plain twins of K3-fwd and K3-bwd on a pack, on its device:
+    the fused readback of `fb_posteriors_seg`."""
+    ckpt, totals = seg_forward_plain(pack, use_lut, seg_d)
+    lo, hi = seg_backward_plain(pack, ckpt, totals, use_lut, seg_d,
+                                threshold)
+    return _fused(totals, lo, hi)

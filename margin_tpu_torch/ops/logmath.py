@@ -38,10 +38,12 @@ _TABLES = {}
 
 
 def _tables(device: torch.device):
+    """(coefficients transposed (4, 4): row j holds column j of CUBIC,
+    breaks) on `device`."""
     t = _TABLES.get(device)
     if t is None:
         t = _TABLES[device] = (
-            torch.tensor(CUBIC, dtype=torch.float32, device=device),
+            torch.tensor(CUBIC.T.copy(), dtype=torch.float32, device=device),
             torch.tensor(BREAKS, dtype=torch.float32, device=device))
     return t
 
@@ -51,10 +53,10 @@ def log_add_lut(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     hi = torch.maximum(x, y)
     lo = torch.minimum(x, y)
     d = hi - lo
-    cubic, breaks = _tables(d.device)
+    cubic_t, breaks = _tables(d.device)
     # row 0 for d <= 1.0, 1 for d <= 2.5, 2 for d <= 4.5, else 3
-    c = cubic[torch.bucketize(d, breaks)]
-    approx = ((c[..., 0] * d + c[..., 1]) * d + c[..., 2]) * d + c[..., 3]
+    c0, c1, c2, c3 = cubic_t[:, torch.bucketize(d, breaks)]
+    approx = ((c0 * d + c1) * d + c2) * d + c3
     approx = approx + lo
     return torch.where(d >= LOG_UNDERFLOW_THRESHOLD, hi, approx)
 
@@ -66,3 +68,28 @@ def log_add_exact(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def log_add_fn(use_lut: bool):
     return log_add_lut if use_lut else log_add_exact
+
+
+# float64 numpy versions, for the host-side POA consensus
+# (margin_tpu/ops/logmath.py:92-108)
+
+def np_lookup(x: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float64)
+    idx = (x > BREAKS[0]).astype(np.int64) + (x > BREAKS[1]) + (x > BREAKS[2])
+    coeff = CUBIC[idx]
+    return ((coeff[..., 0] * x + coeff[..., 1]) * x + coeff[..., 2]) * x \
+        + coeff[..., 3]
+
+
+def np_log_add_lut(x, y):
+    """Scalar/array numpy twin of the reference logAdd
+    (pairwiseAligner.c:295-299), -inf aware."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    hi = np.maximum(x, y)
+    lo = np.minimum(x, y)
+    with np.errstate(invalid="ignore"):
+        d = hi - lo
+    use_hi = np.isinf(lo) | np.isnan(d) | (d >= LOG_UNDERFLOW_THRESHOLD)
+    d_safe = np.where(use_hi, 0.0, d)
+    return np.where(use_hi, hi, np_lookup(d_safe) + lo)

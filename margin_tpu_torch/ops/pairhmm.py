@@ -115,6 +115,18 @@ def tables_from_numpy(match, gap_x, gap_y, trans, repeat=None,
                          None if repeat is None else t(repeat))
 
 
+def tables_like(src, device="cuda") -> PairHmmTables:
+    """Carry tables built elsewhere into the port: any object with match,
+    gap_x, gap_y, trans and repeat arrays in the layout above, such as the
+    JAX package's PairHmmTables.from_params(pp.sm_forward, pp.sm_reverse,
+    repeat=pp.repeat_sub_matrix) for a polish params file."""
+    rep = getattr(src, "repeat", None)
+    return tables_from_numpy(*(np.asarray(getattr(src, k)) for k in
+                               ("match", "gap_x", "gap_y", "trans")),
+                             None if rep is None else np.asarray(rep),
+                             device=device)
+
+
 @dataclass(frozen=True)
 class PairBatch:
     """A padded batch of (x, y) sequence pairs, on one device.
@@ -357,18 +369,20 @@ def forward_total_plain(tables: PairHmmTables, batch: PairBatch,
         p2m, p2x, p2y = p2
         s2m, s2x, s2y = shift_row(p2m), shift_row(p2x), shift_row(p2y)
         u1m, u1x, u1y = shift_row(p1m), shift_row(p1x), shift_row(p1y)
-        new_gx = e_gx + log_add3(p1m + trc[T_OPEN_X], p1x + trc[T_EXT_X],
-                                 p1y + trc[T_SW_X])
-        new_m = e_m + log_add3(s2m + trc[T_MM], s2x + trc[T_M_FROM_GX],
-                               s2y + trc[T_M_FROM_GY])
-        new_gy = e_gy + log_add3(u1m + trc[T_OPEN_Y], u1y + trc[T_EXT_Y],
-                                 u1x + trc[T_SW_Y])
+        # the three states' 3-way logAdds in one call (m, gx, gy): each
+        # element sees the JAX function's operations in its order
+        new = torch.stack([e_m, e_gx, e_gy]) + log_add3(
+            torch.stack([s2m + trc[T_MM], p1m + trc[T_OPEN_X],
+                         u1m + trc[T_OPEN_Y]]),
+            torch.stack([s2x + trc[T_M_FROM_GX], p1x + trc[T_EXT_X],
+                         u1y + trc[T_EXT_Y]]),
+            torch.stack([s2y + trc[T_M_FROM_GY], p1y + trc[T_SW_X],
+                         u1x + trc[T_SW_Y]]))
         x_pos = d - y_iota
         valid = (y_iota <= lys_r) & (x_pos >= 0) & (x_pos <= lxs_r)
         # clamp accumulated underflow to the finite LOG_ZERO
-        new_m = torch.maximum(torch.where(valid, new_m, neg), neg)
-        new_gx = torch.maximum(torch.where(valid, new_gx, neg), neg)
-        new_gy = torch.maximum(torch.where(valid, new_gy, neg), neg)
+        new_m, new_gx, new_gy = torch.maximum(torch.where(valid, new, neg),
+                                              neg)
         hit = d_final == d
         if bool(hit.any()):
             # the total at d == lx+ly, row y == ly (pairwiseAligner.c:882-892)

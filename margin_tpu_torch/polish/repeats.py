@@ -1,0 +1,145 @@
+"""Bayesian run-length (repeat count) inference over POA observations.
+
+Copy of the haploid part of `margin_tpu/polish/repeats.py` with the
+port's imports; the phased variants wait for diploid polish (ROADMAP
+queue 1). Parity: impl/repeatSubMatrix.c (ML repeat counts) and the mode
+fallback (poa.c:1678-1698), host-side numpy.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+from margin_tpu_torch.alphabet import seq_to_symbols
+from margin_tpu_torch.params import RepeatSubMatrix
+from margin_tpu_torch.polish.poa import PAIR1, Poa, PoaRead
+
+
+def _observed_counts_and_weights(node, reads: List[PoaRead], max_rl: int):
+    obs = node.observations
+    if not obs:
+        return None, None, None
+    counts = np.empty(len(obs), dtype=np.int64)
+    weights = np.empty(len(obs), dtype=np.float64)
+    strands = np.empty(len(obs), dtype=bool)
+    for i, (read_no, offset, weight) in enumerate(obs):
+        r = reads[read_no]
+        counts[i] = min(int(r.rle_read.counts[offset]), max_rl - 1)
+        weights[i] = weight
+        strands[i] = r.forward_strand
+    return counts, weights, strands
+
+
+def _log_probs_for_counts(rm: RepeatSubMatrix, base: int, counts, weights,
+                          strands, lo: int, hi: int) -> np.ndarray:
+    """repeatSubMatrix_getRepeatCountProbs (repeatSubMatrix.c:115-122):
+    log prob of each underlying count in [lo, hi]."""
+    b = base if base < 4 else 0
+    fwd_slot = b
+    rev_slot = 3 - b
+    # (hi-lo+1, n_obs) gather: logProb[underlying, obs]
+    under = np.arange(lo, hi + 1)
+    probs_f = rm.log_probs[fwd_slot][under[:, None], counts[None, :]]
+    probs_r = rm.log_probs[rev_slot][under[:, None], counts[None, :]]
+    sel = np.where(strands[None, :], probs_f, probs_r)
+    return (sel * weights[None, :]).sum(axis=1) / PAIR1
+
+
+def ml_repeat_count(rm: Optional[RepeatSubMatrix], poa: Poa, node,
+                    reads: List[PoaRead]) -> int:
+    """repeatSubMatrix_getMLRepeatCount (repeatSubMatrix.c:124-143) or the
+    mode of observed run lengths when no matrix (poa.c:1678-1698)."""
+    base = seq_to_symbols(node.base)[0]
+    if rm is None:
+        # mode of observed run lengths among matching-base observations
+        tallies = {}
+        best_rl, best_n = 0, 0
+        for read_no, offset, _w in node.observations:
+            r = reads[read_no]
+            if seq_to_symbols(r.rle_read.bases[offset])[0] != base:
+                continue
+            rl = int(r.rle_read.counts[offset])
+            n = tallies.get(rl, 0) + 1
+            tallies[rl] = n
+            if n > best_n:
+                best_n, best_rl = n, rl
+        return best_rl
+    counts, weights, strands = _observed_counts_and_weights(node, reads, rm.max_repeat)
+    if counts is None or len(counts) == 0 or counts.min() == rm.max_repeat:
+        return 0
+    lo, hi = int(counts.min()), int(counts.max())
+    lp = _log_probs_for_counts(rm, int(base), counts, weights, strands, lo, hi)
+    return lo + int(np.argmax(lp))  # first max (getMax, repeatSubMatrix.c:153-167)
+
+
+class _FlatObs:
+    """All node observations flattened once (the per-node tuple-unpack loop
+    dominated estimate_repeat_counts' host time): per-node slices of
+    observed-count / weight / strand arrays, numerically identical inputs
+    to the per-node path."""
+
+    def __init__(self, nodes, reads: List[PoaRead], max_rl: int):
+        lens = np.fromiter((len(n.observations) for n in nodes),
+                           dtype=np.int64, count=len(nodes))
+        self.starts = np.zeros(len(nodes) + 1, dtype=np.int64)
+        np.cumsum(lens, out=self.starts[1:])
+        total = int(self.starts[-1])
+        if total == 0:
+            self.counts = np.zeros(0, np.int64)
+            self.weights = np.zeros(0, np.float64)
+            self.strands = np.zeros(0, bool)
+            return
+        flat = np.array([o for n in nodes for o in n.observations],
+                        dtype=np.float64).reshape(total, 3)
+        read_nos = flat[:, 0].astype(np.int64)
+        offsets = flat[:, 1].astype(np.int64)
+        self.weights = flat[:, 2].copy()
+        read_lens = np.fromiter((r.rle_read.length for r in reads),
+                                dtype=np.int64, count=len(reads))
+        base_off = np.zeros(len(reads) + 1, dtype=np.int64)
+        np.cumsum(read_lens, out=base_off[1:])
+        big_counts = (np.concatenate([r.rle_read.counts for r in reads])
+                      if reads else np.zeros(0, np.int64))
+        self.counts = np.minimum(big_counts[base_off[read_nos] + offsets],
+                                 max_rl - 1)
+        strand_per_read = np.fromiter((r.forward_strand for r in reads),
+                                      dtype=bool, count=len(reads))
+        self.strands = strand_per_read[read_nos]
+        self.read_nos = read_nos
+
+    def node(self, i: int):
+        s, e = self.starts[i], self.starts[i + 1]
+        if s == e:
+            return None, None, None
+        return self.counts[s:e], self.weights[s:e], self.strands[s:e]
+
+
+def estimate_repeat_counts(poa: Poa, reads: List[PoaRead],
+                           rm: Optional[RepeatSubMatrix]):
+    """poa_estimateRepeatCountsUsingBayesianModel (poa.c:1715-1727)."""
+    counts = poa.ref_string.counts
+    if rm is None:
+        for i, node in enumerate(poa.nodes[1:]):
+            rc = ml_repeat_count(rm, poa, node, reads)
+            counts[i] = max(rc, 1)
+            node.repeat_count = int(counts[i])
+        poa.ref_string.non_rle_length = int(counts.sum())
+        return
+    nodes = poa.nodes[1:]
+    flat = _FlatObs(nodes, reads, rm.max_repeat)
+    bases = np.empty(len(nodes), dtype=np.int64)
+    bases[:] = seq_to_symbols("".join(n.base for n in nodes))
+    for i, node in enumerate(nodes):
+        cnt, wts, strs = flat.node(i)
+        if cnt is None or cnt.min() == rm.max_repeat:
+            rc = 0
+        else:
+            lo, hi = int(cnt.min()), int(cnt.max())
+            lp = _log_probs_for_counts(rm, int(bases[i]), cnt, wts, strs,
+                                       lo, hi)
+            rc = lo + int(np.argmax(lp))
+        counts[i] = max(rc, 1)
+        node.repeat_count = int(counts[i])
+    poa.ref_string.non_rle_length = int(counts.sum())

@@ -317,3 +317,252 @@ def write_dataset(out_dir: str, cfg: SynthConfig) -> SynthDataset:
                                  cfg.sv_expansion}}, fh, indent=1)
     return SynthDataset(bam, fasta, vcf, params, cfg.contig, variants,
                         read_hap)
+
+
+# ---------------------------------------------------------------------------
+# margin polish
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PolishSynthConfig:
+    contig: str = "contig1"
+    contig_len: int = 12_000
+    coverage: float = 10.0
+    read_len: Tuple[int, int] = (1500, 4000)
+    draft_error_every: int = 200     # one draft error per this many bases
+    homopolymer_bias: float = 0.6    # share of draft errors put in runs
+    p_sub: float = 0.03              # read errors
+    p_ins: float = 0.02
+    p_del: float = 0.03
+    chunk_size: int = 5000
+    chunk_boundary: int = 500
+    # polish.maxPoaConsensusIterations (the POA's profile-HMM consensus,
+    # each followed by a realignment) and maxRealignmentPolishIterations
+    # (bubble consensus with dense allele scoring; the params set
+    # minRealignmentPolishIterations to 0, so a bubble pass that does not
+    # raise the realigned score is dropped)
+    poa_consensus_iterations: int = 3
+    realign_polish_iterations: int = 1
+    seed: int = 0
+
+
+@dataclass
+class PolishDataset:
+    bam: str
+    draft: str
+    truth: str
+    params: str
+    contig: str
+    draft_edits: List[Variant] = field(default_factory=list)
+
+
+def _draft_from_truth(rng, cfg: PolishSynthConfig, truth: np.ndarray):
+    """The draft: the truth with substitutions and 1-3 bp insertions and
+    deletions about every cfg.draft_error_every bases, a share of them in
+    homopolymer runs. Returns (draft, the edits that turn the draft back
+    into the truth, as homozygous Variants in draft coordinates)."""
+    L = len(truth)
+    run_start = np.concatenate([[True], truth[1:] != truth[:-1]])
+    run_id = np.cumsum(run_start) - 1
+    run_len = np.bincount(run_id)[run_id]
+    in_runs = np.nonzero(run_len >= 3)[0]
+    n_err = max(1, L // cfg.draft_error_every)
+    sites = set()
+    while len(sites) < n_err:
+        if len(in_runs) and rng.random() < cfg.homopolymer_bias:
+            t = int(in_runs[rng.integers(0, len(in_runs))])
+        else:
+            t = int(rng.integers(0, L))
+        if 20 <= t < L - 20 and not any(abs(t - u) < 12 for u in sites):
+            sites.add(t)
+    pieces, edits = [], []
+    cur = dlen = 0        # next truth base to copy, draft length so far
+    for t in sorted(sites):
+        pieces.append(truth[cur:t])
+        dlen += t - cur
+        kind = rng.choice(["snv", "ins", "del"], p=[0.4, 0.3, 0.3])
+        n = int(rng.integers(1, 4))
+        b = truth[t]
+        if kind == "snv":
+            alt = _BASES[(int(np.searchsorted(_BASES, b))
+                          + int(rng.integers(1, 4))) % 4]
+            pieces.append(np.array([alt], np.uint8))
+            edits.append(Variant(dlen, chr(alt), chr(b), 1, "snv"))
+            dlen, cur = dlen + 1, t + 1
+        elif kind == "ins":
+            # the draft carries n extra bases after truth[t]: copies of the
+            # run's base inside a homopolymer, random bases elsewhere
+            extra = (np.full(n, b, np.uint8) if run_len[t] >= 3
+                     else _BASES[rng.integers(0, 4, n)])
+            ref = np.concatenate([[b], extra]).astype(np.uint8)
+            pieces.append(ref)
+            edits.append(Variant(dlen, ref.tobytes().decode(), chr(b), 1,
+                                 "del"))
+            dlen, cur = dlen + len(ref), t + 1
+        else:
+            # the draft lacks truth[t+1 .. t+n]
+            alt = truth[t:t + n + 1]
+            pieces.append(np.array([b], np.uint8))
+            edits.append(Variant(dlen, chr(b), alt.tobytes().decode(), 1,
+                                 "ins"))
+            dlen, cur = dlen + 1, t + n + 1
+    pieces.append(truth[cur:])
+    return np.concatenate(pieces).astype(np.uint8), edits
+
+
+def _repeat_matrix_json(rng, cfg: PolishSynthConfig, n_sim: int = 4000
+                        ) -> dict:
+    """A seeded repeat-count substitution matrix for the config's read
+    error model, the way margin's matrices are trained on real reads: per
+    underlying run length u, n_sim runs of u equal bases pass through
+    substitutions, deletions and insertions (a quarter of them the run's
+    own base), and the longest surviving run is the observed count. Per
+    base 51 x 51 log10 probabilities [underlying][observed], smoothed with
+    a small peak on observed = underlying."""
+    n = 51
+    counts = np.zeros((n, n))
+    for u in range(1, n):
+        v = rng.random((n_sim, u))
+        lost = v < cfg.p_del + cfg.p_sub              # deleted or changed
+        changed = v >= cfg.p_del                       # (of the lost ones)
+        w = rng.random((n_sim, u))
+        ins = w < cfg.p_ins
+        same = w < cfg.p_ins / 4
+        run = np.zeros(n_sim, np.int64)
+        best = np.zeros(n_sim, np.int64)
+        for i in range(u):
+            run = np.where(lost[:, i] & changed[:, i], 0,
+                           run + ~lost[:, i])
+            best = np.maximum(best, run)
+            run = np.where(ins[:, i], np.where(same[:, i], run + 1, 0), run)
+            best = np.maximum(best, run)
+        counts[u] += np.bincount(np.minimum(best, n - 1), minlength=n)
+    counts[0, 0] += 1.0
+    peak = np.exp(-2.0 * np.abs(np.arange(n)[None, :]
+                                - np.arange(n)[:, None]))
+    prob = counts / n_sim + 1e-3 * peak
+    prob /= prob.sum(axis=1, keepdims=True)
+    out = {}
+    for base in "ACGT":
+        out[f"repeatCountLogProbabilities_{base}_F"] = \
+            np.log10(prob).ravel().tolist()
+    prior = np.log10(np.full(n, 1.0 / n))
+    out["baseLogRepeatCounts_AT"] = prior.tolist()
+    out["baseLogRepeatCounts_GC"] = prior.tolist()
+    return out
+
+
+def write_polish_dataset(out_dir: str, cfg: PolishSynthConfig
+                         ) -> PolishDataset:
+    """Write a seeded `margin polish` input set: truth.fa (a random
+    contig), draft.fa (the truth with draft errors), reads.bam(.bai)
+    (ONT-like reads from the truth on both strands, aligned to the draft
+    by their true alignments) and params.json (the default nucleotide HMM,
+    run-length encoding with a repeat-count matrix simulated for the read
+    error model, the config's chunk geometry and consensus iterations)."""
+    rng = np.random.default_rng(cfg.seed)
+    os.makedirs(out_dir, exist_ok=True)
+    truth = _BASES[rng.integers(0, 4, cfg.contig_len)]
+    draft, edits = _draft_from_truth(rng, cfg, truth)
+    # the truth is the draft's haplotype carrying every edit
+    hap_seq, hap_map = _haplotype(draft, edits, 1)
+    assert np.array_equal(hap_seq, truth)
+
+    truth_fa = os.path.join(out_dir, "truth.fa")
+    write_fasta(truth_fa, [(cfg.contig, truth.tobytes().decode())])
+    draft_fa = os.path.join(out_dir, "draft.fa")
+    write_fasta(draft_fa, [(cfg.contig, draft.tobytes().decode())])
+
+    records = []
+    lo, hi = cfg.read_len
+    total, idx = 0, 0
+    L = len(truth)
+    while total < cfg.coverage * L:
+        # reads may overhang the contig ends (cut there), so coverage
+        # reaches them and the polished contig spans the whole truth
+        ln = min(int(rng.integers(lo, hi + 1)), L)
+        start = int(rng.integers(-(ln // 2), L - ln // 2 + 1))
+        end = min(start + ln, L)
+        start = max(start, 0)
+        aln = _read_alignment(rng, cfg, hap_seq, hap_map, start, end)
+        if aln is None:
+            continue
+        pos, cigar, bases = aln
+        name = f"read{idx:06d}"
+        reverse = bool(rng.integers(0, 2))
+        quals = rng.integers(8, 30, len(bases)).astype(np.uint8).tobytes()
+        records.append((pos, name, build_bam_record(
+            name, 16 if reverse else 0, 0, pos, 60, cigar, bases.tobytes(),
+            quals)))
+        total += len(bases)
+        idx += 1
+    records.sort(key=lambda r: (r[0], r[1]))
+    bam = os.path.join(out_dir, "reads.bam")
+    header = bamio.BamHeader(
+        f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{cfg.contig}\t"
+        f"LN:{len(draft)}\n", [cfg.contig], [len(draft)])
+    with bamio.BamWriter(bam, header) as w:
+        for _, _, raw in records:
+            w.write_raw(raw)
+    bamio.build_bai(bam)
+
+    params = os.path.join(out_dir, "params.json")
+    sm = StateMachineParams.default_nucleotide()
+    with open(params, "w") as fh:
+        json.dump({"polish": {
+            "hmmForwardStrandReadGivenReference": hmm_json(sm),
+            "useRunLengthEncoding": True,
+            "repeatCountSubstitutionMatrix": _repeat_matrix_json(rng, cfg),
+            "chunkSize": cfg.chunk_size,
+            "chunkBoundary": cfg.chunk_boundary,
+            "maxPoaConsensusIterations": cfg.poa_consensus_iterations,
+            "maxRealignmentPolishIterations":
+                cfg.realign_polish_iterations,
+            "minRealignmentPolishIterations": 0}}, fh)
+    return PolishDataset(bam, draft_fa, truth_fa, params, cfg.contig, edits)
+
+
+def banded_edit_distance(a: str, b: str, band: int = 500) -> int:
+    """Levenshtein distance of a and b over the alignments that stay within
+    `band` columns of the line from (0, 0) to (len(a), len(b)): exact when
+    the best alignment stays in it, an upper bound otherwise. Row by row
+    over the band, the in-row insertions as one running minimum:
+    O(len(a) * band) numpy work."""
+    x = np.frombuffer(a.encode(), dtype=np.uint8)
+    y = np.frombuffer(b.encode(), dtype=np.uint8)
+    n, m = len(x), len(y)
+    if n == 0 or m == 0:
+        return n + m
+    big = np.int64(1) << 40
+    W = 2 * band + 1
+    off = np.arange(-band, band + 1, dtype=np.int64)  # column j = c_i + off
+    centre = (np.arange(n + 1, dtype=np.int64) * m) // n
+    step = int(np.diff(centre).max(initial=0))
+    # y with a sentinel margin: row i's characters y[j-1] are the slice
+    # yp[c_i + 1 : c_i + 1 + W]
+    fill = np.full(band + 2, 255, np.uint8)
+    yp = np.concatenate([fill, y, fill])
+    # buf[1 + k] holds the previous row at band slot k; big around it
+    buf = np.full(W + step + 2, big)
+    row0 = off.copy()                                 # dp[0][j] = j
+    row0[(off < 0) | (off > m)] = big
+    buf[1:W + 1] = row0
+    for i in range(1, n + 1):
+        c = int(centre[i])
+        s = c - int(centre[i - 1])
+        # the band moved by s columns: column j of the previous row is at
+        # slot k + s, column j - 1 at slot k + s - 1
+        up = buf[1 + s:1 + s + W]
+        diag = buf[s:s + W]
+        t = np.minimum(diag + (yp[c + 1:c + 1 + W] != x[i - 1]), up + 1)
+        k0 = band - c                                 # the slot of j = 0
+        if 0 <= k0 < W:
+            t[k0] = i
+        cur = np.minimum.accumulate(t - off) + off    # left (i, j-1) + 1
+        k_end = m - c + band                          # the slot of j = m
+        if k_end < W - 1:
+            cur[k_end + 1:] = big
+        if k0 > 0:
+            cur[:k0] = big
+        buf[1:W + 1] = cur
+    return int(buf[1 + m - int(centre[n]) + band])

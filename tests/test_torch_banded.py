@@ -270,10 +270,20 @@ def test_wide_band_without_host_engine_takes_plain_twin(monkeypatch):
 
 
 def test_pack_beyond_budget_raises(monkeypatch):
-    monkeypatch.setattr(cuda_banded, "FB_GRID_BUDGET_BYTES", 1024)
+    """A problem whose own grids exceed the pack memory budget no longer
+    raises: it takes the segmented kernels (K3), with the monolithic
+    route's results."""
     items = _items(0, False, 6, n=1)
-    with pytest.raises(NotImplementedError, match="K3"):
-        _port_many(items, False, True, 2.0)
+    want = _port_many(items, False, True, 0.01)
+    monkeypatch.setattr(cuda_banded, "FB_GRID_BUDGET_BYTES", 1024)
+    banded.ROUTES.reset()
+    got = _port_many(items, False, True, 0.01)
+    assert banded.ROUTES.seg_items == 1 and banded.ROUTES.pack_items == 0
+    (gp, gt), = got
+    (wp, wt), = want
+    assert gt == wt and len(gp[0]) > 0
+    for a, b in zip(gp, wp):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.cuda

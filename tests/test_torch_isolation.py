@@ -84,9 +84,12 @@ def test_cuda_requested_without_cuda_raises(tmp_path):
                   str(tmp_path / "o"), device="cuda", log=lambda *a: None)
 
 
-def test_cli_rejects_unported_parts():
+def test_cli_rejects_unported_parts(capsys):
     from margin_tpu_torch import cli
-    with pytest.raises(SystemExit):
-        cli.main(["polish", "a", "b", "c"])
+    for flag, item in (("--diploid", "Diploid polish"),
+                       ("-f", "HELEN, EM with K4")):
+        with pytest.raises(SystemExit):
+            cli.main(["polish", "a", "b", "c", flag])
+        assert item in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["tagFromIds"])
