@@ -19,7 +19,7 @@ Phases (any failure raises and the script exits non-zero):
      zeroed right before and read right after. Checks: K1 and K2 launched,
      >= half the true het sites phased, haplotags agree with the simulated
      origin on >= 90% of tagged reads;
-  4. rerun a 100 kb sub-region with the kernels and then with the plain
+  4. rerun a 200 kb sub-region with the kernels and then with the plain
      twins bound in their place: byte-identical phased VCF and
      phaseset.bed;
   2b. hold the segmented kernels K3-fwd / K3-bwd against K2 on packs of 64
@@ -40,12 +40,14 @@ Phases (any failure raises and the script exits non-zero):
      launch counters zeroed right before, read right after. Checks: K1,
      K2 and K3 launched, items on the segmented route, and the polished
      contig's edit distance to the truth at most half the draft's;
-  7. polish a 4 kb sub-region in process (run_polish, no POA-consensus
-     iteration) with SEG_MIN_D lowered to 2048, through the kernels and
-     then through the plain twins bound in their place: byte-identical
-     FASTA; then hold K3 against its
-     twin and against K2 on the largest K3 pack of phase 6 (cut to its
-     shallowest problems so the twin stays within about a minute).
+  7. polish a 10 kb sub-region in process (run_polish, the dataset's
+     own POA-consensus iterations and bubble pass) with SEG_MIN_D lowered
+     to 2048, through the kernels and then through the plain twins bound
+     in their place: byte-identical FASTA; then time K3 on the largest K3
+     pack of phase 6 and hold it against K2 there (identical words and
+     totals), and against its twin on that pack's 16 shallowest problems
+     (the twin walks one diagonal at a time, so its time follows the
+     deepest problem it is given).
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -275,10 +277,19 @@ def compare_words(name, got, want, lut):
 
 
 def k2_words(pack, lut, threshold=0.01):
-    """The monolithic kernels' extraction words of a pack."""
+    """The monolithic kernels' extraction words of a pack, whatever the
+    size of its grids (the card holds 80 GB; the routing budget
+    FB_GRID_BUDGET_BYTES is lifted for this comparison only)."""
     from margin_tpu_torch.ops import banded, cuda_banded
-    fk, tk = cuda_banded.fb_forward(pack, lut)
+    budget = cuda_banded.FB_GRID_BUDGET_BYTES
+    cuda_banded.FB_GRID_BUDGET_BYTES = max(
+        budget, cuda_banded.grid_bytes(pack.n_rows, pack.W))
+    try:
+        fk, tk = cuda_banded.fb_forward(pack, lut)
+    finally:
+        cuda_banded.FB_GRID_BUDGET_BYTES = budget
     pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+    del fk
     packed = banded.extract_packed(pk, tk, pack, threshold).cpu().numpy()
     n, c = pack.B, int(packed[0])
     return (packed[1:1 + n].view("float32"),
@@ -638,7 +649,7 @@ def accuracy(ds, base):
 
 
 def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
-              n_sv=30, region_len=100_000):
+              n_sv=30, region_len=200_000):
     from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
     from margin_tpu_torch.testing.synth import SynthConfig, write_dataset
     t0 = time.perf_counter()
@@ -879,16 +890,17 @@ def phase_polish(device, work, out_dir, span=205_000):
             "dataset_s": gen_s, "span": span}, ds, rec
 
 
-def phase_polish_region(ds, work, region_len=4_000):
+def phase_polish_region(ds, work, region_len=10_000):
     """A sub-region in process through the kernels, then through the plain
-    twins bound in their place: byte-identical FASTA. A 4 kb region and no
-    POA-consensus iteration (the realignment and the bubble pass) keep the
-    twins' run near a minute (they walk ~0.6 ms per diagonal)."""
+    twins bound in their place: byte-identical FASTA. The dataset's own
+    POA-consensus iterations and bubble pass run; the region is cut to
+    10 kb to keep the twins' run near three minutes (they walk one
+    diagonal at a time, ~0.5 ms each, through every pack of every
+    realignment)."""
     from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
     from margin_tpu_torch.params import Params
     from margin_tpu_torch.polish.driver import run_polish
     params = Params.load(ds.params)
-    params.polish.maxPoaConsensusIterations = 0
     mid = len(fasta_seq(ds.draft)) // 2
     region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
     saved_min = banded.SEG_MIN_D
@@ -931,37 +943,50 @@ def phase_polish_region(ds, work, region_len=4_000):
         if a.read() != b.read():
             raise AssertionError(f"{region}: kernel and plain polished "
                                  "FASTA differ")
-    log(f"polish {region} (SEG_MIN_D 2048, {seg_items} items on K3): "
-        f"kernels {kern_s:.1f} s, plain twins {plain_s:.1f} s, FASTA "
-        "byte-identical")
+    log(f"polish {region} (SEG_MIN_D 2048, POA-consensus iterations "
+        f"{params.polish.maxPoaConsensusIterations}, {seg_items} items on "
+        f"K3, launches {launches}): kernels {kern_s:.1f} s, plain twins "
+        f"{plain_s:.1f} s, FASTA byte-identical")
     return {"region": region, "kernel_s": kern_s, "plain_s": plain_s,
-            "launches": launches, "k3_items": seg_items}
+            "launches": launches, "k3_items": seg_items,
+            "poa_consensus_iterations":
+                params.polish.maxPoaConsensusIterations}
 
 
-def phase_k3_main_path(rec, max_d=18_000, max_b=16):
-    """K3 against its twin and K2 on the largest K3 pack of the polish
-    run, cut to its shallowest problems (at most max_b, depth <= max_d)
-    so the twin stays within about a minute."""
+def phase_k3_main_path(rec, max_b=16):
+    """K3 on the largest K3 pack of the polish run: timed, and held against
+    K2 (identical words and totals), on the whole pack; held against its
+    twin, and timed beside it, on the pack's max_b shallowest problems."""
     from margin_tpu_torch.ops import cuda_banded
     _, args, kw = rec.k3_max
     (tabs, items, w_pad, expansion, use_lut, dynamic, use_rle, threshold,
      seg_d) = args[:9]
     geoms = kw.get("geoms_in")
+
+    def pack_of(keep):
+        return cuda_banded._pack_host(
+            tabs, [items[i] for i in keep], w_pad, expansion, dynamic,
+            use_rle, None if geoms is None else [geoms[i] for i in keep],
+            device=tabs.device)
+    full = pack_of(range(len(items)))
+    label = f"B={full.B} rows={full.n_rows} W={w_pad} S={seg_d}"
+    rows = {r["kernel"]: r for r in k3_against(full, use_lut, seg_d, label,
+                                               threshold, twin=False)}
+    del full
     order = sorted(range(len(items)),
                    key=lambda i: len(items[i]["x_sym"])
                    + len(items[i]["y_sym"]))
-    keep = [i for i in order
-            if len(items[i]["x_sym"]) + len(items[i]["y_sym"]) < max_d]
-    keep = (keep or order[:1])[:max_b]
-    pack = cuda_banded._pack_host(
-        tabs, [items[i] for i in keep], w_pad, expansion, dynamic, use_rle,
-        None if geoms is None else [geoms[i] for i in keep],
-        device=tabs.device)
-    label = (f"B={pack.B} of {len(items)} rows={pack.n_rows} W={w_pad} "
-             f"S={seg_d}")
-    rows = k3_against(pack, use_lut, seg_d, label, threshold)
-    return {r["kernel"]: {k: v for k, v in r.items() if k != "kernel"}
-            for r in rows}
+    trim = pack_of(order[:max_b])
+    tlabel = (f"the {trim.B} shallowest, rows={trim.n_rows} W={w_pad} "
+              f"S={seg_d}")
+    for r in k3_against(trim, use_lut, seg_d, tlabel, threshold):
+        row = rows[r["kernel"]]
+        row.update({"max_abs_err": r["max_abs_err"],
+                    "plain_ms": r["plain_ms"], "plain_shape": tlabel,
+                    "ms_on_plain_shape": r["ms"],
+                    "bound_ms_on_plain_shape": r["bound_ms"]})
+    return {k: {f: v for f, v in r.items() if f != "kernel"}
+            for k, r in rows.items()}
 
 
 SOURCES = {

@@ -2,8 +2,8 @@
 
 Counterpart of the part of `margin_tpu/ops/banded.py` that `margin phase`
 and haploid `margin polish` reach: `BandGeometry` (:40-125), `_bucket_w`
-(:126), `get_split_points` (:534), `banded_posteriors_split` (:567),
-`banded_posteriors` (:776), `split_sub_items` (:1404), `_true_band_cells`
+(:126), `get_split_points` (:534), `banded_posteriors` (:776),
+`split_sub_items` (:1404), `_true_band_cells`
 (:1465), `_item_geom` (:1473), the flat posterior extraction
 (`_device_extract_flat` / `_unpack_extract` / `_store_pack_results`,
 :704-773 and :974-1000) and `banded_posteriors_many` (:1637-1798).
@@ -485,48 +485,3 @@ def banded_posteriors(tables, x_sym, y_sym, anchors, expansion: int,
     return banded_posteriors_many(tables, [item], expansion,
                                   threshold=threshold, use_lut=use_lut,
                                   dynamic=dynamic)[0]
-
-
-def banded_posteriors_split(tables, x_sym, y_sym, anchors, expansion: int,
-                            strand: int, split_bigger_than: int,
-                            ragged_left=False, ragged_right=False,
-                            threshold: float = 0.01, use_lut: bool = False,
-                            dynamic: bool = False, rep_x=None, rep_y=None):
-    """getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps
-    (pairwiseAligner.c:984-1040): banded_posteriors per sub-rectangle,
-    pair lists merged with coordinate correction, totals summed."""
-    lx, ly = len(x_sym), len(y_sym)
-    anchors = [] if anchors is None else [tuple(int(v) for v in a)
-                                          for a in anchors]
-    splits = get_split_points(anchors, lx, ly, split_bigger_than,
-                              bool(ragged_left), bool(ragged_right))
-    if len(splits) == 1 and splits[0] == (0, 0, lx, ly):
-        return banded_posteriors(tables, x_sym, y_sym, anchors, expansion,
-                                 strand, ragged_left, ragged_right,
-                                 threshold, use_lut, dynamic=dynamic,
-                                 rep_x=rep_x, rep_y=rep_y)
-    out_m, out_gx, out_gy = [], [], []
-    total = 0.0
-    j = 0
-    for i, (x1, y1, x2, y2) in enumerate(splits):
-        sub_anchors, j = _sub_anchors(anchors, j, x1, y1, x2, y2)
-        (m, gx, gy), t = banded_posteriors(
-            tables, x_sym[x1:x2], y_sym[y1:y2], sub_anchors, expansion,
-            strand,
-            ragged_left=(ragged_left or i > 0),
-            ragged_right=(ragged_right or i < len(splits) - 1),
-            threshold=threshold, use_lut=use_lut, dynamic=dynamic,
-            rep_x=rep_x[x1:x2] if rep_x is not None else None,
-            rep_y=rep_y[y1:y2] if rep_y is not None else None)
-        for arr, acc in ((m, out_m), (gx, out_gx), (gy, out_gy)):
-            if len(arr):
-                arr = arr.copy()
-                arr[:, 1] += x1
-                arr[:, 2] += y1
-            acc.append(arr)
-        total += t
-    empty = np.zeros((0, 3), dtype=np.int64)
-
-    def cat(lst):
-        return np.concatenate(lst) if lst else empty
-    return (cat(out_m), cat(out_gx), cat(out_gy)), total

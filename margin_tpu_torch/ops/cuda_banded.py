@@ -396,7 +396,9 @@ def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
 
 class _Padded:
     """Per-problem (B, Dmax+2) views of a pack's flat per-diagonal arrays,
-    and the emissions of every cell of both sweeps, for the plain twins."""
+    the shift selectors of every diagonal, and the emissions of every cell
+    of one sweep, for the plain twins. Row `n_rows` is a blank row (outside
+    every band) that diagonals beyond a problem's depth read."""
 
     def __init__(self, pack: BandPack, sweep: str):
         dev = pack.device
@@ -407,32 +409,59 @@ class _Padded:
         self.Dmax = int(self.D.max()) + 1
         d_idx = torch.arange(self.Dmax + 2, device=dev)[None, :]
         in_real = d_idx <= self.D[:, None]              # (B, Dmax+2)
-        self.rows = torch.where(in_real, pack.geo_off[:, None] + d_idx, 0)
-
-        def per_diag(a):
-            return torch.where(in_real, a.long()[self.rows], 0)
-        self.xmy = per_diag(pack.xmy)
+        self.rows = torch.where(in_real, pack.geo_off[:, None] + d_idx,
+                                pack.n_rows)
+        self.xmy = torch.where(in_real, torch.cat(
+            [pack.xmy.long(), pack.xmy.new_zeros(1).long()])[self.rows], 0)
         self.k = torch.arange(self.W, device=dev)[None, :]          # (1, W)
-        # band mask and emissions of every grid row, gathered per diagonal
+        self.k1 = self.k + 1   # storage offset past a _padded array's pad
+        # band mask and emissions of every grid row (and the blank row)
         prob, diag, xb, yb = derive_geom(pack)
         k = self.k
         x_pos = xb[:, None] + 1 + k
         y_pos = yb[:, None] + 1 - k
-        self.vm = ((k >= pack.klo.long()[:, None])
-                   & (k < pack.width.long()[:, None])
-                   & (x_pos >= 0) & (x_pos <= self.lx[prob][:, None])
-                   & (y_pos >= 0) & (y_pos <= self.ly[prob][:, None]))
+        vm = ((k >= pack.klo.long()[:, None])
+              & (k < pack.width.long()[:, None])
+              & (x_pos >= 0) & (x_pos <= self.lx[prob][:, None])
+              & (y_pos >= 0) & (y_pos <= self.ly[prob][:, None]))
+        self.vm = torch.cat([vm, vm.new_zeros((1, self.W))])
+        xm, z1 = self.xmy, torch.zeros_like(self.xmy[:, :1])
+
+        def half(a):
+            return torch.div(a, 2, rounding_mode="floor")
         if sweep == "fwd":   # the cell's own characters
-            ix, iy = x_pos - 1, y_pos - 1
+            e_m, e_gx, e_gy = _emissions(pack, prob, x_pos - 1, y_pos - 1)
+            e = torch.stack([e_m, e_gx, e_gy], dim=1)
+            # the shifts of (x-1, y-1), (x-1, y), (x, y-1) into the
+            # previous two diagonals, per diagonal g >= 1
+            s1 = half(xm - 1 - torch.cat([z1, xm[:, :-1]], 1))
+            s2 = half(xm - torch.cat([z1, z1, xm[:, :-2]], 1))
+            s2[:, :2] = 0
+            self.sel = torch.stack([s2, s1, s1 + 1], dim=2)
         else:                # the characters of (x+1, y+1)
-            ix, iy = x_pos, y_pos
-        self.e_m, self.e_gx, self.e_gy = _emissions(pack, prob, ix, iy)
+            e_m, e_gx, e_gy = _emissions(pack, prob, x_pos, y_pos)
+            e = torch.stack([e_gx, e_m, e_gy], dim=1)
+            # the shifts of (x+1, y), (x+1, y+1), (x, y+1) into the next
+            # two diagonals, per diagonal g
+            t1 = half(xm + 1 - torch.cat([xm[:, 1:], z1], 1))
+            t2 = half(xm - torch.cat([xm[:, 2:], z1, z1], 1))
+            self.sel = torch.stack([t1, t2, t1 - 1], dim=2)
+        self.e = torch.cat([e, e.new_zeros((1, 3, self.W))])
 
     def at(self, g: int):
-        """(rows of diagonal g, band mask (B, 1, W), e_m, e_gx, e_gy)."""
+        """(rows of diagonal g, band mask (B, 1, W), emissions (B, 3, W):
+        state-major (m, gx, gy) in the forward, (gx, m, gy) in the
+        backward)."""
         r = self.rows[:, g]
-        vm = self.vm[r] & (g <= self.D)[:, None]
-        return r, vm[:, None, :], self.e_m[r], self.e_gx[r], self.e_gy[r]
+        return r, self.vm[r][:, None, :], self.e[r]
+
+    def shift(self, src: torch.Tensor, g: int):
+        """Read the _padded sources src (B, 3, ..., W+2) at k + sel[b, g, i]
+        for k in [0, W): LOG_ZERO beyond the band storage."""
+        W = self.W
+        idx = (self.k1 + self.sel[:, g, :, None]).clamp_(0, W + 1)
+        idx = idx.view(idx.shape[:2] + (1,) * (src.dim() - 3) + (W,))
+        return torch.gather(src, -1, idx.expand(src.shape[:-1] + (W,)))
 
 
 def _emissions(pack: BandPack, prob, ix, iy):
@@ -464,39 +493,35 @@ def _emissions(pack: BandPack, prob, ix, iy):
 
 def _padded(arr: torch.Tensor) -> torch.Tensor:
     """(B, ..., W) -> (B, ..., W+2) with LOG_ZERO on both ends."""
-    pad = torch.full(arr.shape[:-1] + (1,), LOG_ZERO, dtype=arr.dtype,
-                     device=arr.device)
-    return torch.cat([pad, arr, pad], dim=-1)
+    return torch.nn.functional.pad(arr, (1, 1), value=LOG_ZERO)
 
 
-_ARANGE: dict = {}
-
-
-def _shift(padded: torch.Tensor, sel: torch.Tensor, W: int):
-    """Read a _padded (B, ..., W+2) array at k + sel[b] for k in [0, W):
-    LOG_ZERO beyond the band storage."""
-    k1 = _ARANGE.get((W, padded.device))
-    if k1 is None:   # k + 1, the storage offset past the left pad
-        k1 = _ARANGE[(W, padded.device)] = torch.arange(
-            1, W + 1, device=padded.device)[None, :]
-    idx = (k1 + sel[:, None]).clamp(0, W + 1)
-    idx = idx.view((idx.shape[0],) + (1,) * (padded.dim() - 2) + (W,))
-    return torch.gather(padded, -1, idx.expand(padded.shape[:-1] + (W,)))
+_UP_STATES = (MATCH, GAPY, GAPX)   # the (x, y-1) cell's terms, state-major
 
 
 class _Sweep:
     """What one plain sweep needs besides the carry: the padded views and
-    emissions (_Padded), the transition columns, the logAdd flavour and
-    the LOG_ZERO constant."""
+    emissions (_Padded), the transitions of every term, the logAdd flavour
+    and the LOG_ZERO constant."""
 
     def __init__(self, pack: BandPack, sweep: str, use_lut: bool):
         self.P = _Padded(pack, sweep)
         self.la = logmath.log_add_fn(use_lut)
-        self.tr = tr = [pack.trans[:, i:i + 1] for i in range(9)]
-        # the backward's transitions per source term, state-major
-        self.tr_bwd = [torch.stack([tr[i] for i in idx], dim=1) for idx in (
-            (T_OPEN_X, T_EXT_X, T_SW_X), (T_MM, T_M_FROM_GX, T_M_FROM_GY),
-            (T_OPEN_Y, T_SW_Y, T_EXT_Y))]
+        tr = pack.trans
+        if sweep == "fwd":
+            # (B, target state, term, 1): the terms of the 3-way logAdd of
+            # each state, in the Pallas kernel's order
+            idx = ((T_MM, T_M_FROM_GX, T_M_FROM_GY),
+                   (T_OPEN_X, T_EXT_X, T_SW_X),
+                   (T_OPEN_Y, T_EXT_Y, T_SW_Y))
+        else:
+            # (B, term, source state, 1): each term's transition out of
+            # each state, the terms (x+1, y), (x+1, y+1), (x, y+1)
+            idx = ((T_OPEN_X, T_EXT_X, T_SW_X),
+                   (T_MM, T_M_FROM_GX, T_M_FROM_GY),
+                   (T_OPEN_Y, T_SW_Y, T_EXT_Y))
+        self.tr = tr[:, torch.tensor(idx, device=pack.device)][..., None]
+        self.up = torch.tensor(_UP_STATES, device=pack.device)
         self.neg = torch.tensor(LOG_ZERO, dtype=torch.float32,
                                 device=pack.device)
 
@@ -518,26 +543,16 @@ def _init_diag(pack: BandPack, sw: _Sweep) -> torch.Tensor:
 def _fwd_step(sw: _Sweep, g: int, prev1, prev2):
     """Forward diagonal g >= 1 of every problem from the _padded previous
     two: returns (grid rows of diagonal g, cells (B, 3, W))."""
-    P, tr, W = sw.P, sw.tr, sw.P.W
-    xm = P.xmy[:, g]
-    s1 = torch.div(xm - 1 - P.xmy[:, g - 1], 2, rounding_mode="floor")
-    s2 = (torch.div(xm - P.xmy[:, g - 2], 2, rounding_mode="floor")
-          if g >= 2 else torch.zeros_like(xm))
-    low = _shift(prev1, s1, W)        # (x-1, y)
-    up = _shift(prev1, s1 + 1, W)     # (x, y-1)
-    mid = _shift(prev2, s2, W)        # (x-1, y-1)
-    rows, vm, e_m, e_gx, e_gy = P.at(g)
-    # the three states' 3-way logAdds in one call, state-major (m, gx, gy):
-    # each element sees the Pallas kernel's operations in its order
-    a = torch.stack([mid[:, MATCH] + tr[T_MM], low[:, MATCH] + tr[T_OPEN_X],
-                     up[:, MATCH] + tr[T_OPEN_Y]], dim=1)
-    b = torch.stack([mid[:, GAPX] + tr[T_M_FROM_GX],
-                     low[:, GAPX] + tr[T_EXT_X],
-                     up[:, GAPY] + tr[T_EXT_Y]], dim=1)
-    c = torch.stack([mid[:, GAPY] + tr[T_M_FROM_GY],
-                     low[:, GAPY] + tr[T_SW_X],
-                     up[:, GAPX] + tr[T_SW_Y]], dim=1)
-    cur = torch.stack([e_m, e_gx, e_gy], dim=1) + sw.la3(a, b, c)
+    P = sw.P
+    # per target state (m, gx, gy) the source cell (x-1, y-1), (x-1, y),
+    # (x, y-1), read at the three terms' states, plus each term's
+    # transition: (B, target, term, W)
+    src = torch.stack([prev2, prev1, prev1.index_select(1, sw.up)], dim=1)
+    t = P.shift(src, g) + sw.tr
+    rows, vm, e = P.at(g)
+    # the three states' 3-way logAdds in one call: each element sees the
+    # Pallas kernel's operations in its order
+    cur = e + sw.la3(t[:, :, 0], t[:, :, 1], t[:, :, 2])
     return rows, torch.maximum(torch.where(vm, cur, sw.neg), sw.neg)
 
 
@@ -545,21 +560,15 @@ def _bwd_step(sw: _Sweep, g: int, next1, next2, bwd_final):
     """Backward diagonal g of every problem from the _padded next two:
     returns (grid rows, band mask (B, 1, W), cells (B, 3, W)); the final
     diagonal carries the end weights (pairwiseAligner.c:882-892)."""
-    P, W = sw.P, sw.P.W
-    xm = P.xmy[:, g]
-    t1 = torch.div(xm + 1 - P.xmy[:, g + 1], 2, rounding_mode="floor")
-    t2 = torch.div(xm - P.xmy[:, g + 2], 2, rounding_mode="floor")
-    gx_n = _shift(next1[:, GAPX], t1, W)       # (x+1, y)
-    gy_n = _shift(next1[:, GAPY], t1 - 1, W)   # (x, y+1)
-    m_n = _shift(next2[:, MATCH], t2, W)       # (x+1, y+1)
-    rows, vm, e_m, e_gx, e_gy = P.at(g)
-    # the three states' 3-way logAdds in one call, state-major (m, gx, gy)
-    t_gx, t_m, t_gy = sw.tr_bwd
-    a = (gx_n + e_gx)[:, None] + t_gx
-    b = (m_n + e_m)[:, None] + t_m
-    c = (gy_n + e_gy)[:, None] + t_gy
-    computed = torch.maximum(torch.where(vm, sw.la3(a, b, c), sw.neg),
-                             sw.neg)
+    P = sw.P
+    # gapX of (x+1, y), match of (x+1, y+1), gapY of (x, y+1)
+    src = torch.stack([next1[:, GAPX], next2[:, MATCH], next1[:, GAPY]],
+                      dim=1)
+    rows, vm, e = P.at(g)
+    # per term, plus its transition out of each state: (B, term, state, W)
+    t = (P.shift(src, g) + e)[:, :, None, :] + sw.tr
+    computed = torch.maximum(
+        torch.where(vm, sw.la3(t[:, 0], t[:, 1], t[:, 2]), sw.neg), sw.neg)
     at_final = (P.D == g)[:, None, None]
     return rows, vm, torch.where(at_final, bwd_final, computed)
 
@@ -591,16 +600,18 @@ def fb_forward_plain(pack: BandPack, use_lut: bool):
     pallas_banded.py:206-247), vectorised over the pack's problems."""
     sw = _Sweep(pack, "fwd", use_lut)
     P = sw.P
-    fwd = torch.empty((pack.n_rows, 3, P.W), dtype=torch.float32,
+    # one spare row takes the diagonals beyond each problem's depth, so no
+    # step selects its live problems (a device sync on a card)
+    fwd = torch.empty((pack.n_rows + 1, 3, P.W), dtype=torch.float32,
                       device=pack.device)
     cur = _init_diag(pack, sw)
     fwd[pack.geo_off] = cur
     prev1, prev2 = _padded(cur), _padded(sw.empty())
     for g in range(1, P.Dmax):
         rows, cur = _fwd_step(sw, g, prev1, prev2)
-        live = g <= P.D
-        fwd[rows[live]] = cur[live]
+        fwd[rows] = cur
         prev2, prev1 = prev1, _padded(cur)
+    fwd = fwd[:pack.n_rows]
     return fwd, _corner_totals(pack, sw, fwd[pack.geo_off + P.D])
 
 
@@ -610,17 +621,19 @@ def fb_backward_plain(pack: BandPack, fwd: torch.Tensor,
     pallas_banded.py:294-340)."""
     sw = _Sweep(pack, "bwd", use_lut)
     P = sw.P
-    post = torch.zeros_like(fwd)
+    # a spare row, as in fb_forward_plain; beyond a problem's depth the
+    # band mask is empty, so the posterior written there is 0
+    post = torch.zeros((pack.n_rows + 1, 3, P.W), dtype=torch.float32,
+                       device=pack.device)
+    f_rows = P.rows.clamp(max=pack.n_rows - 1)
     next1 = next2 = _padded(sw.empty())
     bwd_final = _bwd_final(pack, sw)
     total = totals[:, None, None]
     for g in range(P.Dmax - 1, -1, -1):
         rows, vm, cur = _bwd_step(sw, g, next1, next2, bwd_final)
-        live = g <= P.D
-        r = rows[live]
-        post[r] = _posterior(fwd[r], cur[live], total[live], vm[live])
+        post[rows] = _posterior(fwd[f_rows[:, g]], cur, total, vm)
         next2, next1 = next1, _padded(cur)
-    return post
+    return post[:pack.n_rows]
 
 
 def seg_forward_plain(pack: BandPack, use_lut: bool, seg_d: int):
@@ -641,8 +654,7 @@ def seg_forward_plain(pack: BandPack, use_lut: bool, seg_d: int):
             ckpt[idx, 0] = prev1[live][..., 1:-1]
             ckpt[idx, 1] = prev2[live][..., 1:-1]
         _, cur = _fwd_step(sw, g, prev1, prev2)
-        hit = P.D == g
-        last[hit] = cur[hit]
+        last = torch.where((P.D == g)[:, None, None], cur, last)
         prev2, prev1 = prev1, _padded(cur)
     return ckpt, _corner_totals(pack, sw, last)
 

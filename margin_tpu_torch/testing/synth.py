@@ -340,7 +340,10 @@ class PolishSynthConfig:
     # each followed by a realignment) and maxRealignmentPolishIterations
     # (bubble consensus with dense allele scoring; the params set
     # minRealignmentPolishIterations to 0, so a bubble pass that does not
-    # raise the realigned score is dropped)
+    # raise the realigned score is dropped). These are not the package
+    # defaults (0 / 1 / 1) nor a published margin config: with the
+    # defaults the bubble pass alone makes these drafts worse, in both
+    # packages alike (the suspected bubble off-by-one, ROADMAP queue 3)
     poa_consensus_iterations: int = 3
     realign_polish_iterations: int = 1
     seed: int = 0

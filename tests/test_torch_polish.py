@@ -3,9 +3,11 @@ package.
 
 One seeded synthetic set (margin_tpu_torch.testing.synth
 .write_polish_dataset): a 4.5 kb draft contig with substitutions and
-1-3 bp indels (many in homopolymers), 8x of low-error 0.8-2 kb reads on
-both strands, chunks of 1800 bp with 180 bp boundaries, so there are two
-stitch seams, one POA-consensus iteration. margin_tpu's run_polish (in a
+1-3 bp indels (many in homopolymers), 10x of 0.8-2 kb reads on both
+strands with the chip run's ~8% error model (3% substitutions, 2%
+insertions, 3% deletions), chunks of 1800 bp with 180 bp boundaries, so
+there are two stitch seams, one POA-consensus iteration and one bubble
+pass (allele scoring on the dense forward, K1). margin_tpu's run_polish (in a
 subprocess, on its CPU path with the banded problems on its exact native
 engine, MARGIN_TPU_NATIVE_SCAN_CELLS=1, and XLA's FMA contraction off,
 see tests/test_torch_pairhmm.py) and `python -m margin_tpu_torch polish
@@ -33,11 +35,11 @@ from margin_tpu_torch.testing.synth import (PolishSynthConfig,
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CONFIG = PolishSynthConfig(contig_len=4500, coverage=8.0,
-                           read_len=(800, 2000), p_sub=0.01, p_ins=0.01,
-                           p_del=0.01, chunk_size=1800, chunk_boundary=180,
+CONFIG = PolishSynthConfig(contig_len=4500, coverage=10.0,
+                           read_len=(800, 2000), p_sub=0.03, p_ins=0.02,
+                           p_del=0.03, chunk_size=1800, chunk_boundary=180,
                            poa_consensus_iterations=1,
-                           realign_polish_iterations=0, seed=3)
+                           realign_polish_iterations=1, seed=3)
 
 
 def _overlap_pair(seed=5):
