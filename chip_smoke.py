@@ -26,10 +26,10 @@ Phases (any failure raises and the script exits non-zero):
      problems with lx, ly ~ 2000-5000 (identical words and totals) and
      against their twins on packs of lx, ly ~ 500-1200 (LUT: identical
      words and totals; exact: totals within 1e-4, identical pair sets), at
-     widths 32 and 128, RLE on and off, both logAdds, in segments of 256
-     diagonals;
+     widths 32, 64 and 128, RLE on and off, both logAdds, each width at
+     its launch's segment depth SEG_D[w];
      then time K3 alone on a deep pack (128 problems, lx, ly ~ 30k-70k,
-     W = 32, the default segment depth);
+     W = 32, SEG_D[32]);
   5. hold each kernel against its twin, and time both, on the largest
      batch / pack the phase run gave it (for K2: W=128, RLE off, LUT);
   6. run `python -m margin_tpu_torch polish` (cli.main, LUT logAdd) on a
@@ -47,7 +47,11 @@ Phases (any failure raises and the script exits non-zero):
      pack of phase 6 and hold it against K2 there (identical words and
      totals), and against its twin on that pack's 16 shallowest problems
      (the twin walks one diagonal at a time, so its time follows the
-     deepest problem it is given).
+     deepest problem it is given); on the same pack, K3 with its other
+     block shape (one warp, or one lane per cell) and K2-fwd / K2-bwd
+     are timed beside it.
+Every K3 timing also prints the pack's deepest diagonal count and the
+nanoseconds per diagonal.
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -168,12 +172,12 @@ def k1_batch(device, B, lx_range, ly_range, seed, rle=False):
 def k2_items(n, w_bucket, expansion, seed, rle, lx_range=(2000, 5000)):
     """n problems with lx in lx_range: y an erroneous copy of x, anchored
     every few bases along the true alignment so every band falls in the
-    width bucket w_bucket (32 or 128)."""
+    width bucket w_bucket (32, 64 or 128)."""
     import numpy as np
     from margin_tpu_torch.ops import banded
     rng = np.random.default_rng(seed)
-    spacing = {32: 8, 128: 64}[w_bucket]
-    lo = {32: 16, 128: 64}[w_bucket]
+    spacing = {32: 8, 64: 24, 128: 64}[w_bucket]
+    lo = {32: 16, 64: 32, 128: 64}[w_bucket]
     items = []
     while len(items) < n:
         lx = int(rng.integers(lx_range[0], lx_range[1] + 1))
@@ -219,15 +223,23 @@ def k1_work(batch, tabs, lut):
     return cells * fwd_ops_per_cell(lut), nbytes
 
 
+def pack_input_bytes(pack):
+    """Bytes of a pack's inputs, each read once: symbols (and run lengths)
+    of every sequence, the per-diagonal geometry, the per-problem scalars
+    and tables."""
+    n_sym = sum(g.lx + g.ly for g in pack.geoms)
+    nbytes = (n_sym + 12 * pack.n_rows
+              + pack.B * (4 * (35 + 9 + 6) + 4 * 5 + 8 * 3))
+    if pack.rep_x is not None:
+        nbytes += 4 * n_sym + pack.rep_tab.numel() * 4
+    return nbytes
+
+
 def k2_work(pack, lut, sweep):
     from margin_tpu_torch.ops import banded
     cells = sum(banded._true_band_cells(g) for g in pack.geoms)
     grid = pack.n_rows * 3 * pack.W * 4
-    nbytes = (pack.xs.numel() + pack.ys.numel() + 12 * pack.n_rows
-              + pack.B * (4 * (35 + 9 + 6) + 4 * 5 + 8 * 3))
-    if pack.rep_x is not None:
-        nbytes += 4 * (pack.xs.numel() + pack.ys.numel())
-        nbytes += pack.rep_tab.numel() * 4
+    nbytes = pack_input_bytes(pack)
     if sweep == "fwd":
         return cells * fwd_ops_per_cell(lut), nbytes + grid + 4 * pack.B
     return cells * bwd_ops_per_cell(lut), nbytes + 2 * grid + 4 * pack.B
@@ -240,11 +252,7 @@ def k3_work(pack, lut, sweep, seg_d, n_words=0):
     (K3-bwd). The recompute is the design's cost, not work."""
     from margin_tpu_torch.ops import banded, cuda_banded
     cells = sum(banded._true_band_cells(g) for g in pack.geoms)
-    nbytes = (pack.xs.numel() + pack.ys.numel() + 12 * pack.n_rows
-              + pack.B * (4 * (35 + 9 + 6) + 4 * 5 + 8 * 3))
-    if pack.rep_x is not None:
-        nbytes += 4 * (pack.xs.numel() + pack.ys.numel())
-        nbytes += pack.rep_tab.numel() * 4
+    nbytes = pack_input_bytes(pack)
     ckpt = cuda_banded.seg_layout(pack, seg_d)[1] * 2 * 3 * pack.W * 4
     if sweep == "fwd":
         return cells * fwd_ops_per_cell(lut), nbytes + ckpt + 4 * pack.B
@@ -253,24 +261,28 @@ def k3_work(pack, lut, sweep, seg_d, n_words=0):
 
 
 def word_set(totals, lo, hi):
-    """(totals as host float32, {(lo, hi)}) of one pack's extraction."""
-    return (totals.cpu().numpy(),
-            set(zip(lo.cpu().tolist(), hi.cpu().tolist())))
+    """(totals as host float32, the words as sorted int64 keys hi << 32 |
+    lo on the device) of one pack's extraction: word order is free."""
+    import torch
+    key = (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+    return totals.cpu().numpy(), torch.sort(key).values
 
 
 def compare_words(name, got, want, lut):
     """LUT: identical totals and words; exact: totals within 1e-4 and
     identical pair sets (problem, state, diagonal, k). Returns max
     |diff| of the totals."""
-    (tg, wg), (tw, ww) = got, want
+    import torch
+    (tg, kg), (tw, kw) = got, want
     diff = float(abs(tg - tw).max()) if len(tg) else 0.0
     if lut:
-        if not (diff == 0.0 and (tg == tw).all() and wg == ww):
+        if not (diff == 0.0 and (tg == tw).all() and torch.equal(kg, kw)):
             raise AssertionError(f"{name}: LUT results differ (totals "
-                                 f"{diff}, words {len(wg ^ ww)})")
+                                 f"{diff}, words {kg.numel()} vs "
+                                 f"{kw.numel()})")
         return 0.0
-    cells = {(h, lo >> 24) for lo, h in wg}
-    if not (diff <= 1e-4 and cells == {(h, lo >> 24) for lo, h in ww}):
+    # key >> 24 = (hi << 8) | k, in the keys' order
+    if not (diff <= 1e-4 and torch.equal(kg >> 24, kw >> 24)):
         raise AssertionError(f"{name}: exact results differ (totals "
                              f"{diff})")
     return diff
@@ -280,6 +292,7 @@ def k2_words(pack, lut, threshold=0.01):
     """The monolithic kernels' extraction words of a pack, whatever the
     size of its grids (the card holds 80 GB; the routing budget
     FB_GRID_BUDGET_BYTES is lifted for this comparison only)."""
+    import torch
     from margin_tpu_torch.ops import banded, cuda_banded
     budget = cuda_banded.FB_GRID_BUDGET_BYTES
     cuda_banded.FB_GRID_BUDGET_BYTES = max(
@@ -290,11 +303,11 @@ def k2_words(pack, lut, threshold=0.01):
         cuda_banded.FB_GRID_BUDGET_BYTES = budget
     pk = cuda_banded.fb_backward(pack, fk, tk, lut)
     del fk
-    packed = banded.extract_packed(pk, tk, pack, threshold).cpu().numpy()
+    packed = banded.extract_packed(pk, tk, pack, threshold)
+    del pk
     n, c = pack.B, int(packed[0])
-    return (packed[1:1 + n].view("float32"),
-            set(zip(packed[1 + n:1 + n + c].tolist(),
-                    packed[1 + n + c:].tolist())))
+    return word_set(packed[1:1 + n].view(torch.float32),
+                    packed[1 + n:1 + n + c], packed[1 + n + c:])
 
 
 def k3_run(pack, lut, seg_d, threshold=0.01):
@@ -305,6 +318,22 @@ def k3_run(pack, lut, seg_d, threshold=0.01):
     if not bool(tk.isfinite().all()):
         raise AssertionError("K3: non-finite totals")
     return ck, tk, lo, hi
+
+
+def deepest(pack):
+    """The pack's deepest diagonal count, max(lx + ly + 1)."""
+    return max(g.lx + g.ly + 1 for g in pack.geoms)
+
+
+def k3_times(pack, lut, seg_d, threshold, n_words, reps=3):
+    """Median CUDA-event times (ms) of K3-fwd and K3-bwd on a pack."""
+    from margin_tpu_torch.ops import cuda_banded
+    ck, tk = cuda_banded.seg_forward(pack, lut, seg_d)
+    f_ms = cuda_ms(lambda: cuda_banded.seg_forward(pack, lut, seg_d),
+                   reps=reps)
+    b_ms = cuda_ms(lambda: cuda_banded.seg_backward(
+        pack, ck, tk, lut, seg_d, threshold, cap=n_words + 1), reps=reps)
+    return f_ms, b_ms
 
 
 def k3_against(pack, lut, seg_d, label, threshold=0.01, twin=True):
@@ -327,20 +356,24 @@ def k3_against(pack, lut, seg_d, label, threshold=0.01, twin=True):
         torch_sync()
         pb_ms = (time.perf_counter() - t0) * 1e3
         diff = compare_words(f"K3 {label}", got, word_set(tp, lp, hp), lut)
-    f_ms = cuda_ms(lambda: cuda_banded.seg_forward(pack, lut, seg_d), reps=3)
-    b_ms = cuda_ms(lambda: cuda_banded.seg_backward(
-        pack, ck, tk, lut, seg_d, threshold, cap=lo.numel() + 1), reps=3)
+    f_ms, b_ms = k3_times(pack, lut, seg_d, threshold, lo.numel())
+    d_max = deepest(pack)
     rows = []
     for name, ms, pms, sweep in (("K3-fwd", f_ms, pf_ms, "fwd"),
                                  ("K3-bwd", b_ms, pb_ms, "bwd")):
         bms, by = bound_ms(*k3_work(pack, lut, sweep, seg_d, lo.numel()))
         rows.append({"kernel": name, "shape": label, "lut": lut,
                      "rows": pack.n_rows, "words": lo.numel(),
+                     "deepest_diagonals": d_max,
+                     "ns_per_diagonal": ms * 1e6 / d_max,
+                     "warps": cuda_banded.K3_WARPS[pack.W],
                      "max_abs_err": diff, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by})
         plain = "" if pms is None else f", plain {pms:.0f} ms"
         log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel {ms:.2f} "
-            f"ms{plain}, bound {bms:.4f} ms ({by}); words equal K2's"
+            f"ms{plain}, bound {bms:.4f} ms ({by}); deepest {d_max} "
+            f"diagonals, {ms * 1e6 / d_max:.1f} ns per diagonal; words "
+            "equal K2's"
             + ("" if diff is None else f" and the twin's (max|diff| {diff})"))
     return rows
 
@@ -470,15 +503,18 @@ def phase_k2(device, n=128):
     return rows
 
 
-def phase_k3(device, n=64, seg_d=256):
+def phase_k3(device, n=64):
     """K3 against K2 on packs of lx, ly 2000-5000; K3 against its twin on
     packs of lx, ly 500-1200 (the twin walks ~0.6 ms per diagonal on the
-    card, so the full shapes would take minutes)."""
+    card, so the full shapes would take minutes); each width at its
+    launch's segment depth SEG_D[w]."""
+    from margin_tpu_torch.ops import cuda_banded
     rows = []
-    configs = [(32, False, True), (32, True, False), (128, True, True),
-               (128, False, False)]
+    configs = [(32, False, True), (32, True, False), (64, True, True),
+               (128, True, True), (128, False, False)]
     for ci, (w, rle, lut) in enumerate(configs):
         tabs = tables(device, rle)
+        seg_d = cuda_banded.SEG_D[w]
         for lx_range, twin in (((2000, 5000), False), ((500, 1200), True)):
             items = k2_items(n, w, 20, seed=300 + 10 * ci + twin, rle=rle,
                              lx_range=lx_range)
@@ -501,17 +537,18 @@ def phase_k3_deep(device, n=128):
     ck, tk, lo, hi = k3_run(pack, True, seg_d)
     if lo.numel() == 0:
         raise AssertionError("K3 deep pack: no posterior above threshold")
-    f_ms = cuda_ms(lambda: cuda_banded.seg_forward(pack, True, seg_d),
-                   reps=3)
-    b_ms = cuda_ms(lambda: cuda_banded.seg_backward(
-        pack, ck, tk, True, seg_d, 0.01, cap=lo.numel() + 1), reps=3)
+    f_ms, b_ms = k3_times(pack, True, seg_d, 0.01, lo.numel())
+    d_max = deepest(pack)
     out = {"shape": f"{n} x lx 30000-70000, W=32, S={seg_d}, LUT",
-           "rows": pack.n_rows, "words": lo.numel(), "prep_s": prep_s}
+           "rows": pack.n_rows, "words": lo.numel(), "prep_s": prep_s,
+           "deepest_diagonals": d_max}
     for name, ms, sweep in (("K3-fwd", f_ms, "fwd"), ("K3-bwd", b_ms, "bwd")):
         bms, by = bound_ms(*k3_work(pack, True, sweep, seg_d, lo.numel()))
-        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                     "ns_per_diagonal": ms * 1e6 / d_max}
         log(f"{name} deep pack ({out['shape']}, {pack.n_rows} rows): kernel "
-            f"{ms:.1f} ms, bound {bms:.3f} ms ({by})")
+            f"{ms:.1f} ms, bound {bms:.3f} ms ({by}); deepest {d_max} "
+            f"diagonals, {ms * 1e6 / d_max:.1f} ns per diagonal")
     return out
 
 
@@ -530,14 +567,17 @@ class Recorder:
     def __init__(self):
         from margin_tpu_torch.ops import cuda_banded, pairhmm
         self.pairhmm, self.cuda_banded = pairhmm, cuda_banded
+        from margin_tpu_torch.ops import banded
+        self.banded = banded
         self.orig = (pairhmm.forward_total, cuda_banded.fb_forward,
                      pairhmm._k1, cuda_banded._k2, cuda_banded._k3,
-                     cuda_banded.fb_posteriors_seg)
+                     cuda_banded.fb_posteriors_seg, banded.extract_packed)
         self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [], "K3-fwd": [],
                        "K3-bwd": []}
         self.k1_max = None    # (cells, tables, batch, use_lut)
         self.k2_max = None    # (rows*W, pack, use_lut)
         self.k3_max = None    # (rows*W, fb_posteriors_seg arguments)
+        self.threshold = {}   # id(pack) -> extraction threshold
 
     def _timed(self, name, fn):
         import torch
@@ -553,7 +593,7 @@ class Recorder:
         return call
 
     def install(self):
-        ft, ff, k1, k2, k3, fps = self.orig
+        ft, ff, k1, k2, k3, fps, ext = self.orig
         timed_k1 = self._timed("K1", k1())
         lib = k2()
         lib3 = k3()
@@ -588,17 +628,24 @@ class Recorder:
             if self.k2_max is None or pack.n_rows * pack.W > self.k2_max[0]:
                 self.k2_max = (pack.n_rows * pack.W, pack, use_lut)
             return ff(pack, use_lut)
+
+        def extract_packed(post, totals, pack, threshold):
+            if self.k2_max is not None and pack is self.k2_max[1]:
+                self.threshold[id(pack)] = threshold
+            return ext(post, totals, pack, threshold)
         self.pairhmm.forward_total = forward_total
         self.cuda_banded.fb_forward = fb_forward
         self.pairhmm._k1 = lambda: timed_k1
         self.cuda_banded._k2 = lambda: TimedK2
         self.cuda_banded._k3 = lambda: TimedK3
         self.cuda_banded.fb_posteriors_seg = fb_posteriors_seg
+        self.banded.extract_packed = extract_packed
 
     def restore(self):
         (self.pairhmm.forward_total, self.cuda_banded.fb_forward,
          self.pairhmm._k1, self.cuda_banded._k2, self.cuda_banded._k3,
-         self.cuda_banded.fb_posteriors_seg) = self.orig
+         self.cuda_banded.fb_posteriors_seg,
+         self.banded.extract_packed) = self.orig
 
     def kernel_ms(self):
         torch_sync()
@@ -748,8 +795,8 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
 
 def phase_main_path_shapes(rec):
     """Each kernel against its twin on the largest input the main path
-    gave it."""
-    from margin_tpu_torch.ops import cuda_banded, pairhmm
+    gave it, and the extraction's time on K2's."""
+    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
     out = {}
     _, tabs, batch, lut = rec.k1_max
     got = pairhmm.forward_total(tabs, batch, use_lut=lut)
@@ -796,6 +843,21 @@ def phase_main_path_shapes(rec):
             f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), max|diff| "
             f"{v['max_abs_err']}")
+    # the flat extraction (torch ops) on the same pack's posteriors, at the
+    # threshold the run gave it; bound: the grid read once, the count,
+    # totals and words written once
+    threshold = rec.threshold.get(id(pack), 0.01)
+    packed = banded.extract_packed(pk, tk, pack, threshold)
+    n_words = int(packed[0])
+    ms = cuda_ms(lambda: banded.extract_packed(pk, tk, pack, threshold))
+    bms, by = bound_ms(0, pack.n_rows * 3 * pack.W * 4 + 4 + 4 * pack.B
+                       + 8 * n_words)
+    out["extraction"] = {"shape": shape, "threshold": threshold,
+                         "words": n_words, "ms": ms, "bound_ms": bms,
+                         "bound_by": by}
+    log(f"extraction (ops/banded.py:extract_packed) on the same pack, "
+        f"threshold {threshold}: {ms:.3f} ms for {n_words} words, bound "
+        f"{bms:.4f} ms ({by})")
     return out
 
 
@@ -953,10 +1015,19 @@ def phase_polish_region(ds, work, region_len=10_000):
                 params.polish.maxPoaConsensusIterations}
 
 
+def other_shape(w):
+    """K3's other block shape at width w (warps per block), or None."""
+    from margin_tpu_torch.ops import cuda_banded
+    shapes = {1, max(w, 32) // 32} - {cuda_banded.K3_WARPS[w]}
+    return shapes.pop() if shapes else None
+
+
 def phase_k3_main_path(rec, max_b=16):
     """K3 on the largest K3 pack of the polish run: timed, and held against
-    K2 (identical words and totals), on the whole pack; held against its
-    twin, and timed beside it, on the pack's max_b shallowest problems."""
+    K2 (identical words and totals), on the whole pack, with K2-fwd /
+    K2-bwd and K3's other block shape timed on it in the same call; held
+    against its twin, and timed beside it, on the pack's max_b shallowest
+    problems."""
     from margin_tpu_torch.ops import cuda_banded
     _, args, kw = rec.k3_max
     (tabs, items, w_pad, expansion, use_lut, dynamic, use_rle, threshold,
@@ -972,6 +1043,44 @@ def phase_k3_main_path(rec, max_b=16):
     label = f"B={full.B} rows={full.n_rows} W={w_pad} S={seg_d}"
     rows = {r["kernel"]: r for r in k3_against(full, use_lut, seg_d, label,
                                                threshold, twin=False)}
+    d_max = deepest(full)
+    # the same pack through K3's other block shape (identical words) and
+    # through K2, timed in this call
+    nw = other_shape(w_pad)
+    if nw is not None:
+        saved = cuda_banded.K3_WARPS[w_pad]
+        cuda_banded.K3_WARPS[w_pad] = nw
+        try:
+            _, tk, lo, hi = k3_run(full, use_lut, seg_d, threshold)
+            other = k3_times(full, use_lut, seg_d, threshold, lo.numel())
+        finally:
+            cuda_banded.K3_WARPS[w_pad] = saved
+        want = k3_run(full, use_lut, seg_d, threshold)
+        compare_words(f"K3 ({nw} warps) vs K3 ({saved} warps) {label}",
+                      word_set(tk, lo, hi), word_set(*want[1:]), True)
+        for name, ms in zip(("K3-fwd", "K3-bwd"), other):
+            rows[name]["other_shape"] = {"warps": nw, "ms": ms,
+                                         "ns_per_diagonal": ms * 1e6 / d_max}
+            log(f"{name} {label}, {nw} warps a block: {ms:.2f} ms, "
+                f"{ms * 1e6 / d_max:.1f} ns per diagonal (kept: "
+                f"{saved} warps, {rows[name]['ms']:.2f} ms)")
+    budget = cuda_banded.FB_GRID_BUDGET_BYTES
+    cuda_banded.FB_GRID_BUDGET_BYTES = max(
+        budget, cuda_banded.grid_bytes(full.n_rows, full.W))
+    try:
+        fk, tk2 = cuda_banded.fb_forward(full, use_lut)
+        k2f = cuda_ms(lambda: cuda_banded.fb_forward(full, use_lut), reps=3)
+        k2b = cuda_ms(lambda: cuda_banded.fb_backward(full, fk, tk2, use_lut),
+                      reps=3)
+    finally:
+        cuda_banded.FB_GRID_BUDGET_BYTES = budget
+    del fk
+    for name, k2name, ms in (("K3-fwd", "K2-fwd", k2f),
+                             ("K3-bwd", "K2-bwd", k2b)):
+        rows[name]["k2_same_pack_ms"] = ms
+        log(f"{k2name} on the same pack ({label}): {ms:.2f} ms, "
+            f"{ms * 1e6 / d_max:.1f} ns per diagonal (K3: "
+            f"{rows[name]['ms']:.2f} ms)")
     del full
     order = sorted(range(len(items)),
                    key=lambda i: len(items[i]["x_sym"])

@@ -1,15 +1,19 @@
 // Per-cell arithmetic of the banded pair-HMM forward-backward, shared by
 // the monolithic kernels K2 (banded_fb.cu) and the segmented kernels K3
 // (banded_seg.cu), so both run one copy of it and their cells agree bit
-// for bit.
+// for bit. A cell has two parts: its input part (band membership, the
+// shifts to its sources, its symbols and three emissions), which does not
+// depend on the DP values, and its recurrence on the neighbours' values.
+// K2 computes both from device memory and a ring of diagonals in shared
+// memory (forward_cell / backward_cell); K3 stages the inputs in shared
+// memory and keeps the diagonals in registers.
 //
 // Layout of a pack (ops/cuda_banded.py:BandPack): problem b's diagonal d
 // is row geo_off[b] + d of the flat per-diagonal arrays (xmy, width, klo);
 // a diagonal holds (3, W) cells, state-major, k = band storage offset,
 // cell k at x - y = xmy[d] + 2k. The storage base moves by exactly +-1 per
 // diagonal, so every dependency is a neighbour k-1, k or k+1 on one of the
-// two previous (forward) or next (backward) diagonals, read from a
-// three-deep ring of diagonals in shared memory (slot g % 3).
+// two previous (forward) or next (backward) diagonals.
 //
 // The expressions and their order follow the Pallas kernels
 // (margin_tpu/ops/pallas_banded.py:_fwd_kernel :206-247, _bwd_kernel
@@ -118,38 +122,133 @@ __device__ __forceinline__ Cell cell_symbols(const BandArgs& a, int b, int ix,
   return c;
 }
 
+// ---------------------------------------------------------------------------
+// The input part of a cell: where it lies and what it emits. None of it
+// depends on the DP values, so a kernel may compute it ahead of the
+// recurrence, from device or from shared memory.
+// ---------------------------------------------------------------------------
+
+struct Emis {
+  float m, gx, gy;
+};
+
+// the three emissions of a cell consuming symbols c; tabs = the problem's
+// 35 entries (match 25, gapX 5, gapY 5), rep = its (4, 51, 51) repeat
+// table (RLE only)
 template <bool RLE>
-__device__ __forceinline__ float match_emission(const BandArgs& a, int b,
-                                                const float* tabs,
-                                                const Cell& c) {
-  float e_m = tabs[c.sx * 5 + c.sy];
+__device__ __forceinline__ Emis emissions(const float* tabs, const float* rep,
+                                          const Cell& c) {
+  Emis e;
+  e.m = tabs[c.sx * 5 + c.sy];
   if (RLE) {
     const int base = c.sx >= 4 ? 0 : c.sx;  // N -> A (repeatSubMatrix.c:16-27)
-    e_m = e_m + a.rep_tab[(size_t)b * 4 * REP_N * REP_N +
-                          base * REP_N * REP_N + c.rx * REP_N + c.ry];
+    e.m = e.m + rep[base * REP_N * REP_N + c.rx * REP_N + c.ry];
   }
-  return e_m;
+  e.gx = tabs[25 + c.sx];
+  e.gy = tabs[30 + c.sy];
+  return e;
 }
+
+// band storage bases of diagonal g with storage base xm: x of the
+// character consumed at k = 0, minus one, and the same for y
+// (_derive_geom, pallas_banded.py:556-558)
+__device__ __forceinline__ int x_base_of(int g, int xm) {
+  return ((g + xm) >> 1) - 1;
+}
+__device__ __forceinline__ int y_base_of(int g, int xm) {
+  return ((g - xm) >> 1) - 1;
+}
+
+// whether cell k of diagonal g (storage base xm, valid k in [klo, wid))
+// lies in the band and the DP rectangle
+__device__ __forceinline__ bool band_cell(int g, int xm, int klo, int wid,
+                                          int k, int lx, int ly) {
+  const int x_pos = x_base_of(g, xm) + 1 + k, y_pos = y_base_of(g, xm) + 1 - k;
+  return k >= klo && k < wid && x_pos >= 0 && x_pos <= lx && y_pos >= 0 &&
+         y_pos <= ly;
+}
+
+// the shifts of the forward's sources: (x-1, y) at k + s1 and (x, y-1) at
+// k + s1 + 1 on diagonal g-1 (storage base xm1), (x-1, y-1) at k + s2 on
+// diagonal g-2 (xm2); s1 in {-1, 0}, s2 in {-1, 0, 1}
+__device__ __forceinline__ int fwd_s1(int xm, int xm1) {
+  return (xm - 1 - xm1) >> 1;
+}
+__device__ __forceinline__ int fwd_s2(int g, int xm, int xm2) {
+  return g >= 2 ? (xm - xm2) >> 1 : 0;
+}
+// the backward's: (x+1, y) at k + t1 and (x, y+1) at k + t1 - 1 on
+// diagonal g+1 (xn1), (x+1, y+1) at k + t2 on diagonal g+2 (xn2);
+// t1 in {0, 1}, t2 in {-1, 0, 1}
+__device__ __forceinline__ int bwd_t1(int xm, int xn1) {
+  return (xm + 1 - xn1) >> 1;
+}
+__device__ __forceinline__ int bwd_t2(bool has2, int xm, int xn2) {
+  return has2 ? (xm - xn2) >> 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// The recurrence part: a band cell's three states from its neighbours'
+// values, in the Pallas kernels' expression order.
+// ---------------------------------------------------------------------------
+
+// Forward: l = the (x-1, y) cell, d = (x-1, y-1), u = (x, y-1), each
+// (match, gapX, gapY); out = (match, gapX, gapY).
+template <bool LUT>
+__device__ __forceinline__ void forward_recurrence(const float* tr,
+                                                   const Emis& e,
+                                                   const float l[3],
+                                                   const float d[3],
+                                                   const float u[3],
+                                                   float out[3]) {
+  const float ngx = e.gx + log_add3<LUT>(l[0] + tr[T_OPEN_X],
+                                         l[1] + tr[T_EXT_X],
+                                         l[2] + tr[T_SW_X]);
+  const float nm = e.m + log_add3<LUT>(d[0] + tr[T_MM],
+                                       d[1] + tr[T_M_FROM_GX],
+                                       d[2] + tr[T_M_FROM_GY]);
+  const float ngy = e.gy + log_add3<LUT>(u[0] + tr[T_OPEN_Y],
+                                         u[2] + tr[T_EXT_Y],
+                                         u[1] + tr[T_SW_Y]);
+  out[0] = fmaxf(nm, LOG_ZERO_F);
+  out[1] = fmaxf(ngx, LOG_ZERO_F);
+  out[2] = fmaxf(ngy, LOG_ZERO_F);
+}
+
+// Backward: gx_n = gapX of (x+1, y), m_n = match of (x+1, y+1), gy_n =
+// gapY of (x, y+1); e = the emissions of (x+1, y+1)'s characters.
+template <bool LUT>
+__device__ __forceinline__ void backward_recurrence(const float* tr,
+                                                    const Emis& e,
+                                                    float gx_n, float m_n,
+                                                    float gy_n, float out[3]) {
+  const float bm = log_add3<LUT>(gx_n + e.gx + tr[T_OPEN_X],
+                                 m_n + e.m + tr[T_MM],
+                                 gy_n + e.gy + tr[T_OPEN_Y]);
+  const float bgx = log_add3<LUT>(gx_n + e.gx + tr[T_EXT_X],
+                                  m_n + e.m + tr[T_M_FROM_GX],
+                                  gy_n + e.gy + tr[T_SW_Y]);
+  const float bgy = log_add3<LUT>(gx_n + e.gx + tr[T_SW_X],
+                                  m_n + e.m + tr[T_M_FROM_GY],
+                                  gy_n + e.gy + tr[T_EXT_Y]);
+  out[0] = fmaxf(bm, LOG_ZERO_F);
+  out[1] = fmaxf(bgx, LOG_ZERO_F);
+  out[2] = fmaxf(bgy, LOG_ZERO_F);
+}
+
+// ---------------------------------------------------------------------------
+// K2's cells: the two parts over the pack's device arrays and the
+// shared-memory ring
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float ring_at(const float* diag, int W, int state,
                                          int k) {
   return (k >= 0 && k < W) ? diag[state * W + k] : LOG_ZERO_F;
 }
 
-// band storage bases of diagonal g: x of the character consumed at k = 0,
-// minus one, and the same for y (_derive_geom, pallas_banded.py:556-558)
-__device__ __forceinline__ int x_base(const Problem& p, int g) {
-  return ((g + p.xmy[g]) >> 1) - 1;
-}
-__device__ __forceinline__ int y_base(const Problem& p, int g) {
-  return ((g - p.xmy[g]) >> 1) - 1;
-}
-
 // whether cell k of diagonal g lies in the band and the DP rectangle
 __device__ __forceinline__ bool in_band(const Problem& p, int g, int k) {
-  const int x_pos = x_base(p, g) + 1 + k, y_pos = y_base(p, g) + 1 - k;
-  return k >= p.klo[g] && k < p.width[g] && x_pos >= 0 && x_pos <= p.lx &&
-         y_pos >= 0 && y_pos <= p.ly;
+  return band_cell(g, p.xmy[g], p.klo[g], p.width[g], k, p.lx, p.ly);
 }
 
 // The start diagonal 0 carries the start weights at k = 0
@@ -157,6 +256,10 @@ __device__ __forceinline__ bool in_band(const Problem& p, int g, int k) {
 __device__ __forceinline__ float init_cell(const BandArgs& a, int b, int s,
                                            int k) {
   return (k == 0) ? a.init[b * 3 + s] : LOG_ZERO_F;
+}
+
+__device__ __forceinline__ const float* rep_of(const BandArgs& a, int b) {
+  return a.rep_tab + (size_t)b * 4 * REP_N * REP_N;
 }
 
 // Forward cell k of diagonal g >= 1 from the ring's previous two diagonals
@@ -168,35 +271,23 @@ __device__ __forceinline__ void forward_cell(const BandArgs& a,
                                              const float* tr, int g, int k,
                                              int W, const float* p1,
                                              const float* p2, float* out) {
-  float nm = LOG_ZERO_F, ngx = LOG_ZERO_F, ngy = LOG_ZERO_F;
+  out[0] = out[1] = out[2] = LOG_ZERO_F;
   if (in_band(p, g, k)) {
     const int xm = p.xmy[g];
-    const int s1 = (xm - 1 - p.xmy[g - 1]) >> 1;
-    const int s2 = g >= 2 ? (xm - p.xmy[g - 2]) >> 1 : 0;
-    const int xb = x_base(p, g), yb = y_base(p, g);
-    const Cell c = cell_symbols<RLE>(a, p.b, xb + k, yb - k, p.lx, p.ly);
-    const float e_m = match_emission<RLE>(a, p.b, tabs, c);
-    const float e_gx = tabs[25 + c.sx];
-    const float e_gy = tabs[30 + c.sy];
-    // low = (x-1, y), up = (x, y-1) on diagonal g-1; mid = (x-1, y-1)
-    // on diagonal g-2
+    const int s1 = fwd_s1(xm, p.xmy[g - 1]);
+    const int s2 = fwd_s2(g, xm, g >= 2 ? p.xmy[g - 2] : 0);
+    const Cell c = cell_symbols<RLE>(a, p.b, x_base_of(g, xm) + k,
+                                     y_base_of(g, xm) - k, p.lx, p.ly);
+    const Emis e = emissions<RLE>(tabs, RLE ? rep_of(a, p.b) : nullptr, c);
     const int kl = k + s1, ku = k + s1 + 1, km = k + s2;
-    ngx = e_gx + log_add3<LUT>(ring_at(p1, W, 0, kl) + tr[T_OPEN_X],
-                               ring_at(p1, W, 1, kl) + tr[T_EXT_X],
-                               ring_at(p1, W, 2, kl) + tr[T_SW_X]);
-    nm = e_m + log_add3<LUT>(ring_at(p2, W, 0, km) + tr[T_MM],
-                             ring_at(p2, W, 1, km) + tr[T_M_FROM_GX],
-                             ring_at(p2, W, 2, km) + tr[T_M_FROM_GY]);
-    ngy = e_gy + log_add3<LUT>(ring_at(p1, W, 0, ku) + tr[T_OPEN_Y],
-                               ring_at(p1, W, 2, ku) + tr[T_EXT_Y],
-                               ring_at(p1, W, 1, ku) + tr[T_SW_Y]);
-    nm = fmaxf(nm, LOG_ZERO_F);
-    ngx = fmaxf(ngx, LOG_ZERO_F);
-    ngy = fmaxf(ngy, LOG_ZERO_F);
+    const float l[3] = {ring_at(p1, W, 0, kl), ring_at(p1, W, 1, kl),
+                        ring_at(p1, W, 2, kl)};
+    const float d[3] = {ring_at(p2, W, 0, km), ring_at(p2, W, 1, km),
+                        ring_at(p2, W, 2, km)};
+    const float u[3] = {ring_at(p1, W, 0, ku), ring_at(p1, W, 1, ku),
+                        ring_at(p1, W, 2, ku)};
+    forward_recurrence<LUT>(tr, e, l, d, u, out);
   }
-  out[0] = nm;
-  out[1] = ngx;
-  out[2] = ngy;
 }
 
 // Backward cell k of diagonal g <= D from the ring's next two diagonals
@@ -209,41 +300,25 @@ __device__ __forceinline__ void backward_cell(const BandArgs& a,
                                               const float* tr, int g, int k,
                                               int W, const float* n1,
                                               const float* n2, float* out) {
-  float bm = LOG_ZERO_F, bgx = LOG_ZERO_F, bgy = LOG_ZERO_F;
+  out[0] = out[1] = out[2] = LOG_ZERO_F;
   if (g == p.D) {
     if (k == a.k_final[p.b]) {
-      bm = a.end_w[p.b * 3 + 0];
-      bgx = a.end_w[p.b * 3 + 1];
-      bgy = a.end_w[p.b * 3 + 2];
+      out[0] = a.end_w[p.b * 3 + 0];
+      out[1] = a.end_w[p.b * 3 + 1];
+      out[2] = a.end_w[p.b * 3 + 2];
     }
   } else if (in_band(p, g, k)) {
     const int xm = p.xmy[g];
-    const int xb = x_base(p, g), yb = y_base(p, g);
-    const int t1 = (xm + 1 - p.xmy[g + 1]) >> 1;
-    const int t2 = g + 2 <= p.D ? (xm - p.xmy[g + 2]) >> 1 : 0;
-    const float gx_n = ring_at(n1, W, 1, k + t1);      // (x+1, y)
-    const float gy_n = ring_at(n1, W, 2, k + t1 - 1);  // (x, y+1)
-    const float m_n = ring_at(n2, W, 0, k + t2);       // (x+1, y+1)
-    const Cell c =
-        cell_symbols<RLE>(a, p.b, xb + k + 1, yb + 1 - k, p.lx, p.ly);
-    const float e_m = match_emission<RLE>(a, p.b, tabs, c);
-    const float e_gx = tabs[25 + c.sx];
-    const float e_gy = tabs[30 + c.sy];
-    bm = log_add3<LUT>(gx_n + e_gx + tr[T_OPEN_X], m_n + e_m + tr[T_MM],
-                       gy_n + e_gy + tr[T_OPEN_Y]);
-    bgx = log_add3<LUT>(gx_n + e_gx + tr[T_EXT_X],
-                        m_n + e_m + tr[T_M_FROM_GX],
-                        gy_n + e_gy + tr[T_SW_Y]);
-    bgy = log_add3<LUT>(gx_n + e_gx + tr[T_SW_X],
-                        m_n + e_m + tr[T_M_FROM_GY],
-                        gy_n + e_gy + tr[T_EXT_Y]);
-    bm = fmaxf(bm, LOG_ZERO_F);
-    bgx = fmaxf(bgx, LOG_ZERO_F);
-    bgy = fmaxf(bgy, LOG_ZERO_F);
+    const int t1 = bwd_t1(xm, p.xmy[g + 1]);
+    const bool has2 = g + 2 <= p.D;
+    const int t2 = bwd_t2(has2, xm, has2 ? p.xmy[g + 2] : 0);
+    const Cell c = cell_symbols<RLE>(a, p.b, x_base_of(g, xm) + k + 1,
+                                     y_base_of(g, xm) + 1 - k, p.lx, p.ly);
+    const Emis e = emissions<RLE>(tabs, RLE ? rep_of(a, p.b) : nullptr, c);
+    backward_recurrence<LUT>(tr, e, ring_at(n1, W, 1, k + t1),
+                             ring_at(n2, W, 0, k + t2),
+                             ring_at(n1, W, 2, k + t1 - 1), out);
   }
-  out[0] = bm;
-  out[1] = bgx;
-  out[2] = bgy;
 }
 
 // posterior exp(min(f + b - total, 0)) of a band cell, 0 outside the band
@@ -255,12 +330,17 @@ __device__ __forceinline__ float posterior(bool vm, float f, float bw,
 // total log prob at the final corner with the end weights
 // (pallas_banded.py:401-411, _seg_totals :1228-1233)
 template <bool LUT>
+__device__ __forceinline__ float corner_value(const float* e, float m,
+                                              float gx, float gy) {
+  return log_add<LUT>(log_add<LUT>(m + e[0], gx + e[1]), gy + e[2]);
+}
+
+template <bool LUT>
 __device__ __forceinline__ float corner_total(const BandArgs& a, int b,
                                               const float* diag, int W,
                                               int k) {
-  const float* e = a.end_w + b * 3;
-  return log_add<LUT>(log_add<LUT>(diag[k] + e[0], diag[W + k] + e[1]),
-                      diag[2 * W + k] + e[2]);
+  return corner_value<LUT>(a.end_w + b * 3, diag[k], diag[W + k],
+                           diag[2 * W + k]);
 }
 
 }  // namespace margin

@@ -17,29 +17,36 @@ namespace margin {
 // as numpy's astype does; rows d<=1.0, <=2.5, <=4.5, <=7.5
 #define MARGIN_C(v) static_cast<float>(v)
 
+// Written without branches: the coefficients are selected and the cubic is
+// computed whatever d, then d >= 7.5 selects hi. The chosen value is the
+// one the branching form returns, bit for bit, and a kernel's independent
+// logAdds (three states, several cells) can then be interleaved.
 __device__ __forceinline__ float lut_log_add(float x, float y) {
   const float hi = fmaxf(x, y);
   const float lo = fminf(x, y);
   const float d = hi - lo;
-  if (d >= 7.5f) return hi;
-  float c0, c1, c2, c3;
-  if (d > 4.5f) {
-    c0 = MARGIN_C(-0.000458661602210); c1 = MARGIN_C(0.009695946122598);
-    c2 = MARGIN_C(0.930734667215156); c3 = MARGIN_C(0.168037164329057);
-  } else if (d > 2.5f) {
-    c0 = MARGIN_C(-0.004605031767994); c1 = MARGIN_C(0.063427417320019);
-    c2 = MARGIN_C(0.695956496475118); c3 = MARGIN_C(0.514272634594009);
-  } else if (d > 1.0f) {
-    c0 = MARGIN_C(-0.014532321752540); c1 = MARGIN_C(0.139942324101744);
-    c2 = MARGIN_C(0.495635523139337); c3 = MARGIN_C(0.692140569840976);
-  } else {
-    c0 = MARGIN_C(-0.009350833524763); c1 = MARGIN_C(0.130659527668286);
-    c2 = MARGIN_C(0.498799810682272); c3 = MARGIN_C(0.693203116424741);
-  }
+  const bool r3 = d > 4.5f, r2 = d > 2.5f, r1 = d > 1.0f;
+  const float c0 = r3   ? MARGIN_C(-0.000458661602210)
+                   : r2 ? MARGIN_C(-0.004605031767994)
+                   : r1 ? MARGIN_C(-0.014532321752540)
+                        : MARGIN_C(-0.009350833524763);
+  const float c1 = r3   ? MARGIN_C(0.009695946122598)
+                   : r2 ? MARGIN_C(0.063427417320019)
+                   : r1 ? MARGIN_C(0.139942324101744)
+                        : MARGIN_C(0.130659527668286);
+  const float c2 = r3   ? MARGIN_C(0.930734667215156)
+                   : r2 ? MARGIN_C(0.695956496475118)
+                   : r1 ? MARGIN_C(0.495635523139337)
+                        : MARGIN_C(0.498799810682272);
+  const float c3 = r3   ? MARGIN_C(0.168037164329057)
+                   : r2 ? MARGIN_C(0.514272634594009)
+                   : r1 ? MARGIN_C(0.692140569840976)
+                        : MARGIN_C(0.693203116424741);
   float v = c0 * d + c1;
   v = v * d + c2;
   v = v * d + c3;
-  return v + lo;
+  v = v + lo;
+  return d >= 7.5f ? hi : v;
 }
 
 // jnp.logaddexp / torch.logaddexp for finite inputs

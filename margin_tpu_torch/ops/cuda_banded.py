@@ -50,16 +50,77 @@ from margin_tpu_torch.params import MAXIMUM_REPEAT_LENGTH
 
 MATCH, GAPX, GAPY = 0, 1, 2
 _REP = MAXIMUM_REPEAT_LENGTH
+_FLAT_PAD = 16
 
 # The port's memory budget for one pack's forward + posterior grids. The
 # monolithic kernels run any pack whose grids fit; a problem whose own
 # grids do not fit takes the segmented kernels.
 FB_GRID_BUDGET_BYTES = 8 << 30
 
-# Segment depth of the segmented kernels per band-width bucket, as the JAX
-# package's `_seg_d` (pallas_banded.py:863-870): a pack's recompute scratch
-# (128, S, 3, W) float32 is ~100 MB at every width.
-SEG_D = {16: 2048, 32: 2048, 64: 1024, 128: 512}
+# Launch configuration of the segmented kernels (csrc/banded_seg.cu). A
+# K3 block holds, in shared memory, the problem's tables, two staging
+# buffers of a segment's inputs and (K3-bwd) the recomputed (S, 3, W)
+# segment, so the segment depth S is a property of the launch: per width
+# bucket, the largest multiple of SEG_STEP whose K3-bwd block with RLE on
+# fits the 227 KB a Hopper block may use (232,448 bytes, set per kernel
+# with cudaFuncSetAttribute). The JAX package's `_seg_d`
+# (pallas_banded.py:863-870) sized a device-memory scratch instead.
+K3_MAX_SMEM = 232_448
+SEG_STEP = 16
+_K3_WORDS = 1024   # extraction words staged per block (WORDS_PER_BLOCK)
+_K3_MAX_NW = 4     # warps of a block (MAX_NW)
+# Warps per K3 block by width: one warp with W / 32 cells per lane, or
+# W / 32 warps with one cell per lane (see PERF.md for the measurement
+# behind the choice).
+K3_WARPS = {16: 1, 32: 1, 64: 1, 128: 4}
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _k3_smem_bytes(w: int, seg_d: int, rle: bool, sweep: str) -> int:
+    """The layout of csrc/banded_seg.cu:layout, in bytes."""
+    bwd = sweep == "bwd"
+    stage = (_round_up(12 * (seg_d + 4), 16) + 2 * _round_up(seg_d + w + 8, 16)
+             + (8 * _round_up(seg_d + w + 4, 4) if rle else 0)
+             + (24 * w if bwd else 0))
+    return ((4 * _REP * _REP * 4 if rle else 0) + 36 * 4 + 2 * stage
+            + (12 * seg_d * w + 8 * _K3_WORDS if bwd else 0)
+            + 48 * _K3_MAX_NW)
+
+
+def k3_smem(w: int, seg_d: int, rle: bool, sweep: str) -> int:
+    """Shared-memory bytes of one K3 block ("fwd" or "bwd") at width w and
+    segment depth seg_d: the problem's repeat table (RLE) and emissions,
+    two staging buffers of a segment's geometry, symbol and run-length
+    windows (and, K3-bwd, its checkpoint), and, K3-bwd, the recomputed
+    segment and the staged words. Raises ValueError for a segment the
+    block cannot hold."""
+    if seg_d < 2:
+        raise ValueError(f"segment depth must be >= 2, got {seg_d}")
+    n = _k3_smem_bytes(w, seg_d, rle, sweep)
+    if n > K3_MAX_SMEM:
+        raise ValueError(f"K3 block of {n} bytes at W={w}, S={seg_d}, RLE "
+                         f"{'on' if rle else 'off'} exceeds the "
+                         f"{K3_MAX_SMEM} bytes of shared memory a block may "
+                         "use")
+    return n
+
+
+def seg_depth(w: int, rle: bool = True) -> int:
+    """The largest multiple of SEG_STEP whose K3-bwd block fits at width
+    w."""
+    s = SEG_STEP
+    while _k3_smem_bytes(w, s + SEG_STEP, rle, "bwd") <= K3_MAX_SMEM:
+        s += SEG_STEP
+    return s
+
+
+# Segment depth per band-width bucket: what a K3-bwd block with RLE on
+# holds (the checkpoints grow in number, ~1.4 MB per 45k-diagonal problem
+# at W = 128).
+SEG_D = {w: seg_depth(w) for w in (16, 32, 64, 128)}
 
 
 def grid_bytes(n_rows: int, w: int) -> int:
@@ -143,9 +204,10 @@ def _pack_host(tables, items, w_pad: int, expansion: int, dynamic: bool,
     y_off = np.concatenate([[0], np.cumsum(lys)[:-1]])
 
     def cat(key, dtype, clamp=None):
+        # the flat arrays end in _FLAT_PAD spare entries: K3 stages symbol
+        # windows by whole 4-byte words
         parts = [np.asarray(it[key]) for it in items]
-        flat = (np.concatenate(parts) if sum(len(p) for p in parts)
-                else np.zeros(1))
+        flat = np.concatenate(parts + [np.zeros(_FLAT_PAD)])
         if clamp is not None:
             flat = np.minimum(flat, clamp)
         return flat.astype(dtype)
@@ -228,11 +290,13 @@ def _k2():
 def _k3():
     lib = _ext.kernel_lib("banded_seg")
     lib.k3_forward.restype = ctypes.c_int
-    lib.k3_forward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    lib.k3_forward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.k3_backward.restype = ctypes.c_int
-    lib.k3_backward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    lib.k3_backward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.k3_smem_bytes.restype = ctypes.c_int
+    lib.k3_smem_bytes.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -327,19 +391,29 @@ def _validate_seg(pack: BandPack, seg_d: int):
     _validate(pack)
     if seg_d < 2:
         raise ValueError(f"segment depth must be >= 2, got {seg_d}")
-    d_max = int((pack.lxs.long() + pack.lys.long()).max())
+    d_max, x_end, y_end = torch.stack([
+        (pack.lxs.long() + pack.lys.long()).max(),
+        pack.x_off[-1] + pack.lxs[-1], pack.y_off[-1] + pack.lys[-1]]).tolist()
     if d_max >= 1 << 22:
         raise ValueError(f"diagonal {d_max} beyond the extraction word's "
                          "22-bit budget")
+    if (pack.xs.numel() < x_end + 4 or pack.ys.numel() < y_end + 4):
+        raise ValueError("K3 reads the flat symbols by 4-byte words: they "
+                         "need 4 spare entries at the end (_pack_host pads "
+                         "them)")
 
 
 def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):
     """Checkpointing forward of a pack: returns (ckpt (segments, 2, 3, W)
-    f32, the carry into each segment; totals (B,) f32). CUDA: K3-fwd; CPU:
-    the plain twin."""
+    f32, the carry into each segment; totals (B,) f32). CUDA: K3-fwd,
+    raising for a segment depth K3-bwd's block cannot hold (k3_smem), as
+    no backward could consume its checkpoints; CPU: the plain twin."""
     if pack.device.type != "cuda":
         return seg_forward_plain(pack, use_lut, seg_d)
     _validate_seg(pack, seg_d)
+    rle = pack.rep_x is not None
+    k3_smem(pack.W, seg_d, rle, "bwd")
+    smem = k3_smem(pack.W, seg_d, rle, "fwd")
     dev = pack.device
     seg_off, n_total = seg_layout(pack, seg_d)
     ckpt = torch.empty((n_total, 2, 3, pack.W), dtype=torch.float32,
@@ -347,7 +421,8 @@ def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):
     totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _k3().k3_forward(_args(pack, seg_off, ckpt, totals), pack.B, pack.W,
-                          seg_d, int(bool(use_lut)), stream)
+                          seg_d, int(bool(use_lut)), K3_WARPS[pack.W], smem,
+                          stream)
     _ext.check_launch(rc, "segmented banded forward (K3-fwd)")
     SEG_FORWARD.launches += 1
     return ckpt, totals
@@ -358,19 +433,19 @@ def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
                  cap: Optional[int] = None):
     """Recompute + backward + posterior + extraction of a pack from its
     checkpoints: returns (lo, hi) int32 extraction words (see
-    banded.extract_packed), in no particular order. CUDA: K3-bwd, launched
-    again with the exact capacity when the first guess `cap` overflows;
-    CPU: the plain twin."""
+    banded.extract_packed), in no particular order. CUDA: K3-bwd, which
+    keeps the recomputed segment in shared memory (raising for a segment
+    depth its block cannot hold, k3_smem), launched again with the exact
+    capacity when the first guess `cap` overflows; CPU: the plain twin."""
     if pack.device.type != "cuda":
         return seg_backward_plain(pack, ckpt, totals, use_lut, seg_d,
                                   threshold)
     _validate_seg(pack, seg_d)
+    smem = k3_smem(pack.W, seg_d, pack.rep_x is not None, "bwd")
     dev = pack.device
     seg_off, n_total = seg_layout(pack, seg_d)
     _check(ckpt, "ckpt", torch.float32, (n_total, 2, 3, pack.W), dev)
     _check(totals, "totals", torch.float32, (pack.B,), dev)
-    scratch = torch.empty((pack.B, seg_d, 3, pack.W), dtype=torch.float32,
-                          device=dev)
     if cap is None:
         cap = 2 * pack.n_rows + 16384
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -379,9 +454,9 @@ def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
         lo = torch.empty(cap, dtype=torch.int32, device=dev)
         hi = torch.empty(cap, dtype=torch.int32, device=dev)
         rc = _k3().k3_backward(
-            _args(pack, seg_off, ckpt, totals, scratch, count, lo, hi),
-            pack.B, pack.W, seg_d, int(bool(use_lut)), float(threshold), cap,
-            stream)
+            _args(pack, seg_off, ckpt, totals, count, lo, hi),
+            pack.B, pack.W, seg_d, int(bool(use_lut)), K3_WARPS[pack.W],
+            smem, float(threshold), cap, stream)
         _ext.check_launch(rc, "segmented banded backward (K3-bwd)")
         SEG_BACKWARD.launches += 1
         n = int(count.item())

@@ -216,6 +216,81 @@ def test_seg_twin_matches_k2_twin(ci):
     assert w2 == w3 and len(w3) > 0
 
 
+# PR 2's segment depths, sized for a device-memory recompute scratch
+PR2_SEG_D = {16: 2048, 32: 2048, 64: 1024, 128: 512}
+# anchor expansion that puts the _items problems in each width bucket
+BUCKET_EXPANSION = {16: 0, 32: 10, 64: 50, 128: 110}
+
+
+@pytest.mark.parametrize("rle", [True, False])
+@pytest.mark.parametrize("w", [16, 32, 64, 128])
+def test_k3_launch_config(w, rle):
+    """Every width bucket gets a segment depth whose K3 blocks fit the
+    shared memory a Hopper block may use; one step more does not, and the
+    helper raises for it."""
+    S = cuda_banded.seg_depth(w, rle)
+    assert S >= 2 and S % cuda_banded.SEG_STEP == 0
+    for sweep in ("fwd", "bwd"):
+        assert cuda_banded.k3_smem(w, S, rle, sweep) <= 232_448
+    with pytest.raises(ValueError):
+        cuda_banded.k3_smem(w, S + cuda_banded.SEG_STEP, rle, "bwd")
+    # SEG_D holds the depth of a block with RLE on, which fits RLE off too
+    assert cuda_banded.SEG_D[w] == cuda_banded.seg_depth(w, True) <= S
+    assert cuda_banded.k3_smem(w, cuda_banded.SEG_D[w], rle, "bwd") <= \
+        cuda_banded.K3_MAX_SMEM
+
+
+def _bucket_pack(w, device="cpu"):
+    """A pack of width bucket w: four anchored problems of 140-430
+    diagonals (RLE on, both strands, ragged ends)."""
+    exp = BUCKET_EXPANSION[w]
+    items = _items(20 + w, True, 5)[:4]
+    for it in items:
+        it["anchors"] = [(a[0], a[1], exp) for a in it["anchors"]]
+    tables = (_port_tables(True) if device == "cpu"
+              else _own_tables(True, device))
+    pack = cuda_banded._pack_host(tables, items, _w_pad_exp(items, exp), exp,
+                                  False, True, device=device)
+    assert pack.W == w
+    return pack
+
+
+def _w_pad_exp(items, exp):
+    return banded._bucket_w(max(banded._item_geom(dict(it), exp, False).w_pad
+                                for it in items))
+
+
+_K2_WORDS = {}
+
+
+def _k2_twin_words(w):
+    if w not in _K2_WORDS:
+        pack = _bucket_pack(w)
+        fwd, totals = cuda_banded.fb_forward_plain(pack, True)
+        post = cuda_banded.fb_backward_plain(pack, fwd, totals, True)
+        _K2_WORDS[w] = _words(banded.extract_packed(post, totals, pack,
+                                                    THRESHOLD).numpy(),
+                              pack.B)
+    return _K2_WORDS[w]
+
+
+@pytest.mark.parametrize("depth", ["SEG_D", 32, "PR2"])
+@pytest.mark.parametrize("w", [16, 32, 64, 128])
+def test_seg_twin_depths_match_k2_twin(w, depth):
+    """Results do not depend on the segment depth: at the launch's SEG_D[w]
+    (several segments a problem at W = 64 and 128), at 32 and at PR 2's
+    depths (one segment), the
+    segmented twins give the K2 twin's totals and words, bit for bit."""
+    S = {"SEG_D": cuda_banded.SEG_D[w], "PR2": PR2_SEG_D[w]}.get(depth,
+                                                                  depth)
+    pack = _bucket_pack(w)
+    got = _words(cuda_banded.fb_posteriors_seg_plain(pack, True, THRESHOLD,
+                                                     S).numpy(), pack.B)
+    want = _k2_twin_words(w)
+    assert np.array_equal(got[0], want[0])
+    assert got[1] == want[1] and len(got[1]) > 0
+
+
 def test_checkpoints_hold_the_forward_carry():
     """seg_forward_plain's checkpoint of segment s is the monolithic
     forward's diagonals s*S-1 and s*S-2."""
@@ -276,19 +351,51 @@ def test_route_by_depth_and_width():
 
 @pytest.mark.cuda
 def test_seg_kernels_match_plain():
+    """The kernels against their twins: the CASES packs at S = 64 (both
+    logAdds, RLE on and off, a small first capacity so K3-bwd re-runs),
+    and a pack of every width bucket at its SEG_D (LUT, RLE on), with the
+    block shapes of K3_WARPS and the other one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    for ci, (rle, lut) in enumerate(CASES):
-        pack = _port_pack(ci, device="cuda")
-        ckpt, tk = cuda_banded.seg_forward(pack, lut, SEG)
-        lo, hi = cuda_banded.seg_backward(pack, ckpt, tk, lut, SEG,
-                                          THRESHOLD, cap=64)
+    runs = [(_port_pack(ci, device="cuda"), lut, SEG, None)
+            for ci, (rle, lut) in enumerate(CASES)]
+    for w in (16, 32, 64, 128):
+        for nw in {1, max(w, 32) // 32}:
+            runs.append((_bucket_pack(w, "cuda"), True, cuda_banded.SEG_D[w],
+                         nw))
+    for pack, lut, S, nw in runs:
+        saved = dict(cuda_banded.K3_WARPS)
+        if nw is not None:
+            cuda_banded.K3_WARPS[pack.W] = nw
+        try:
+            ckpt, tk = cuda_banded.seg_forward(pack, lut, S)
+            lo, hi = cuda_banded.seg_backward(pack, ckpt, tk, lut, S,
+                                              THRESHOLD, cap=64)
+        finally:
+            cuda_banded.K3_WARPS.update(saved)
         got = cuda_banded._fused(tk, lo, hi).cpu().numpy()
-        want = cuda_banded.fb_posteriors_seg_plain(pack, lut, THRESHOLD,
-                                                   SEG).cpu().numpy()
+        cp, tp = cuda_banded.seg_forward_plain(pack, lut, S)
+        want = cuda_banded._fused(tp, *cuda_banded.seg_backward_plain(
+            pack, cp, tp, lut, S, THRESHOLD)).cpu().numpy()
         tg, wg = _words(got, pack.B)
         tw, ww = _words(want, pack.B)
         if lut:
+            assert torch.equal(ckpt, cp)
             assert np.array_equal(tg, tw) and wg == ww
         else:
             assert np.abs(tg - tw).max() <= 1e-4
+            assert {(h, lo >> 24) for lo, h in wg} == \
+                {(h, lo >> 24) for lo, h in ww}
+
+
+@pytest.mark.cuda
+def test_seg_kernels_refuse_a_segment_beyond_the_block():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    pack = _bucket_pack(128, "cuda")
+    too_deep = cuda_banded.SEG_D[128] + cuda_banded.SEG_STEP
+    with pytest.raises(ValueError):
+        cuda_banded.seg_forward(pack, True, too_deep)
+    ckpt, tk = cuda_banded.seg_forward_plain(pack, True, too_deep)
+    with pytest.raises(ValueError):
+        cuda_banded.seg_backward(pack, ckpt, tk, True, too_deep, THRESHOLD)
