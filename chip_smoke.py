@@ -47,9 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      pack of phase 6 and hold it against K2 there (identical words and
      totals), and against its twin on that pack's 16 shallowest problems
      (the twin walks one diagonal at a time, so its time follows the
-     deepest problem it is given); on the same pack, K3 with its other
-     block shape (one warp, or one lane per cell) and K2-fwd / K2-bwd
-     are timed beside it.
+     deepest problem it is given); K2-fwd / K2-bwd are timed on the
+     same pack beside it.
 Every K3 timing also prints the pack's deepest diagonal count and the
 nanoseconds per diagonal.
 The line before last is {"kernels": [...]} (times from this run, bounds
@@ -366,7 +365,6 @@ def k3_against(pack, lut, seg_d, label, threshold=0.01, twin=True):
                      "rows": pack.n_rows, "words": lo.numel(),
                      "deepest_diagonals": d_max,
                      "ns_per_diagonal": ms * 1e6 / d_max,
-                     "warps": cuda_banded.K3_WARPS[pack.W],
                      "max_abs_err": diff, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by})
         plain = "" if pms is None else f", plain {pms:.0f} ms"
@@ -1015,17 +1013,10 @@ def phase_polish_region(ds, work, region_len=10_000):
                 params.polish.maxPoaConsensusIterations}
 
 
-def other_shape(w):
-    """K3's other block shape at width w (warps per block), or None."""
-    from margin_tpu_torch.ops import cuda_banded
-    shapes = {1, max(w, 32) // 32} - {cuda_banded.K3_WARPS[w]}
-    return shapes.pop() if shapes else None
-
-
 def phase_k3_main_path(rec, max_b=16):
     """K3 on the largest K3 pack of the polish run: timed, and held against
     K2 (identical words and totals), on the whole pack, with K2-fwd /
-    K2-bwd and K3's other block shape timed on it in the same call; held
+    K2-bwd timed on it in the same call; held
     against its twin, and timed beside it, on the pack's max_b shallowest
     problems."""
     from margin_tpu_torch.ops import cuda_banded
@@ -1044,26 +1035,7 @@ def phase_k3_main_path(rec, max_b=16):
     rows = {r["kernel"]: r for r in k3_against(full, use_lut, seg_d, label,
                                                threshold, twin=False)}
     d_max = deepest(full)
-    # the same pack through K3's other block shape (identical words) and
-    # through K2, timed in this call
-    nw = other_shape(w_pad)
-    if nw is not None:
-        saved = cuda_banded.K3_WARPS[w_pad]
-        cuda_banded.K3_WARPS[w_pad] = nw
-        try:
-            _, tk, lo, hi = k3_run(full, use_lut, seg_d, threshold)
-            other = k3_times(full, use_lut, seg_d, threshold, lo.numel())
-        finally:
-            cuda_banded.K3_WARPS[w_pad] = saved
-        want = k3_run(full, use_lut, seg_d, threshold)
-        compare_words(f"K3 ({nw} warps) vs K3 ({saved} warps) {label}",
-                      word_set(tk, lo, hi), word_set(*want[1:]), True)
-        for name, ms in zip(("K3-fwd", "K3-bwd"), other):
-            rows[name]["other_shape"] = {"warps": nw, "ms": ms,
-                                         "ns_per_diagonal": ms * 1e6 / d_max}
-            log(f"{name} {label}, {nw} warps a block: {ms:.2f} ms, "
-                f"{ms * 1e6 / d_max:.1f} ns per diagonal (kept: "
-                f"{saved} warps, {rows[name]['ms']:.2f} ms)")
+    # the same pack through K2, timed in this call
     budget = cuda_banded.FB_GRID_BUDGET_BYTES
     cuda_banded.FB_GRID_BUDGET_BYTES = max(
         budget, cuda_banded.grid_bytes(full.n_rows, full.W))

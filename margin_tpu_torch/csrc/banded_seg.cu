@@ -23,14 +23,16 @@
 // the card's 132 SMs run one block each and the step time is all that is
 // left to cut. The design takes everything but the recurrence off a
 // step's dependency chain:
-//   * One block per problem, of NW warps; each lane holds C consecutive
-//     band cells (W = 32 * C * NW; W = 16 leaves half a warp idle). A
-//     diagonal's cells stay in registers. The neighbours k-1 and k+1
-//     (every dependency, since the storage base moves by +-1 a diagonal)
-//     come from the same lane, from __shfl_up_sync / __shfl_down_sync,
-//     and, at a warp's edge (NW > 1), from a two-slot exchange in shared
-//     memory behind a named barrier over the block's warps: no
-//     block-wide barrier per diagonal, none at all with NW = 1.
+//   * One block per problem, of NW = max(W, 32) / 32 warps; lane k holds
+//     band cell k (W = 16 leaves half a warp idle). A diagonal's cells
+//     stay in registers. The neighbours k-1 and k+1 (every dependency,
+//     since the storage base moves by +-1 a diagonal) come from
+//     __shfl_up_sync / __shfl_down_sync and, at a warp's edge, from a
+//     two-slot exchange in shared memory behind a named barrier over the
+//     block's warps: no block-wide barrier per diagonal, none at all at
+//     W <= 32. (One warp holding W / 32 cells a lane, with no barrier,
+//     was slower at W = 64 and 128 on the H100: its cells' instructions
+//     issue from one warp; PERF.md has both.)
 //   * Inputs staged in shared memory, one segment ahead: cp.async copies
 //     a segment's per-diagonal geometry (xmy, width, klo over [d0-2,
 //     d1+2)), the symbol and run-length windows its cells consume (x_base
@@ -46,13 +48,16 @@
 //     memory (S is a launch property: the largest S whose block fits the
 //     227 KB of shared memory, ops/cuda_banded.py:k3_smem); each lane
 //     reads back only its own cells, so no barrier orders it.
-//   * Words staged per warp in shared memory with a ballot per state and
-//     cell: one atomicAdd on the global count per warp when its buffer
-//     fills or a segment ends, then the warp writes them out. The
-//     contract is unchanged: lo = floor(min(p,1)*1e7) | k << 24, hi = d |
-//     (3b+s) << 22, every word counted, words beyond the capacity dropped
-//     (the host re-runs K3-bwd with the exact count); word order is free,
-//     the host sorts by (tag, x, y).
+//   * Words off the recurrence's path: the backward overwrites each
+//     recomputed cell in shared memory with its posteriors; after the
+//     segment, each warp walks its own cells and stages the selected ones
+//     in shared memory (a ballot per state), with one atomicAdd on the
+//     global count per warp when its buffer fills or the segment ends,
+//     then writes them out. The contract is unchanged: lo =
+//     floor(min(p,1)*1e7) | k << 24, hi = d | (3b+s) << 22, every word
+//     counted, words beyond the capacity dropped (the host re-runs K3-bwd
+//     with the exact count); word order is free, the host sorts by (tag,
+//     x, y).
 // The per-cell arithmetic is banded_cell.cuh's input and recurrence parts,
 // shared with K2, so every cell equals K2's bit for bit; built with
 // --fmad=false.
@@ -308,30 +313,20 @@ __device__ __forceinline__ void load_block_tables(const BandArgs& a, int b,
 // diagonals in registers
 // ---------------------------------------------------------------------------
 
-// A lane's C cells of one diagonal (v[state][j], k = k0 + j) and the
-// cells just left (k0 - 1) and right (k0 + C) of them.
-template <int C>
+// A lane's cell k of one diagonal (v[state]) and the cells k-1 (l) and
+// k+1 (r).
 struct Diag {
-  float v[3][C];
-  float l[3], r[3];
+  float v[3], l[3], r[3];
 };
 
-template <int C>
-__device__ __forceinline__ void set_zero(Diag<C>& d) {
+__device__ __forceinline__ void set_zero(Diag& d) {
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    d.l[s] = d.r[s] = LOG_ZERO_F;
-#pragma unroll
-    for (int j = 0; j < C; ++j) d.v[s][j] = LOG_ZERO_F;
-  }
+  for (int s = 0; s < 3; ++s) d.v[s] = d.l[s] = d.r[s] = LOG_ZERO_F;
 }
 
-// The value of state s at k0 + j + off, off in {-1, 0, 1}.
-template <int C>
-__device__ __forceinline__ float nb(const Diag<C>& d, int s, int j, int off) {
-  const float lo = j == 0 ? d.l[s] : d.v[s][j > 0 ? j - 1 : 0];
-  const float hi = j == C - 1 ? d.r[s] : d.v[s][j < C - 1 ? j + 1 : 0];
-  return off < 0 ? lo : (off > 0 ? hi : d.v[s][j]);
+// The value of state s at k + off, off in {-1, 0, 1}.
+__device__ __forceinline__ float nb(const Diag& d, int s, int off) {
+  return off < 0 ? d.l[s] : (off > 0 ? d.r[s] : d.v[s]);
 }
 
 template <int NW>
@@ -341,22 +336,23 @@ __device__ __forceinline__ void warps_sync() {
 
 // Fill d.l / d.r from the neighbouring lanes and, at a warp's edge, from
 // the neighbouring warps (LOG_ZERO beyond the band storage). xch: two
-// slots of (NW, 2 edges, 3 states), alternating by step.
-template <int C, int NW>
-__device__ __forceinline__ void link(Diag<C>& d, float* xch, int& step) {
+// slots of (NW, 2 edges, 3 states), alternating by step, so one barrier
+// a diagonal orders both the writes and the reads.
+template <int NW>
+__device__ __forceinline__ void link(Diag& d, float* xch, int& step) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int s = 0; s < 3; ++s) {
-    d.l[s] = __shfl_up_sync(FULL, d.v[s][C - 1], 1);
-    d.r[s] = __shfl_down_sync(FULL, d.v[s][0], 1);
+    d.l[s] = __shfl_up_sync(FULL, d.v[s], 1);
+    d.r[s] = __shfl_down_sync(FULL, d.v[s], 1);
   }
   if (NW > 1) {
     const int w = threadIdx.x >> 5;
     float* x = xch + (step & 1) * (NW * 6);
     if (lane == 0)
-      for (int s = 0; s < 3; ++s) x[w * 6 + s] = d.v[s][0];
+      for (int s = 0; s < 3; ++s) x[w * 6 + s] = d.v[s];
     if (lane == 31)
-      for (int s = 0; s < 3; ++s) x[w * 6 + 3 + s] = d.v[s][C - 1];
+      for (int s = 0; s < 3; ++s) x[w * 6 + 3 + s] = d.v[s];
     warps_sync<NW>();
     if (lane == 0)
       for (int s = 0; s < 3; ++s)
@@ -373,54 +369,18 @@ __device__ __forceinline__ void link(Diag<C>& d, float* xch, int& step) {
   }
 }
 
-// C consecutive floats of shared memory (aligned to 4C bytes)
-template <int C>
-__device__ __forceinline__ void put(float* p, const float (&v)[C]) {
-  if (C == 4) {
-    *(float4*)p = make_float4(v[0], v[1 % C], v[2 % C], v[3 % C]);
-  } else if (C == 2) {
-    *(float2*)p = make_float2(v[0], v[1 % C]);
-  } else {
-    p[0] = v[0];
-  }
-}
-template <int C>
-__device__ __forceinline__ void get(const float* p, float (&v)[C]) {
-  if (C == 4) {
-    const float4 q = *(const float4*)p;
-    v[0] = q.x;
-    v[1 % C] = q.y;
-    v[2 % C] = q.z;
-    v[3 % C] = q.w;
-  } else if (C == 2) {
-    const float2 q = *(const float2*)p;
-    v[0] = q.x;
-    v[1 % C] = q.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-// diagonal rows (3, W) in shared or device memory <-> a lane's cells
-template <int C>
-__device__ __forceinline__ void load_row(const float* row, int W, int k0,
-                                         Diag<C>& d) {
+// a diagonal row (3, W) in shared or device memory <-> a lane's cell
+// (LOG_ZERO beyond W)
+__device__ __forceinline__ void load_row(const float* row, int W, int k,
+                                         Diag& d) {
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    if (k0 < W) {
-      get<C>(row + s * W + k0, d.v[s]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < C; ++j) d.v[s][j] = LOG_ZERO_F;
-    }
-  }
+  for (int s = 0; s < 3; ++s) d.v[s] = k < W ? row[s * W + k] : LOG_ZERO_F;
 }
-template <int C>
-__device__ __forceinline__ void store_row(float* row, int W, int k0,
-                                          const Diag<C>& d) {
-  if (k0 >= W) return;
+__device__ __forceinline__ void store_row(float* row, int W, int k,
+                                          const Diag& d) {
+  if (k < W)
 #pragma unroll
-  for (int s = 0; s < 3; ++s) put<C>(row + s * W + k0, d.v[s]);
+    for (int s = 0; s < 3; ++s) row[s * W + k] = d.v[s];
 }
 
 // ---------------------------------------------------------------------------
@@ -449,108 +409,87 @@ __device__ __forceinline__ Emis staged_emissions(const Smem& sm,
   return emissions<RLE>(sm.tabs, sm.rep, cs);
 }
 
-// The input part of a lane's cells on diagonal g: band mask, emissions,
-// shifts (forward: s1, s2; backward: t1, t2), and the x / y extraction
-// checks (backward).
-template <int C>
+// The input part of a lane's cell on diagonal g: band mask, emissions,
+// shifts (forward: s1, s2; backward: t1, t2).
 struct Inputs {
-  Emis e[C];
-  bool vm[C];
-  bool x_ok[C], y_ok[C];
+  Emis e;
+  bool vm;
   int sa, sb;
 };
 
-template <bool RLE, int C>
-__device__ __forceinline__ Inputs<C> fwd_inputs(const Smem& sm,
-                                                const Stage& st, const Win& w,
-                                                const Ctx& c, int g, int k0) {
-  Inputs<C> in;
+template <bool RLE>
+__device__ __forceinline__ Inputs fwd_inputs(const Smem& sm, const Stage& st,
+                                             const Win& w, const Ctx& c,
+                                             int g, int k) {
+  Inputs in;
   const int i = g - w.gl;
   const int xm = st.xm[i];
   const int xm2 = g >= 2 ? st.xm[i - 2] : 0;
   in.sa = fwd_s1(xm, st.xm[i - 1]);
   in.sb = fwd_s2(g, xm, xm2);
-  const int klo = st.kl[i], wid = st.wd[i];
   const int xb = x_base_of(g, xm), yb = y_base_of(g, xm);
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    const int k = k0 + j;
-    in.vm[j] = band_cell(g, xm, klo, wid, k, c.lx, c.ly);
-    in.e[j] = staged_emissions<RLE>(sm, st, w, c, xb + k, yb - k, k < c.W);
-  }
+  in.vm = band_cell(g, xm, st.kl[i], st.wd[i], k, c.lx, c.ly);
+  in.e = staged_emissions<RLE>(sm, st, w, c, xb + k, yb - k, k < c.W);
   return in;
 }
 
-template <bool RLE, int C>
-__device__ __forceinline__ Inputs<C> bwd_inputs(const Smem& sm,
-                                                const Stage& st, const Win& w,
-                                                const Ctx& c, int g, int k0) {
-  Inputs<C> in;
+template <bool RLE>
+__device__ __forceinline__ Inputs bwd_inputs(const Smem& sm, const Stage& st,
+                                             const Win& w, const Ctx& c,
+                                             int g, int k) {
+  Inputs in;
   const int i = g - w.gl;
   const int xm = st.xm[i];
   const bool has2 = g + 2 <= c.D;
   const int xn2 = has2 ? st.xm[i + 2] : 0;
   in.sa = bwd_t1(xm, st.xm[i + 1]);
   in.sb = bwd_t2(has2, xm, xn2);
-  const int klo = st.kl[i], wid = st.wd[i];
   const int xb = x_base_of(g, xm), yb = y_base_of(g, xm);
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    const int k = k0 + j;
-    in.vm[j] = band_cell(g, xm, klo, wid, k, c.lx, c.ly);
-    in.x_ok[j] = xb + 1 + k > 0;
-    in.y_ok[j] = yb + 1 - k > 0;
-    in.e[j] = staged_emissions<RLE>(sm, st, w, c, xb + k + 1, yb + 1 - k,
-                                    k < c.W);
-  }
+  in.vm = band_cell(g, xm, st.kl[i], st.wd[i], k, c.lx, c.ly);
+  in.e = staged_emissions<RLE>(sm, st, w, c, xb + k + 1, yb + 1 - k,
+                               k < c.W);
   return in;
 }
 
 // Forward diagonal g >= 1 from p1 (g-1) and p2 (g-2).
-template <bool LUT, int C, int NW>
+template <bool LUT, int NW>
 __device__ __forceinline__ void fwd_step(const Smem& sm, const float* tr,
-                                         const Inputs<C>& in,
-                                         const Diag<C>& p1, const Diag<C>& p2,
-                                         Diag<C>& out, int& step) {
+                                         const Inputs& in, const Diag& p1,
+                                         const Diag& p2, Diag& out,
+                                         int& step) {
+  float l[3], d[3], u[3], o[3];
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
-    float l[3], d[3], u[3], o[3];
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      l[s] = nb(p1, s, j, in.sa);
-      u[s] = nb(p1, s, j, in.sa + 1);
-      d[s] = nb(p2, s, j, in.sb);
-    }
-    forward_recurrence<LUT>(tr, in.e[j], l, d, u, o);
-#pragma unroll
-    for (int s = 0; s < 3; ++s) out.v[s][j] = in.vm[j] ? o[s] : LOG_ZERO_F;
+  for (int s = 0; s < 3; ++s) {
+    l[s] = nb(p1, s, in.sa);
+    u[s] = nb(p1, s, in.sa + 1);
+    d[s] = nb(p2, s, in.sb);
   }
-  link<C, NW>(out, sm.xch, step);
+  forward_recurrence<LUT>(tr, in.e, l, d, u, o);
+#pragma unroll
+  for (int s = 0; s < 3; ++s) out.v[s] = in.vm ? o[s] : LOG_ZERO_F;
+  link<NW>(out, sm.xch, step);
 }
 
 // Backward diagonal g from n1 (g+1) and n2 (g+2); the final diagonal
 // carries the end weights at k_final.
-template <bool LUT, int C, int NW>
+template <bool LUT, int NW>
 __device__ __forceinline__ void bwd_step(const Smem& sm, const float* tr,
-                                         const Inputs<C>& in, bool final_diag,
-                                         const float* end_w, int kf, int k0,
-                                         const Diag<C>& n1, const Diag<C>& n2,
-                                         Diag<C>& out, int& step) {
+                                         const Inputs& in, bool final_diag,
+                                         const float* end_w, bool at_kf,
+                                         const Diag& n1, const Diag& n2,
+                                         Diag& out, int& step) {
+  float o[3];
+  backward_recurrence<LUT>(tr, in.e, nb(n1, 1, in.sa), nb(n2, 0, in.sb),
+                           nb(n1, 2, in.sa - 1), o);
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
-    float o[3];
-    backward_recurrence<LUT>(tr, in.e[j], nb(n1, 1, j, in.sa),
-                             nb(n2, 0, j, in.sb), nb(n1, 2, j, in.sa - 1), o);
-    const bool at_kf = k0 + j == kf;
-#pragma unroll
-    for (int s = 0; s < 3; ++s)
-      out.v[s][j] = final_diag ? (at_kf ? end_w[s] : LOG_ZERO_F)
-                               : (in.vm[j] ? o[s] : LOG_ZERO_F);
-  }
-  link<C, NW>(out, sm.xch, step);
+  for (int s = 0; s < 3; ++s)
+    out.v[s] = final_diag ? (at_kf ? end_w[s] : LOG_ZERO_F)
+                          : (in.vm ? o[s] : LOG_ZERO_F);
+  link<NW>(out, sm.xch, step);
 }
 
 // Write a warp's staged words out: one atomicAdd reserves their places.
+// wc is uniform across the warp.
 __device__ __forceinline__ void flush_words(const int2* wbuf, int& wc,
                                             int* count, int* lo_buf,
                                             int* hi_buf, int cap) {
@@ -574,17 +513,18 @@ __device__ __forceinline__ void flush_words(const int2* wbuf, int& wc,
 }
 
 // ---------------------------------------------------------------------------
-// the kernels
+// the kernels: one block of NW = max(W, 32) / 32 warps per problem, lane
+// k = threadIdx.x holding band cell k
 // ---------------------------------------------------------------------------
 
-template <bool LUT, bool RLE, int C, int NW>
+template <bool LUT, bool RLE, int NW>
 __global__ void __launch_bounds__(32 * NW)
     k3_fwd_kernel(BandArgs a, const int64_t* seg_off, float* ckpt,
                   float* totals, int W, int S) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(W, S, RLE, false);
   const int b = blockIdx.x;
-  const int k0 = threadIdx.x * C;
+  const int k = threadIdx.x;
   const Ctx c = context(a, b, W);
   Smem sm;
   sm.tabs = (const float*)(smem + L.tabs);
@@ -598,7 +538,7 @@ __global__ void __launch_bounds__(32 * NW)
   unsigned char* const buf0 = smem + L.stage0;  // staging buffers i & 1
   Win cur = stage_fwd<RLE>(a, c, L, buf0, 0, min(S, c.D + 1), c.xmy[0]);
   int step = 0;
-  Diag<C> p1, p2;
+  Diag p1, p2;
   set_zero(p2);
   for (int seg = 0; seg < n_seg; ++seg) {
     cp_wait_all();
@@ -614,22 +554,20 @@ __global__ void __launch_bounds__(32 * NW)
     if (seg == 0) {  // diagonal 0: the start weights at k = 0
 #pragma unroll
       for (int s = 0; s < 3; ++s)
-#pragma unroll
-        for (int j = 0; j < C; ++j)
-          p1.v[s][j] = k0 + j == 0 ? a.init[b * 3 + s] : LOG_ZERO_F;
-      link<C, NW>(p1, sm.xch, step);
+        p1.v[s] = k == 0 ? a.init[b * 3 + s] : LOG_ZERO_F;
+      link<NW>(p1, sm.xch, step);
       g = 1;
     }
     // the carry into this segment (segment 0: nothing before it)
-    store_row(cks, W, k0, seg == 0 ? p2 : p1);
-    store_row(cks + 3 * W, W, k0, p2);
+    store_row(cks, W, k, seg == 0 ? p2 : p1);
+    store_row(cks + 3 * W, W, k, p2);
     if (g < d1) {
-      Inputs<C> nx = fwd_inputs<RLE, C>(sm, st, cur, c, g, k0);
+      Inputs nx = fwd_inputs<RLE>(sm, st, cur, c, g, k);
       for (; g < d1; ++g) {
-        const Inputs<C> in = nx;
-        nx = fwd_inputs<RLE, C>(sm, st, cur, c, min(g + 1, d1 - 1), k0);
-        Diag<C> nd;
-        fwd_step<LUT, C, NW>(sm, tr, in, p1, p2, nd, step);
+        const Inputs in = nx;
+        nx = fwd_inputs<RLE>(sm, st, cur, c, min(g + 1, d1 - 1), k);
+        Diag nd;
+        fwd_step<LUT, NW>(sm, tr, in, p1, p2, nd, step);
         p2 = p1;
         p1 = nd;
       }
@@ -637,14 +575,11 @@ __global__ void __launch_bounds__(32 * NW)
     cur = nxt;
   }
   // the total at the final corner, from diagonal D
-#pragma unroll
-  for (int j = 0; j < C; ++j)
-    if (k0 + j == c.kf)
-      totals[b] = corner_value<LUT>(a.end_w + b * 3, p1.v[0][j], p1.v[1][j],
-                                    p1.v[2][j]);
+  if (k == c.kf)
+    totals[b] = corner_value<LUT>(a.end_w + b * 3, p1.v[0], p1.v[1], p1.v[2]);
 }
 
-template <bool LUT, bool RLE, int C, int NW>
+template <bool LUT, bool RLE, int NW>
 __global__ void __launch_bounds__(32 * NW)
     k3_bwd_kernel(BandArgs a, const int64_t* seg_off, const float* ckpt,
                   const float* totals, float threshold, int* count,
@@ -652,8 +587,8 @@ __global__ void __launch_bounds__(32 * NW)
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(W, S, RLE, true);
   const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = threadIdx.x * C;
+  const int k = threadIdx.x;
+  const int lane = k & 31, warp = k >> 5;
   const Ctx c = context(a, b, W);
   Smem sm;
   sm.tabs = (const float*)(smem + L.tabs);
@@ -679,7 +614,7 @@ __global__ void __launch_bounds__(32 * NW)
                            n_seg > 1 ? ck + (size_t)(n_seg - 1) * 6 * W
                                      : nullptr);
   int step = 0;
-  Diag<C> n1, n2;  // diagonals D+1 and D+2 are empty
+  Diag n1, n2;  // diagonals D+1 and D+2 are empty
   set_zero(n1);
   set_zero(n2);
   for (int seg = n_seg - 1; seg >= 0; --seg) {
@@ -690,74 +625,78 @@ __global__ void __launch_bounds__(32 * NW)
     Win nxt = cur;
     if (seg > 0)  // the previous segment's inputs, while this one runs
       nxt = stage_bwd<RLE>(a, c, L, buf0 + ((n_seg - seg) & 1) * L.stage,
-                           d0 - S, d0,
-                           st.xm[d0 - 1 - cur.gl],
+                           d0 - S, d0, st.xm[d0 - 1 - cur.gl],
                            seg > 1 ? ck + (size_t)(seg - 1) * 6 * W
                                    : nullptr);
     // recompute the segment's forward into blk
-    Diag<C> p1, p2;
+    Diag p1, p2;
     int g = d0;
     if (seg == 0) {
 #pragma unroll
       for (int s = 0; s < 3; ++s)
-#pragma unroll
-        for (int j = 0; j < C; ++j)
-          p1.v[s][j] = k0 + j == 0 ? a.init[b * 3 + s] : LOG_ZERO_F;
+        p1.v[s] = k == 0 ? a.init[b * 3 + s] : LOG_ZERO_F;
       set_zero(p2);
-      link<C, NW>(p1, sm.xch, step);
-      store_row(blk, W, k0, p1);
+      link<NW>(p1, sm.xch, step);
+      store_row(blk, W, k, p1);
       g = 1;
     } else {
-      load_row(st.ck, W, k0, p1);
-      load_row(st.ck + 3 * W, W, k0, p2);
-      link<C, NW>(p1, sm.xch, step);
-      link<C, NW>(p2, sm.xch, step);
+      load_row(st.ck, W, k, p1);
+      load_row(st.ck + 3 * W, W, k, p2);
+      link<NW>(p1, sm.xch, step);
+      link<NW>(p2, sm.xch, step);
     }
     if (g < d1) {
-      Inputs<C> nx = fwd_inputs<RLE, C>(sm, st, cur, c, g, k0);
+      Inputs nx = fwd_inputs<RLE>(sm, st, cur, c, g, k);
       for (; g < d1; ++g) {
-        const Inputs<C> in = nx;
-        nx = fwd_inputs<RLE, C>(sm, st, cur, c, min(g + 1, d1 - 1), k0);
-        Diag<C> nd;
-        fwd_step<LUT, C, NW>(sm, tr, in, p1, p2, nd, step);
-        store_row(blk + (size_t)(g - d0) * 3 * W, W, k0, nd);
+        const Inputs in = nx;
+        nx = fwd_inputs<RLE>(sm, st, cur, c, min(g + 1, d1 - 1), k);
+        Diag nd;
+        fwd_step<LUT, NW>(sm, tr, in, p1, p2, nd, step);
+        store_row(blk + (size_t)(g - d0) * 3 * W, W, k, nd);
         p2 = p1;
         p1 = nd;
       }
     }
-    // backward, posteriors and words through the segment
-    Inputs<C> nx = bwd_inputs<RLE, C>(sm, st, cur, c, d1 - 1, k0);
+    // backward and posteriors through the segment: each lane overwrites
+    // its forward cell in blk with its posteriors
+    Inputs nx = bwd_inputs<RLE>(sm, st, cur, c, d1 - 1, k);
     for (g = d1 - 1; g >= d0; --g) {
-      const Inputs<C> in = nx;
-      nx = bwd_inputs<RLE, C>(sm, st, cur, c, max(g - 1, d0), k0);
-      Diag<C> nd;
-      bwd_step<LUT, C, NW>(sm, tr, in, g == c.D, end_w, c.kf, k0, n1, n2, nd,
-                           step);
-      Diag<C> f;
-      load_row(blk + (size_t)(g - d0) * 3 * W, W, k0, f);
+      const Inputs in = nx;
+      nx = bwd_inputs<RLE>(sm, st, cur, c, max(g - 1, d0), k);
+      Diag nd;
+      bwd_step<LUT, NW>(sm, tr, in, g == c.D, end_w, k == c.kf, n1, n2, nd,
+                        step);
+      float* row = blk + (size_t)(g - d0) * 3 * W;
+      Diag f;
+      load_row(row, W, k, f);
 #pragma unroll
-      for (int s = 0; s < 3; ++s) {
-#pragma unroll
-        for (int j = 0; j < C; ++j) {
-          const int k = k0 + j;
-          const float q = posterior(in.vm[j], f.v[s][j], nd.v[s][j], total);
-          const bool need = s == 0   ? in.x_ok[j] && in.y_ok[j]
-                            : s == 1 ? in.x_ok[j]
-                                     : in.y_ok[j];
-          const bool sel = q >= threshold && need && k < W;
-          const unsigned m = __ballot_sync(FULL, sel);
-          if (sel)
-            wbuf[wc + __popc(m & below)] =
-                make_int2((int)floorf(fminf(q, 1.0f) * 10000000.0f) |
-                              (k << 24),
-                          g | ((3 * b + s) << 22));
-          wc += __popc(m);
-        }
-      }
-      if (wc > WCAP - 3 * 32 * C)
-        flush_words(wbuf, wc, count, lo_buf, hi_buf, cap);
+      for (int s = 0; s < 3; ++s)
+        f.v[s] = posterior(in.vm, f.v[s], nd.v[s], total);
+      store_row(row, W, k, f);
       n2 = n1;
       n1 = nd;
+    }
+    // the segment's words, off the recurrence's path: each warp walks its
+    // own cells' posteriors, a ballot per state
+    for (g = d0; g < d1; ++g) {
+      Diag q;
+      load_row(blk + (size_t)(g - d0) * 3 * W, W, k, q);
+      const int xm = st.xm[g - cur.gl];
+      const bool x_ok = x_base_of(g, xm) + 1 + k > 0;
+      const bool y_ok = y_base_of(g, xm) + 1 - k > 0;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const bool need = s == 0 ? x_ok && y_ok : s == 1 ? x_ok : y_ok;
+        const float p = q.v[s];
+        const bool sel = p >= threshold && need && k < W;
+        const unsigned m = __ballot_sync(FULL, sel);
+        if (sel)
+          wbuf[wc + __popc(m & below)] = make_int2(
+              (int)floorf(fminf(p, 1.0f) * 10000000.0f) | (k << 24),
+              g | ((3 * b + s) << 22));
+        wc += __popc(m);
+      }
+      if (wc > WCAP - 3 * 32) flush_words(wbuf, wc, count, lo_buf, hi_buf, cap);
     }
     flush_words(wbuf, wc, count, lo_buf, hi_buf, cap);
     cur = nxt;
@@ -768,10 +707,10 @@ __global__ void __launch_bounds__(32 * NW)
 // launches
 // ---------------------------------------------------------------------------
 
-template <bool LUT, bool RLE, int C, int NW>
+template <bool LUT, bool RLE, int NW>
 int launch_fwd(const BandArgs& a, void** q, int B, int W, int S, int smem,
                cudaStream_t st) {
-  auto kern = k3_fwd_kernel<LUT, RLE, C, NW>;
+  auto kern = k3_fwd_kernel<LUT, RLE, NW>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -780,10 +719,10 @@ int launch_fwd(const BandArgs& a, void** q, int B, int W, int S, int smem,
   return (int)cudaGetLastError();
 }
 
-template <bool LUT, bool RLE, int C, int NW>
+template <bool LUT, bool RLE, int NW>
 int launch_bwd(const BandArgs& a, void** q, float threshold, int cap, int B,
                int W, int S, int smem, cudaStream_t st) {
-  auto kern = k3_bwd_kernel<LUT, RLE, C, NW>;
+  auto kern = k3_bwd_kernel<LUT, RLE, NW>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -793,26 +732,23 @@ int launch_bwd(const BandArgs& a, void** q, float threshold, int cap, int B,
   return (int)cudaGetLastError();
 }
 
-// The block shapes, (cells per lane C, warps NW) with 32 * C * NW =
-// max(W, 32): one warp, or one lane per cell.
-#define K3_SHAPES(LAUNCH, ...)                                               \
-  if (W <= 32 && nw == 1) return LAUNCH<LUT, RLE, 1, 1>(__VA_ARGS__);       \
-  if (W == 64 && nw == 1) return LAUNCH<LUT, RLE, 2, 1>(__VA_ARGS__);       \
-  if (W == 64 && nw == 2) return LAUNCH<LUT, RLE, 1, 2>(__VA_ARGS__);       \
-  if (W == 128 && nw == 1) return LAUNCH<LUT, RLE, 4, 1>(__VA_ARGS__);      \
-  if (W == 128 && nw == 4) return LAUNCH<LUT, RLE, 1, 4>(__VA_ARGS__);      \
+// The block of a width: NW = max(W, 32) / 32 warps.
+#define K3_BLOCK(LAUNCH, ...)                                 \
+  if (W == 16 || W == 32) return LAUNCH<LUT, RLE, 1>(__VA_ARGS__); \
+  if (W == 64) return LAUNCH<LUT, RLE, 2>(__VA_ARGS__);            \
+  if (W == 128) return LAUNCH<LUT, RLE, 4>(__VA_ARGS__);           \
   return (int)cudaErrorInvalidValue;
 
 template <bool LUT, bool RLE>
-int forward_shape(const BandArgs& a, void** q, int B, int W, int S, int nw,
-                  int smem, cudaStream_t st) {
-  K3_SHAPES(launch_fwd, a, q, B, W, S, smem, st)
+int forward_block(const BandArgs& a, void** q, int B, int W, int S, int smem,
+                  cudaStream_t st) {
+  K3_BLOCK(launch_fwd, a, q, B, W, S, smem, st)
 }
 
 template <bool LUT, bool RLE>
-int backward_shape(const BandArgs& a, void** q, float threshold, int cap,
-                   int B, int W, int S, int nw, int smem, cudaStream_t st) {
-  K3_SHAPES(launch_bwd, a, q, threshold, cap, B, W, S, smem, st)
+int backward_block(const BandArgs& a, void** q, float threshold, int cap,
+                   int B, int W, int S, int smem, cudaStream_t st) {
+  K3_BLOCK(launch_bwd, a, q, threshold, cap, B, W, S, smem, st)
 }
 
 }  // namespace
@@ -823,10 +759,10 @@ extern "C" int k3_smem_bytes(int W, int S, int rle, int bwd) {
 }
 
 // ptrs: the 18 BandArgs pointers in field order (rep_* may be null), then
-// seg_off, ckpt, totals. nw: warps per block; smem: the block's
-// shared-memory bytes, at least k3_smem_bytes(W, S, rle, 0).
+// seg_off, ckpt, totals; smem: the block's shared-memory bytes, at least
+// k3_smem_bytes(W, S, rle, 0).
 extern "C" int k3_forward(void** ptrs, int B, int W, int S, int use_lut,
-                          int nw, int smem, void* stream) {
+                          int smem, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
   const bool rle = a.rep_x != nullptr;
@@ -835,17 +771,16 @@ extern "C" int k3_forward(void** ptrs, int B, int W, int S, int use_lut,
   void** q = ptrs + BAND_ARGS_N;
   cudaStream_t st = (cudaStream_t)stream;
   if (use_lut)
-    return rle ? forward_shape<true, true>(a, q, B, W, S, nw, smem, st)
-               : forward_shape<true, false>(a, q, B, W, S, nw, smem, st);
-  return rle ? forward_shape<false, true>(a, q, B, W, S, nw, smem, st)
-             : forward_shape<false, false>(a, q, B, W, S, nw, smem, st);
+    return rle ? forward_block<true, true>(a, q, B, W, S, smem, st)
+               : forward_block<true, false>(a, q, B, W, S, smem, st);
+  return rle ? forward_block<false, true>(a, q, B, W, S, smem, st)
+             : forward_block<false, false>(a, q, B, W, S, smem, st);
 }
 
 // ptrs: the 18 BandArgs pointers, then seg_off, ckpt, totals, count, lo,
 // hi; smem at least k3_smem_bytes(W, S, rle, 1).
 extern "C" int k3_backward(void** ptrs, int B, int W, int S, int use_lut,
-                           int nw, int smem, float threshold, int cap,
-                           void* stream) {
+                           int smem, float threshold, int cap, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
   const bool rle = a.rep_x != nullptr;
@@ -854,12 +789,12 @@ extern "C" int k3_backward(void** ptrs, int B, int W, int S, int use_lut,
   void** q = ptrs + BAND_ARGS_N;
   cudaStream_t st = (cudaStream_t)stream;
   if (use_lut)
-    return rle ? backward_shape<true, true>(a, q, threshold, cap, B, W, S, nw,
+    return rle ? backward_block<true, true>(a, q, threshold, cap, B, W, S,
                                             smem, st)
-               : backward_shape<true, false>(a, q, threshold, cap, B, W, S,
-                                             nw, smem, st);
-  return rle ? backward_shape<false, true>(a, q, threshold, cap, B, W, S, nw,
+               : backward_block<true, false>(a, q, threshold, cap, B, W, S,
+                                             smem, st);
+  return rle ? backward_block<false, true>(a, q, threshold, cap, B, W, S,
                                            smem, st)
-             : backward_shape<false, false>(a, q, threshold, cap, B, W, S, nw,
+             : backward_block<false, false>(a, q, threshold, cap, B, W, S,
                                             smem, st);
 }

@@ -69,10 +69,6 @@ K3_MAX_SMEM = 232_448
 SEG_STEP = 16
 _K3_WORDS = 1024   # extraction words staged per block (WORDS_PER_BLOCK)
 _K3_MAX_NW = 4     # warps of a block (MAX_NW)
-# Warps per K3 block by width: one warp with W / 32 cells per lane, or
-# W / 32 warps with one cell per lane (see PERF.md for the measurement
-# behind the choice).
-K3_WARPS = {16: 1, 32: 1, 64: 1, 128: 4}
 
 
 def _round_up(v: int, m: int) -> int:
@@ -290,10 +286,10 @@ def _k2():
 def _k3():
     lib = _ext.kernel_lib("banded_seg")
     lib.k3_forward.restype = ctypes.c_int
-    lib.k3_forward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+    lib.k3_forward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.k3_backward.restype = ctypes.c_int
-    lib.k3_backward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+    lib.k3_backward.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.k3_smem_bytes.restype = ctypes.c_int
     lib.k3_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -421,8 +417,7 @@ def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):
     totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _k3().k3_forward(_args(pack, seg_off, ckpt, totals), pack.B, pack.W,
-                          seg_d, int(bool(use_lut)), K3_WARPS[pack.W], smem,
-                          stream)
+                          seg_d, int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "segmented banded forward (K3-fwd)")
     SEG_FORWARD.launches += 1
     return ckpt, totals
@@ -455,8 +450,8 @@ def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
         hi = torch.empty(cap, dtype=torch.int32, device=dev)
         rc = _k3().k3_backward(
             _args(pack, seg_off, ckpt, totals, count, lo, hi),
-            pack.B, pack.W, seg_d, int(bool(use_lut)), K3_WARPS[pack.W],
-            smem, float(threshold), cap, stream)
+            pack.B, pack.W, seg_d, int(bool(use_lut)), smem,
+            float(threshold), cap, stream)
         _ext.check_launch(rc, "segmented banded backward (K3-bwd)")
         SEG_BACKWARD.launches += 1
         n = int(count.item())

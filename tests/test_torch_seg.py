@@ -11,6 +11,7 @@ the CUDA kernels are held against the same twins on the card
 (test_seg_kernels_match_plain, and chip_smoke.py).
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -260,18 +261,14 @@ def _w_pad_exp(items, exp):
                                 for it in items))
 
 
-_K2_WORDS = {}
-
-
+@functools.lru_cache(maxsize=None)
 def _k2_twin_words(w):
-    if w not in _K2_WORDS:
-        pack = _bucket_pack(w)
-        fwd, totals = cuda_banded.fb_forward_plain(pack, True)
-        post = cuda_banded.fb_backward_plain(pack, fwd, totals, True)
-        _K2_WORDS[w] = _words(banded.extract_packed(post, totals, pack,
-                                                    THRESHOLD).numpy(),
-                              pack.B)
-    return _K2_WORDS[w]
+    """The K2 twin's (totals, words) of _bucket_pack(w)."""
+    pack = _bucket_pack(w)
+    fwd, totals = cuda_banded.fb_forward_plain(pack, True)
+    post = cuda_banded.fb_backward_plain(pack, fwd, totals, True)
+    return _words(banded.extract_packed(post, totals, pack,
+                                        THRESHOLD).numpy(), pack.B)
 
 
 @pytest.mark.parametrize("depth", ["SEG_D", 32, "PR2"])
@@ -279,8 +276,8 @@ def _k2_twin_words(w):
 def test_seg_twin_depths_match_k2_twin(w, depth):
     """Results do not depend on the segment depth: at the launch's SEG_D[w]
     (several segments a problem at W = 64 and 128), at 32 and at PR 2's
-    depths (one segment), the
-    segmented twins give the K2 twin's totals and words, bit for bit."""
+    depths (one segment), the segmented twins give the K2 twin's totals
+    and words, bit for bit."""
     S = {"SEG_D": cuda_banded.SEG_D[w], "PR2": PR2_SEG_D[w]}.get(depth,
                                                                   depth)
     pack = _bucket_pack(w)
@@ -353,26 +350,17 @@ def test_route_by_depth_and_width():
 def test_seg_kernels_match_plain():
     """The kernels against their twins: the CASES packs at S = 64 (both
     logAdds, RLE on and off, a small first capacity so K3-bwd re-runs),
-    and a pack of every width bucket at its SEG_D (LUT, RLE on), with the
-    block shapes of K3_WARPS and the other one."""
+    and a pack of every width bucket at its SEG_D (LUT, RLE on)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    runs = [(_port_pack(ci, device="cuda"), lut, SEG, None)
+    runs = [(_port_pack(ci, device="cuda"), lut, SEG)
             for ci, (rle, lut) in enumerate(CASES)]
-    for w in (16, 32, 64, 128):
-        for nw in {1, max(w, 32) // 32}:
-            runs.append((_bucket_pack(w, "cuda"), True, cuda_banded.SEG_D[w],
-                         nw))
-    for pack, lut, S, nw in runs:
-        saved = dict(cuda_banded.K3_WARPS)
-        if nw is not None:
-            cuda_banded.K3_WARPS[pack.W] = nw
-        try:
-            ckpt, tk = cuda_banded.seg_forward(pack, lut, S)
-            lo, hi = cuda_banded.seg_backward(pack, ckpt, tk, lut, S,
-                                              THRESHOLD, cap=64)
-        finally:
-            cuda_banded.K3_WARPS.update(saved)
+    runs += [(_bucket_pack(w, "cuda"), True, cuda_banded.SEG_D[w])
+             for w in (16, 32, 64, 128)]
+    for pack, lut, S in runs:
+        ckpt, tk = cuda_banded.seg_forward(pack, lut, S)
+        lo, hi = cuda_banded.seg_backward(pack, ckpt, tk, lut, S, THRESHOLD,
+                                          cap=64)
         got = cuda_banded._fused(tk, lo, hi).cpu().numpy()
         cp, tp = cuda_banded.seg_forward_plain(pack, lut, S)
         want = cuda_banded._fused(tp, *cuda_banded.seg_backward_plain(
@@ -392,6 +380,14 @@ def test_seg_kernels_match_plain():
 def test_seg_kernels_refuse_a_segment_beyond_the_block():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the wrapper's layout is the kernel's
+    lib = cuda_banded._k3()
+    for w in (16, 32, 64, 128):
+        for rle in (0, 1):
+            for bwd, sweep in ((0, "fwd"), (1, "bwd")):
+                assert lib.k3_smem_bytes(w, cuda_banded.SEG_D[w], rle, bwd) \
+                    == cuda_banded.k3_smem(w, cuda_banded.SEG_D[w], rle,
+                                           sweep)
     pack = _bucket_pack(128, "cuda")
     too_deep = cuda_banded.SEG_D[128] + cuda_banded.SEG_STEP
     with pytest.raises(ValueError):
