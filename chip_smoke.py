@@ -26,8 +26,8 @@ Phases (any failure raises and the script exits non-zero):
      problems with lx, ly ~ 2000-5000 (identical words and totals) and
      against their twins on packs of lx, ly ~ 500-1200 (LUT: identical
      words and totals; exact: totals within 1e-4, identical pair sets), at
-     widths 32, 64 and 128, RLE on and off, both logAdds, each width at
-     its launch's segment depth SEG_D[w];
+     widths 16, 32, 64 and 128, RLE on and off, both logAdds, each width
+     at its launch's segment depth SEG_D[w];
      then time K3 alone on a deep pack (128 problems, lx, ly ~ 30k-70k,
      W = 32, SEG_D[32]);
   5. hold each kernel against its twin, and time both, on the largest
@@ -171,12 +171,13 @@ def k1_batch(device, B, lx_range, ly_range, seed, rle=False):
 def k2_items(n, w_bucket, expansion, seed, rle, lx_range=(2000, 5000)):
     """n problems with lx in lx_range: y an erroneous copy of x, anchored
     every few bases along the true alignment so every band falls in the
-    width bucket w_bucket (32, 64 or 128)."""
+    width bucket w_bucket (16 with expansion 4; 32, 64 or 128 with
+    expansion 20)."""
     import numpy as np
     from margin_tpu_torch.ops import banded
     rng = np.random.default_rng(seed)
-    spacing = {32: 8, 64: 24, 128: 64}[w_bucket]
-    lo = {32: 16, 64: 32, 128: 64}[w_bucket]
+    spacing = {16: 6, 32: 8, 64: 24, 128: 64}[w_bucket]
+    lo = {16: 0, 32: 16, 64: 32, 128: 64}[w_bucket]
     items = []
     while len(items) < n:
         lx = int(rng.integers(lx_range[0], lx_range[1] + 1))
@@ -509,14 +510,15 @@ def phase_k3(device, n=64):
     from margin_tpu_torch.ops import cuda_banded
     rows = []
     configs = [(32, False, True), (32, True, False), (64, True, True),
-               (128, True, True), (128, False, False)]
+               (128, True, True), (128, False, False), (16, True, True)]
     for ci, (w, rle, lut) in enumerate(configs):
         tabs = tables(device, rle)
         seg_d = cuda_banded.SEG_D[w]
+        exp = 4 if w == 16 else 20
         for lx_range, twin in (((2000, 5000), False), ((500, 1200), True)):
-            items = k2_items(n, w, 20, seed=300 + 10 * ci + twin, rle=rle,
+            items = k2_items(n, w, exp, seed=300 + 10 * ci + twin, rle=rle,
                              lx_range=lx_range)
-            pack = k2_pack(device, tabs, items, w, 20, rle)
+            pack = k2_pack(device, tabs, items, w, exp, rle)
             label = (f"{n} x lx,ly {lx_range[0]}-{lx_range[1]}, W={w}, RLE "
                      f"{'on' if rle else 'off'}, S={seg_d}")
             rows += k3_against(pack, lut, seg_d, label, twin=twin)
