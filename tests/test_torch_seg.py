@@ -217,8 +217,9 @@ def test_seg_twin_matches_k2_twin(ci):
     assert w2 == w3 and len(w3) > 0
 
 
-# PR 2's segment depths, sized for a device-memory recompute scratch
-PR2_SEG_D = {16: 2048, 32: 2048, 64: 1024, 128: 512}
+# the JAX package's segment depths (`_seg_d`, pallas_banded.py:863-870),
+# sized for a device-memory recompute scratch
+JAX_SEG_D = {16: 2048, 32: 2048, 64: 1024, 128: 512}
 # anchor expansion that puts the _items problems in each width bucket
 BUCKET_EXPANSION = {16: 0, 32: 10, 64: 50, 128: 110}
 
@@ -271,14 +272,14 @@ def _k2_twin_words(w):
                                         THRESHOLD).numpy(), pack.B)
 
 
-@pytest.mark.parametrize("depth", ["SEG_D", 32, "PR2"])
+@pytest.mark.parametrize("depth", ["SEG_D", 32, "JAX"])
 @pytest.mark.parametrize("w", [16, 32, 64, 128])
 def test_seg_twin_depths_match_k2_twin(w, depth):
     """Results do not depend on the segment depth: at the launch's SEG_D[w]
-    (several segments a problem at W = 64 and 128), at 32 and at PR 2's
-    depths (one segment), the segmented twins give the K2 twin's totals
-    and words, bit for bit."""
-    S = {"SEG_D": cuda_banded.SEG_D[w], "PR2": PR2_SEG_D[w]}.get(depth,
+    (several segments a problem at W = 64 and 128), at 32 and at the JAX
+    package's depths (one segment), the segmented twins give the K2
+    twin's totals and words, bit for bit."""
+    S = {"SEG_D": cuda_banded.SEG_D[w], "JAX": JAX_SEG_D[w]}.get(depth,
                                                                   depth)
     pack = _bucket_pack(w)
     got = _words(cuda_banded.fb_posteriors_seg_plain(pack, True, THRESHOLD,
