@@ -10,9 +10,11 @@ Phases (any failure raises and the script exits non-zero):
   2. hold every kernel against its plain PyTorch twin on the card: K1 on
      131072 pairs of 29x32 and on a ragged batch with lx, ly in 1..1024
      (RLE on and off); K2 on packs of 128 problems with lx, ly ~ 500-1200
-     at band widths 32 and 128, RLE on and off, and timed on packs of
-     lx, ly ~ 2000-5000. LUT logAdd: identical bits; exact logAdd:
-     max |diff| <= 1e-4;
+     at band widths 16, 32, 64 and 128 (one block shape per width), each
+     with RLE on and off, LUT everywhere and the exact logAdd at two of
+     them, each width at its launch's chunk depth K2_CHUNK, and timed on
+     packs of lx, ly ~ 2000-5000. LUT logAdd: identical bits; exact
+     logAdd: max |diff| <= 1e-4;
   3. run `python -m margin_tpu_torch phase` (its `cli.main`, LUT logAdd)
      on a seeded synthetic 1 Mb contig at 30x (5-30 kb reads, ~8% errors,
      ~1000 het SNVs, 30 het SVs of 50-2000 bp); the launch counters are
@@ -31,7 +33,8 @@ Phases (any failure raises and the script exits non-zero):
      then time K3 alone on a deep pack (128 problems, lx, ly ~ 30k-70k,
      W = 32, SEG_D[32]);
   5. hold each kernel against its twin, and time both, on the largest
-     batch / pack the phase run gave it (for K2: W=128, RLE off, LUT);
+     batch / pack the phase run gave it (for K2: W=128, RLE off, LUT,
+     with its deepest diagonal count and ns per diagonal);
   6. run `python -m margin_tpu_torch polish` (cli.main, LUT logAdd) on a
      seeded synthetic 205 kb draft at 30x (5-30 kb reads, ~8% errors,
      100 kb chunks with 1 kb boundaries: three chunks, two stitch seams;
@@ -48,9 +51,11 @@ Phases (any failure raises and the script exits non-zero):
      totals), and against its twin on that pack's 16 shallowest problems
      (the twin walks one diagonal at a time, so its time follows the
      deepest problem it is given); K2-fwd / K2-bwd are timed on the
-     same pack beside it.
-Every K3 timing also prints the pack's deepest diagonal count and the
-nanoseconds per diagonal.
+     same pack beside it, and K2 / K3 per sweep is printed (a ratio
+     that compares across cards where a time does not).
+Every K2 and K3 timing also prints the pack's deepest diagonal count and
+the nanoseconds per diagonal; the device time each kernel summed over
+the phase and polish runs' launches is printed after phase 7.
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -446,59 +451,71 @@ def phase_k1(device):
 
 def phase_k2(device, n=128):
     """K2 timed on packs of lx, ly 2000-5000 and held against its twins on
-    packs of lx, ly 500-1200 (the twins walk ~1 ms per diagonal)."""
+    packs of lx, ly 500-1200 (the twins walk ~1 ms per diagonal), at every
+    width and RLE state, each width at its launch's chunk depth."""
     from margin_tpu_torch.ops import cuda_banded
     rows = []
-    # every width, RLE state and logAdd flavour appears
-    configs = [(32, False, True), (32, True, False), (128, True, True),
-               (128, False, False)]
-    for ci, (w, rle, lut) in enumerate(configs):
+    # (width, RLE, logAdds): LUT everywhere, the exact logAdd at two
+    configs = [(16, True, (True,)), (16, False, (True,)),
+               (32, False, (True,)), (32, True, (True, False)),
+               (64, True, (True,)), (64, False, (True,)),
+               (128, True, (True,)), (128, False, (True, False))]
+    for ci, (w, rle, luts) in enumerate(configs):
         tabs = tables(device, rle)
+        exp = 4 if w == 16 else 20
         for lx_range, twin in (((2000, 5000), False), ((500, 1200), True)):
-            items = k2_items(n, w, 20, seed=200 + 10 * ci + twin, rle=rle,
+            items = k2_items(n, w, exp, seed=200 + 10 * ci + twin, rle=rle,
                              lx_range=lx_range)
-            pack = k2_pack(device, tabs, items, w, 20, rle)
+            pack = k2_pack(device, tabs, items, w, exp, rle)
             label = (f"{n} x lx,ly {lx_range[0]}-{lx_range[1]}, W={w}, RLE "
-                     f"{'on' if rle else 'off'}")
-            fk, tk = cuda_banded.fb_forward(pack, lut)
-            pk = cuda_banded.fb_backward(pack, fk, tk, lut)
-            if not bool(tk.isfinite().all()):
-                raise AssertionError(f"K2 {label}: non-finite totals")
-            diffs = {"fwd": None, "bwd": None}
-            plain = {"fwd": None, "bwd": None}
-            if twin:
-                t0 = time.perf_counter()
-                fp, tp = cuda_banded.fb_forward_plain(pack, lut)
-                torch_sync()
-                plain["fwd"] = (time.perf_counter() - t0) * 1e3
-                t0 = time.perf_counter()
-                pp = cuda_banded.fb_backward_plain(pack, fp, tp, lut)
-                torch_sync()
-                plain["bwd"] = (time.perf_counter() - t0) * 1e3
-                diffs["fwd"] = max(
-                    compare(f"K2 totals {label}", tk, tp, lut),
-                    compare(f"K2-fwd grid {label}", fk, fp, lut))
-                diffs["bwd"] = compare(f"K2-bwd posteriors {label}", pk, pp,
-                                       lut)
-                del fp, pp
-            f_ms = cuda_ms(lambda: cuda_banded.fb_forward(pack, lut), reps=5)
-            b_ms = cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk,
-                                                           lut), reps=5)
-            for name, ms, sweep in (("K2-fwd", f_ms, "fwd"),
-                                    ("K2-bwd", b_ms, "bwd")):
-                bms, by = bound_ms(*k2_work(pack, lut, sweep))
-                rows.append({"kernel": name, "shape": label, "lut": lut,
-                             "rows": pack.n_rows,
-                             "max_abs_err": diffs[sweep], "ms": ms,
-                             "plain_ms": plain[sweep], "bound_ms": bms,
-                             "bound_by": by})
-                pms = "" if plain[sweep] is None else \
-                    f", plain {plain[sweep]:.0f} ms"
-                log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel "
-                    f"{ms:.2f} ms{pms}, bound {bms:.4f} ms ({by})"
-                    + ("" if diffs[sweep] is None
-                       else f", max|diff| {diffs[sweep]}"))
-            del fk, pk
+                     f"{'on' if rle else 'off'}, C="
+                     f"{cuda_banded.K2_CHUNK[(w, rle)]}")
+            d_max = deepest(pack)
+            for lut in luts:
+                fk, tk = cuda_banded.fb_forward(pack, lut)
+                pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+                if not bool(tk.isfinite().all()):
+                    raise AssertionError(f"K2 {label}: non-finite totals")
+                diffs = {"fwd": None, "bwd": None}
+                plain = {"fwd": None, "bwd": None}
+                if twin:
+                    t0 = time.perf_counter()
+                    fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+                    torch_sync()
+                    plain["fwd"] = (time.perf_counter() - t0) * 1e3
+                    t0 = time.perf_counter()
+                    pp = cuda_banded.fb_backward_plain(pack, fp, tp, lut)
+                    torch_sync()
+                    plain["bwd"] = (time.perf_counter() - t0) * 1e3
+                    diffs["fwd"] = max(
+                        compare(f"K2 totals {label}", tk, tp, lut),
+                        compare(f"K2-fwd grid {label}", fk, fp, lut))
+                    diffs["bwd"] = compare(f"K2-bwd posteriors {label}", pk,
+                                           pp, lut)
+                    del fp, pp
+                f_ms = cuda_ms(lambda: cuda_banded.fb_forward(pack, lut),
+                               reps=5)
+                b_ms = cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk,
+                                                               lut), reps=5)
+                for name, ms, sweep in (("K2-fwd", f_ms, "fwd"),
+                                        ("K2-bwd", b_ms, "bwd")):
+                    bms, by = bound_ms(*k2_work(pack, lut, sweep))
+                    rows.append({"kernel": name, "shape": label, "lut": lut,
+                                 "rows": pack.n_rows,
+                                 "deepest_diagonals": d_max,
+                                 "ns_per_diagonal": ms * 1e6 / d_max,
+                                 "max_abs_err": diffs[sweep], "ms": ms,
+                                 "plain_ms": plain[sweep], "bound_ms": bms,
+                                 "bound_by": by})
+                    pms = "" if plain[sweep] is None else \
+                        f", plain {plain[sweep]:.0f} ms"
+                    log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel "
+                        f"{ms:.2f} ms{pms}, bound {bms:.4f} ms ({by}); "
+                        f"deepest {d_max} diagonals, "
+                        f"{ms * 1e6 / d_max:.1f} ns per diagonal"
+                        + ("" if diffs[sweep] is None
+                           else f", max|diff| {diffs[sweep]}"))
+                del fk, pk
     return rows
 
 
@@ -830,19 +847,26 @@ def phase_main_path_shapes(rec):
               compare("K2-fwd main-path grid", fk, fp, lut))
     d_b = compare("K2-bwd main-path posteriors", pk, pp, lut)
     shape = f"B={pack.B} rows={pack.n_rows} W={pack.W}"
+    d_max = deepest(pack)
     for name, sweep, pms, diff, fn in (
             ("K2-fwd", "fwd", pf, d_f,
              lambda: cuda_banded.fb_forward(pack, lut)),
             ("K2-bwd", "bwd", pb, d_b,
              lambda: cuda_banded.fb_backward(pack, fk, tk, lut))):
         bms, by = bound_ms(*k2_work(pack, lut, sweep))
-        out[name] = {"shape": shape, "max_abs_err": diff, "ms": cuda_ms(fn),
-                     "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        ms = cuda_ms(fn)
+        out[name] = {"shape": shape, "max_abs_err": diff, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                     "deepest_diagonals": d_max,
+                     "ns_per_diagonal": ms * 1e6 / d_max}
     for k, v in out.items():
+        per_diag = ("" if "ns_per_diagonal" not in v else
+                    f"; deepest {v['deepest_diagonals']} diagonals, "
+                    f"{v['ns_per_diagonal']:.1f} ns per diagonal")
         log(f"{k} on the main path's largest input ({v['shape']}): kernel "
             f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), max|diff| "
-            f"{v['max_abs_err']}")
+            f"{v['max_abs_err']}{per_diag}")
     # the flat extraction (torch ops) on the same pack's posteriors, at the
     # threshold the run gave it; bound: the grid read once, the count,
     # totals and words written once
@@ -1051,10 +1075,13 @@ def phase_k3_main_path(rec, max_b=16):
     del fk
     for name, k2name, ms in (("K3-fwd", "K2-fwd", k2f),
                              ("K3-bwd", "K2-bwd", k2b)):
-        rows[name]["k2_same_pack_ms"] = ms
+        ratio = ms / rows[name]["ms"]
+        rows[name].update({"k2_same_pack_ms": ms,
+                           "k2_ns_per_diagonal": ms * 1e6 / d_max,
+                           "k2_over_k3": ratio})
         log(f"{k2name} on the same pack ({label}): {ms:.2f} ms, "
             f"{ms * 1e6 / d_max:.1f} ns per diagonal (K3: "
-            f"{rows[name]['ms']:.2f} ms)")
+            f"{rows[name]['ms']:.2f} ms); {k2name} / {name} {ratio:.3f}")
     del full
     order = sorted(range(len(items)),
                    key=lambda i: len(items[i]["x_sym"])
@@ -1124,6 +1151,12 @@ def main() -> int:
         report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
         report["polish_region"] = phase_polish_region(ds, work)
         report["main_path_shapes"].update(phase_k3_main_path(prec))
+        summed = {k: report["phase"]["kernel_ms"][k]
+                  + report["polish"]["kernel_ms"][k]
+                  for k in report["polish"]["kernel_ms"]}
+        report["main_path_device_ms"] = summed
+        log("device ms summed over the phase and polish runs' launches: "
+            f"{ {k: round(v, 1) for k, v in summed.items()} }")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["total_s"] = time.perf_counter() - t_start

@@ -4,9 +4,7 @@
 // for bit. A cell has two parts: its input part (band membership, the
 // shifts to its sources, its symbols and three emissions), which does not
 // depend on the DP values, and its recurrence on the neighbours' values.
-// K2 computes both from device memory and a ring of diagonals in shared
-// memory (forward_cell / backward_cell); K3 stages the inputs in shared
-// memory and keeps the diagonals in registers.
+// banded_step.cuh builds the diagonal step of both kernels from them.
 //
 // Layout of a pack (ops/cuda_banded.py:BandPack): problem b's diagonal d
 // is row geo_off[b] + d of the flat per-diagonal arrays (xmy, width, klo);
@@ -73,54 +71,11 @@ inline BandArgs band_args(void* const* p) {
 }
 constexpr int BAND_ARGS_N = 18;
 
-// One problem's view, set up by every thread of its block.
-struct Problem {
-  int b, lx, ly, D;
-  const int* xmy;
-  const int* width;
-  const int* klo;
-};
-
-__device__ __forceinline__ Problem problem(const BandArgs& a, int b) {
-  Problem p;
-  p.b = b;
-  p.lx = a.lxs[b];
-  p.ly = a.lys[b];
-  p.D = p.lx + p.ly;
-  const int64_t g0 = a.geo_off[b];
-  p.xmy = a.xmy + g0;
-  p.width = a.width + g0;
-  p.klo = a.klo + g0;
-  return p;
-}
-
-// the problem's 35 emission and 9 transition entries into shared memory
-__device__ __forceinline__ void load_tables(const BandArgs& a, int b,
-                                            float* tabs, float* tr) {
-  for (int i = threadIdx.x; i < 35; i += blockDim.x)
-    tabs[i] = a.tabs[b * 35 + i];
-  for (int i = threadIdx.x; i < 9; i += blockDim.x)
-    tr[i] = a.trans[b * 9 + i];
-}
-
+// the symbols and run lengths a cell consumes; out-of-range positions
+// read symbol 4 with run length 0, as the Pallas windows' fill does
 struct Cell {
   int sx, sy, rx, ry;
 };
-
-// symbols (and run lengths) consumed by a cell; out-of-range positions
-// read symbol 4 with run length 0, as the Pallas windows' fill does
-template <bool RLE>
-__device__ __forceinline__ Cell cell_symbols(const BandArgs& a, int b, int ix,
-                                             int iy, int lx, int ly) {
-  Cell c;
-  const bool inx = ix >= 0 && ix < lx;
-  const bool iny = iy >= 0 && iy < ly;
-  c.sx = inx ? a.xs[a.x_off[b] + ix] : 4;
-  c.sy = iny ? a.ys[a.y_off[b] + iy] : 4;
-  c.rx = (RLE && inx) ? a.rep_x[a.x_off[b] + ix] : 0;
-  c.ry = (RLE && iny) ? a.rep_y[a.y_off[b] + iy] : 0;
-  return c;
-}
 
 // ---------------------------------------------------------------------------
 // The input part of a cell: where it lies and what it emits. None of it
@@ -236,91 +191,6 @@ __device__ __forceinline__ void backward_recurrence(const float* tr,
   out[2] = fmaxf(bgy, LOG_ZERO_F);
 }
 
-// ---------------------------------------------------------------------------
-// K2's cells: the two parts over the pack's device arrays and the
-// shared-memory ring
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float ring_at(const float* diag, int W, int state,
-                                         int k) {
-  return (k >= 0 && k < W) ? diag[state * W + k] : LOG_ZERO_F;
-}
-
-// whether cell k of diagonal g lies in the band and the DP rectangle
-__device__ __forceinline__ bool in_band(const Problem& p, int g, int k) {
-  return band_cell(g, p.xmy[g], p.klo[g], p.width[g], k, p.lx, p.ly);
-}
-
-// The start diagonal 0 carries the start weights at k = 0
-// (stateMachine.c:521-530).
-__device__ __forceinline__ float init_cell(const BandArgs& a, int b, int s,
-                                           int k) {
-  return (k == 0) ? a.init[b * 3 + s] : LOG_ZERO_F;
-}
-
-__device__ __forceinline__ const float* rep_of(const BandArgs& a, int b) {
-  return a.rep_tab + (size_t)b * 4 * REP_N * REP_N;
-}
-
-// Forward cell k of diagonal g >= 1 from the ring's previous two diagonals
-// p1 (g-1) and p2 (g-2): out = (match, gapX, gapY).
-template <bool LUT, bool RLE>
-__device__ __forceinline__ void forward_cell(const BandArgs& a,
-                                             const Problem& p,
-                                             const float* tabs,
-                                             const float* tr, int g, int k,
-                                             int W, const float* p1,
-                                             const float* p2, float* out) {
-  out[0] = out[1] = out[2] = LOG_ZERO_F;
-  if (in_band(p, g, k)) {
-    const int xm = p.xmy[g];
-    const int s1 = fwd_s1(xm, p.xmy[g - 1]);
-    const int s2 = fwd_s2(g, xm, g >= 2 ? p.xmy[g - 2] : 0);
-    const Cell c = cell_symbols<RLE>(a, p.b, x_base_of(g, xm) + k,
-                                     y_base_of(g, xm) - k, p.lx, p.ly);
-    const Emis e = emissions<RLE>(tabs, RLE ? rep_of(a, p.b) : nullptr, c);
-    const int kl = k + s1, ku = k + s1 + 1, km = k + s2;
-    const float l[3] = {ring_at(p1, W, 0, kl), ring_at(p1, W, 1, kl),
-                        ring_at(p1, W, 2, kl)};
-    const float d[3] = {ring_at(p2, W, 0, km), ring_at(p2, W, 1, km),
-                        ring_at(p2, W, 2, km)};
-    const float u[3] = {ring_at(p1, W, 0, ku), ring_at(p1, W, 1, ku),
-                        ring_at(p1, W, 2, ku)};
-    forward_recurrence<LUT>(tr, e, l, d, u, out);
-  }
-}
-
-// Backward cell k of diagonal g <= D from the ring's next two diagonals
-// n1 (g+1) and n2 (g+2); the final diagonal carries the end weights at
-// k_final (pairwiseAligner.c:882-892).
-template <bool LUT, bool RLE>
-__device__ __forceinline__ void backward_cell(const BandArgs& a,
-                                              const Problem& p,
-                                              const float* tabs,
-                                              const float* tr, int g, int k,
-                                              int W, const float* n1,
-                                              const float* n2, float* out) {
-  out[0] = out[1] = out[2] = LOG_ZERO_F;
-  if (g == p.D) {
-    if (k == a.k_final[p.b]) {
-      out[0] = a.end_w[p.b * 3 + 0];
-      out[1] = a.end_w[p.b * 3 + 1];
-      out[2] = a.end_w[p.b * 3 + 2];
-    }
-  } else if (in_band(p, g, k)) {
-    const int xm = p.xmy[g];
-    const int t1 = bwd_t1(xm, p.xmy[g + 1]);
-    const bool has2 = g + 2 <= p.D;
-    const int t2 = bwd_t2(has2, xm, has2 ? p.xmy[g + 2] : 0);
-    const Cell c = cell_symbols<RLE>(a, p.b, x_base_of(g, xm) + k + 1,
-                                     y_base_of(g, xm) + 1 - k, p.lx, p.ly);
-    const Emis e = emissions<RLE>(tabs, RLE ? rep_of(a, p.b) : nullptr, c);
-    backward_recurrence<LUT>(tr, e, ring_at(n1, W, 1, k + t1),
-                             ring_at(n2, W, 0, k + t2),
-                             ring_at(n1, W, 2, k + t1 - 1), out);
-  }
-}
-
 // posterior exp(min(f + b - total, 0)) of a band cell, 0 outside the band
 __device__ __forceinline__ float posterior(bool vm, float f, float bw,
                                            float total) {
@@ -333,14 +203,6 @@ template <bool LUT>
 __device__ __forceinline__ float corner_value(const float* e, float m,
                                               float gx, float gy) {
   return log_add<LUT>(log_add<LUT>(m + e[0], gx + e[1]), gy + e[2]);
-}
-
-template <bool LUT>
-__device__ __forceinline__ float corner_total(const BandArgs& a, int b,
-                                              const float* diag, int W,
-                                              int k) {
-  return corner_value<LUT>(a.end_w + b * 3, diag[k], diag[W + k],
-                           diag[2 * W + k]);
 }
 
 }  // namespace margin

@@ -1,154 +1,254 @@
 // Kernels K2-fwd and K2-bwd: banded 3-state pair-HMM forward, then
-// backward + posterior, over a pack of problems.
+// backward + posterior, over a pack of problems, with the full grids in
+// device memory.
 //
 // Replaces: margin_tpu/ops/pallas_banded.py:_fwd_kernel (:174) and
 // _bwd_kernel (:253), launched by _fb_pallas (:390, :426), plus the total
 // at (lx+ly, k_final) with the end weights (:401-411).
 //
-// What bounds them on this card: operations and latency, not bytes. Each
-// band cell costs three 3-way logAdds (forward) and three more plus one
-// exp (backward); the bytes are the two (D, 3, W) float grids, written
-// once by the forward and read back once by the backward. Along one
-// problem the recurrence is serial over anti-diagonals, so a problem's
-// parallelism is its band width W <= 128.
+// What bounds them on this card: the latency of each problem's serial
+// walk over its anti-diagonals. The work is ~100 float operations a band
+// cell; the bytes are the inputs and the (D, 3, W) float grids, the
+// forward's written once, read back once by the backward, and the
+// posterior's written once: a few GB/s for a pack. A problem's diagonals
+// depend on each other and a pack gives the 132 SMs one block each, so the
+// kernel time is the deepest problem's diagonal count times the time of
+// one diagonal step, and the step is all there is to cut.
 //
 // Design: the TPU put the problems on the 128 lanes and walked diagonals
-// on a sequential grid. Here each problem gets its own thread block, with
-// W threads over the band storage offset k, and a loop inside the block
-// over that problem's own diagonals 0..lx+ly (a pack needs no padding to a
-// common depth). The band storage base xmy moves by exactly +-1 per
-// diagonal (the smoothed track of BandGeometry.build(smooth=True)), so
-// each dependency is a neighbour k-1, k or k+1 on one of the two previous
-// diagonals, read from a three-deep ring in shared memory with one
-// __syncthreads() per diagonal. The meta rows S1, S2, T1, T2, the x/y
-// bases and the validity interval [k_lo, width) are derived in the kernel
-// from the per-diagonal xmy track with the formulas of _derive_geom
-// (:556-575). Emissions are read from the problem's symbols and its
-// 35-entry table as _kernel_emissions (:142-167) builds them, with the RLE
-// addend repeat[slot(base), rep_x, rep_y] of the cell. The forward stores
-// every diagonal's (3, W) cells to a problem-major grid (row
-// geo_off[b] + d); the backward reads it and writes the posterior
-// exp(min(f + b - total, 0)) to a grid of the same layout. The per-cell
-// arithmetic lives in banded_cell.cuh, shared with the segmented kernels
-// K3 (banded_seg.cu); built with --fmad=false.
-#include "banded_cell.cuh"
+// on a sequential grid. Here each problem gets a block and walks its own
+// diagonals 0..lx+ly (a pack needs no padding to a common depth) with the
+// segmented kernels' step (banded_step.cuh), less their segment
+// recompute:
+//   * One block of NW = max(W, 32) / 32 warps; lane k holds band cell k,
+//     a diagonal's cells stay in registers, the neighbours k-1 and k+1
+//     come from warp shuffles and, at a warp's edge, from a two-slot
+//     exchange behind a named barrier: no block-wide barrier per
+//     diagonal, none at all at W <= 32.
+//   * The problem is walked in chunks of C diagonals. cp.async stages the
+//     next chunk's geometry (xmy, width, klo), the symbol and run-length
+//     windows its cells consume (at most C + W entries of each sequence,
+//     bounded from one diagonal's base) and, K2-bwd, its rows of the
+//     forward grid (C x 3 x W floats, contiguous in the problem-major
+//     grid) into the second of two shared-memory buffers while the block
+//     walks the current one; the emissions and the (4, 51, 51) repeat
+//     table are copied once. A step reads only registers and shared
+//     memory, and computes its next diagonal's input part before the
+//     current recurrence; one __syncthreads() a chunk makes the copies
+//     visible. C is a property of the launch: the largest chunk whose
+//     K2-bwd block fits the 227 KB a block may use
+//     (ops/cuda_banded.py:k2_smem mirrors the layout).
+//   * Each diagonal's (3, W) cells go to the grid as coalesced stores
+//     that nothing waits for: the forward's values, the backward's
+//     posteriors exp(min(f + b - total, 0)) (0 outside the band).
+// The per-cell arithmetic is banded_cell.cuh's, shared with K3, so every
+// cell equals K3's and the plain twins' bit for bit; built with
+// --fmad=false.
+#include "banded_step.cuh"
 
 using namespace margin;
 
-template <bool LUT, bool RLE>
-__global__ void k2_fwd_kernel(BandArgs a, float* fwd, float* totals, int W) {
-  extern __shared__ float ring[];  // 3 diagonals x 3 states x W
-  __shared__ float tabs[35], tr[9];
-  const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  load_tables(a, b, tabs, tr);
-  const Problem p = problem(a, b);
-  float* out = fwd + a.geo_off[b] * 3 * W;
-  for (int s = 0; s < 3; ++s) {
-    const float v = init_cell(a, b, s, k);
-    ring[s * W + k] = v;
-    ring[2 * 3 * W + s * W + k] = LOG_ZERO_F;  // diagonal -1
-    out[s * W + k] = v;
-  }
-  __syncthreads();
-  for (int g = 1; g <= p.D; ++g) {
-    float* cur = ring + (g % 3) * 3 * W;
-    float c[3];
-    forward_cell<LUT, RLE>(a, p, tabs, tr, g, k, W,
-                           ring + ((g + 2) % 3) * 3 * W,
-                           ring + ((g + 1) % 3) * 3 * W, c);
-    float* row = out + (size_t)g * 3 * W;
-    for (int s = 0; s < 3; ++s) {
-      cur[s * W + k] = c[s];
-      row[s * W + k] = c[s];
-    }
-    __syncthreads();
-  }
-  if (k == a.k_final[b])
-    totals[b] = corner_total<LUT>(a, b, ring + (p.D % 3) * 3 * W, W, k);
+namespace {
+
+// Shared-memory layout of a K2 block, in bytes; ops/cuda_banded.py:k2_smem
+// mirrors it. A staging buffer carries, K2-bwd, the chunk's forward rows.
+__host__ __device__ inline Layout k2_layout(int W, int C, bool rle,
+                                            bool bwd) {
+  return layout(W, C, rle, bwd ? C * 3 * W * 4 : 0, 0);
 }
 
-template <bool LUT, bool RLE>
-__global__ void k2_bwd_kernel(BandArgs a, const float* fwd_all,
-                              const float* totals, float* post_all, int W) {
-  extern __shared__ float ring[];
-  __shared__ float tabs[35], tr[9];
+template <bool LUT, bool RLE, int NW>
+__global__ void __launch_bounds__(32 * NW)
+    k2_fwd_kernel(BandArgs a, float* fwd_all, float* totals, int W, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = k2_layout(W, C, RLE, false);
   const int b = blockIdx.x;
   const int k = threadIdx.x;
-  load_tables(a, b, tabs, tr);
-  const Problem p = problem(a, b);
+  const Ctx c = context(a, b, W);
+  const Smem sm = smem_of(smem, L);
+  float tr[9];
+  load_block_tables<RLE>(a, b, (float*)(smem + L.tabs), (float*)(smem + L.rep),
+                         tr);
+  float* out = fwd_all + a.geo_off[b] * 3 * W;
+  const int n_chunk = c.D / C + 1;
+  unsigned char* const buf0 = smem + L.stage0;  // staging buffers i & 1
+  Win cur = stage_fwd<RLE>(a, c, L, buf0, 0, min(C, c.D + 1), c.xmy[0]);
+  int step = 0;
+  Diag p1, p2;
+  set_zero(p2);
+  for (int ch = 0; ch < n_chunk; ++ch) {
+    cp_wait_all();
+    __syncthreads();
+    const Stage st = stage_at(buf0 + (ch & 1) * L.stage, L);
+    const int d0 = ch * C, d1 = min(d0 + C, c.D + 1);
+    Win nxt = cur;
+    if (ch + 1 < n_chunk)  // the next chunk's inputs, while this one runs
+      nxt = stage_fwd<RLE>(a, c, L, buf0 + ((ch + 1) & 1) * L.stage, d1,
+                           min(d1 + C, c.D + 1), st.xm[d1 - cur.gl]);
+    int g = d0;
+    if (ch == 0) {  // diagonal 0: the start weights at k = 0
+      init_diag(a, b, k, p1);
+      link<NW>(p1, sm.xch, step);
+      store_row(out, W, k, p1);
+      g = 1;
+    }
+    if (g < d1) {
+      Inputs nx = fwd_inputs<RLE>(sm, st, cur, c, g, k);
+      for (; g < d1; ++g) {
+        const Inputs in = nx;
+        nx = fwd_inputs<RLE>(sm, st, cur, c, min(g + 1, d1 - 1), k);
+        Diag nd;
+        fwd_step<LUT, NW>(sm, tr, in, p1, p2, nd, step);
+        store_row(out + (size_t)g * 3 * W, W, k, nd);
+        p2 = p1;
+        p1 = nd;
+      }
+    }
+    cur = nxt;
+  }
+  // the total at the final corner, from diagonal D
+  if (k == c.kf)
+    totals[b] = corner_value<LUT>(a.end_w + b * 3, p1.v[0], p1.v[1], p1.v[2]);
+}
+
+template <bool LUT, bool RLE, int NW>
+__global__ void __launch_bounds__(32 * NW)
+    k2_bwd_kernel(BandArgs a, const float* fwd_all, const float* totals,
+                  float* post_all, int W, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = k2_layout(W, C, RLE, true);
+  const int b = blockIdx.x;
+  const int k = threadIdx.x;
+  const Ctx c = context(a, b, W);
+  const Smem sm = smem_of(smem, L);
+  float tr[9];
+  load_block_tables<RLE>(a, b, (float*)(smem + L.tabs), (float*)(smem + L.rep),
+                         tr);
+  float end_w[3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) end_w[s] = a.end_w[b * 3 + s];
+  const float total = totals[b];
   const float* fwd = fwd_all + a.geo_off[b] * 3 * W;
   float* post = post_all + a.geo_off[b] * 3 * W;
-  const float total = totals[b];
-  // diagonals D+1 and D+2 are empty
-  for (int s = 0; s < 3; ++s) {
-    ring[((p.D + 1) % 3) * 3 * W + s * W + k] = LOG_ZERO_F;
-    ring[((p.D + 2) % 3) * 3 * W + s * W + k] = LOG_ZERO_F;
-  }
-  __syncthreads();
-  for (int g = p.D; g >= 0; --g) {
-    float* cur = ring + (g % 3) * 3 * W;
-    float c[3];
-    backward_cell<LUT, RLE>(a, p, tabs, tr, g, k, W,
-                            ring + ((g + 1) % 3) * 3 * W,
-                            ring + ((g + 2) % 3) * 3 * W, c);
-    const bool vm = in_band(p, g, k);
-    const float* f = fwd + (size_t)g * 3 * W;
-    float* q = post + (size_t)g * 3 * W;
-    for (int s = 0; s < 3; ++s) {
-      cur[s * W + k] = c[s];
-      q[s * W + k] = posterior(vm, f[s * W + k], c[s], total);
-    }
+  const int n_chunk = c.D / C + 1;
+  unsigned char* const buf0 = smem + L.stage0;  // staging buffers i & 1
+  const int last0 = (n_chunk - 1) * C;
+  Win cur = stage_bwd<RLE>(a, c, L, buf0, last0, c.D + 1, c.xmy[c.D],
+                           fwd + (size_t)last0 * 3 * W,
+                           (c.D + 1 - last0) * 3 * W);
+  int step = 0;
+  Diag n1, n2;  // diagonals D+1 and D+2 are empty
+  set_zero(n1);
+  set_zero(n2);
+  for (int ch = n_chunk - 1; ch >= 0; --ch) {
+    cp_wait_all();
     __syncthreads();
+    const Stage st = stage_at(buf0 + ((n_chunk - 1 - ch) & 1) * L.stage, L);
+    const int d0 = ch * C, d1 = min(d0 + C, c.D + 1);
+    Win nxt = cur;
+    if (ch > 0)  // the previous chunk's inputs, while this one runs
+      nxt = stage_bwd<RLE>(a, c, L, buf0 + ((n_chunk - ch) & 1) * L.stage,
+                           d0 - C, d0, st.xm[d0 - 1 - cur.gl],
+                           fwd + (size_t)(d0 - C) * 3 * W, C * 3 * W);
+    Inputs nx = bwd_inputs<RLE>(sm, st, cur, c, d1 - 1, k);
+    for (int g = d1 - 1; g >= d0; --g) {
+      const Inputs in = nx;
+      nx = bwd_inputs<RLE>(sm, st, cur, c, max(g - 1, d0), k);
+      Diag nd;
+      bwd_step<LUT, NW>(sm, tr, in, g == c.D, end_w, k == c.kf, n1, n2, nd,
+                        step);
+      Diag f;
+      load_row(st.rows + (g - d0) * 3 * W, W, k, f);
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+        f.v[s] = posterior(in.vm, f.v[s], nd.v[s], total);
+      store_row(post + (size_t)g * 3 * W, W, k, f);
+      n2 = n1;
+      n1 = nd;
+    }
+    cur = nxt;
   }
 }
 
-template <bool LUT, bool RLE>
-static int launch_fwd(const BandArgs& a, float* fwd, float* totals, int B,
-                      int W, cudaStream_t st) {
-  k2_fwd_kernel<LUT, RLE><<<B, W, 9 * W * sizeof(float), st>>>(a, fwd,
-                                                               totals, W);
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <bool LUT, bool RLE, int NW>
+int launch_fwd(const BandArgs& a, void** q, int B, int W, int C, int smem,
+               cudaStream_t st) {
+  auto kern = k2_fwd_kernel<LUT, RLE, NW>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<B, 32 * NW, smem, st>>>(a, (float*)q[0], (float*)q[1], W, C);
+  return (int)cudaGetLastError();
+}
+
+template <bool LUT, bool RLE, int NW>
+int launch_bwd(const BandArgs& a, void** q, int B, int W, int C, int smem,
+               cudaStream_t st) {
+  auto kern = k2_bwd_kernel<LUT, RLE, NW>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<B, 32 * NW, smem, st>>>(a, (const float*)q[0], (const float*)q[1],
+                                 (float*)q[2], W, C);
   return (int)cudaGetLastError();
 }
 
 template <bool LUT, bool RLE>
-static int launch_bwd(const BandArgs& a, const float* fwd,
-                      const float* totals, float* post, int B, int W,
-                      cudaStream_t st) {
-  k2_bwd_kernel<LUT, RLE><<<B, W, 9 * W * sizeof(float), st>>>(
-      a, fwd, totals, post, W);
-  return (int)cudaGetLastError();
+int forward_block(const BandArgs& a, void** q, int B, int W, int C, int smem,
+                  cudaStream_t st) {
+  BLOCK_OF_WIDTH(launch_fwd, a, q, B, W, C, smem, st)
+}
+
+template <bool LUT, bool RLE>
+int backward_block(const BandArgs& a, void** q, int B, int W, int C,
+                   int smem, cudaStream_t st) {
+  BLOCK_OF_WIDTH(launch_bwd, a, q, B, W, C, smem, st)
+}
+
+}  // namespace
+
+// Shared-memory bytes of a K2 block (bwd = 0: K2-fwd, 1: K2-bwd).
+extern "C" int k2_smem_bytes(int W, int C, int rle, int bwd) {
+  return k2_layout(W, C, rle != 0, bwd != 0).total;
 }
 
 // ptrs: the 18 BandArgs pointers in field order (rep_* may be null), then
-// fwd, totals, post (post may be null for the forward)
-extern "C" int k2_forward(void** ptrs, int B, int W, int use_lut,
-                          void* stream) {
+// fwd, totals; smem: the block's shared-memory bytes, at least
+// k2_smem_bytes(W, C, rle, 0).
+extern "C" int k2_forward(void** ptrs, int B, int W, int C, int use_lut,
+                          int smem, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
-  float* fwd = (float*)ptrs[BAND_ARGS_N];
-  float* totals = (float*)ptrs[BAND_ARGS_N + 1];
-  cudaStream_t st = (cudaStream_t)stream;
   const bool rle = a.rep_x != nullptr;
+  if (C < 1 || smem < k2_layout(W, C, rle, false).total)
+    return (int)cudaErrorInvalidValue;
+  void** q = ptrs + BAND_ARGS_N;
+  cudaStream_t st = (cudaStream_t)stream;
   if (use_lut)
-    return rle ? launch_fwd<true, true>(a, fwd, totals, B, W, st)
-               : launch_fwd<true, false>(a, fwd, totals, B, W, st);
-  return rle ? launch_fwd<false, true>(a, fwd, totals, B, W, st)
-             : launch_fwd<false, false>(a, fwd, totals, B, W, st);
+    return rle ? forward_block<true, true>(a, q, B, W, C, smem, st)
+               : forward_block<true, false>(a, q, B, W, C, smem, st);
+  return rle ? forward_block<false, true>(a, q, B, W, C, smem, st)
+             : forward_block<false, false>(a, q, B, W, C, smem, st);
 }
 
-extern "C" int k2_backward(void** ptrs, int B, int W, int use_lut,
-                           void* stream) {
+// ptrs: the 18 BandArgs pointers, then fwd, totals, post; smem at least
+// k2_smem_bytes(W, C, rle, 1).
+extern "C" int k2_backward(void** ptrs, int B, int W, int C, int use_lut,
+                           int smem, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
-  const float* fwd = (const float*)ptrs[BAND_ARGS_N];
-  const float* totals = (const float*)ptrs[BAND_ARGS_N + 1];
-  float* post = (float*)ptrs[BAND_ARGS_N + 2];
-  cudaStream_t st = (cudaStream_t)stream;
   const bool rle = a.rep_x != nullptr;
+  if (C < 1 || smem < k2_layout(W, C, rle, true).total)
+    return (int)cudaErrorInvalidValue;
+  void** q = ptrs + BAND_ARGS_N;
+  cudaStream_t st = (cudaStream_t)stream;
   if (use_lut)
-    return rle ? launch_bwd<true, true>(a, fwd, totals, post, B, W, st)
-               : launch_bwd<true, false>(a, fwd, totals, post, B, W, st);
-  return rle ? launch_bwd<false, true>(a, fwd, totals, post, B, W, st)
-             : launch_bwd<false, false>(a, fwd, totals, post, B, W, st);
+    return rle ? backward_block<true, true>(a, q, B, W, C, smem, st)
+               : backward_block<true, false>(a, q, B, W, C, smem, st);
+  return rle ? backward_block<false, true>(a, q, B, W, C, smem, st)
+             : backward_block<false, false>(a, q, B, W, C, smem, st);
 }

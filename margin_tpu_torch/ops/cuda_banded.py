@@ -27,7 +27,10 @@ into the extraction words of `banded.extract_packed`. Checkpoints are
 On a CUDA device `fb_forward` / `fb_backward` / `seg_forward` /
 `seg_backward` launch the kernels; on the CPU they run the `*_plain`
 twins, the same recurrences in plain PyTorch vectorised over the pack's
-problems (the segmented twins walk the same segments).
+problems (the segmented twins walk the same segments). Both kernel pairs
+walk a problem in chunks of diagonals staged in a block's shared memory,
+so the chunk depth is a property of the launch (`K2_CHUNK`, `SEG_D`) and
+`k2_smem` / `k3_smem` mirror the blocks' layouts.
 """
 
 from __future__ import annotations
@@ -57,33 +60,76 @@ _FLAT_PAD = 16
 # grids do not fit takes the segmented kernels.
 FB_GRID_BUDGET_BYTES = 8 << 30
 
-# Launch configuration of the segmented kernels (csrc/banded_seg.cu). A
-# K3 block holds, in shared memory, the problem's tables, two staging
-# buffers of a segment's inputs and (K3-bwd) the recomputed (S, 3, W)
-# segment, so the segment depth S is a property of the launch: per width
-# bucket, the largest multiple of SEG_STEP whose K3-bwd block with RLE on
-# fits the 227 KB a Hopper block may use (232,448 bytes, set per kernel
-# with cudaFuncSetAttribute). The JAX package's `_seg_d`
+# Launch configuration of the kernels. A K2 or K3 block holds, in shared
+# memory, the problem's tables and two staging buffers of a chunk of
+# diagonals' inputs (csrc/banded_step.cuh:layout): K2-bwd stages the
+# chunk's forward rows there, and K3-bwd keeps its recomputed (S, 3, W)
+# segment besides. The chunk depth is therefore a property of the launch,
+# bounded by the 227 KB a Hopper block may use (232,448 bytes, set per
+# kernel with cudaFuncSetAttribute). The JAX package's `_seg_d`
 # (pallas_banded.py:863-870) sized a device-memory scratch instead.
-K3_MAX_SMEM = 232_448
+MAX_SMEM = 232_448
 SEG_STEP = 16
 _K3_WORDS = 1024   # extraction words staged per block (WORDS_PER_BLOCK)
-_K3_MAX_NW = 4     # warps of a block (MAX_NW)
+_MAX_NW = 4        # warps of a block (MAX_NW)
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def _block_bytes(w: int, depth: int, rle: bool, rows: int, tail: int) -> int:
+    """csrc/banded_step.cuh:layout, in bytes: a block walking chunks of
+    `depth` diagonals whose staging buffers carry `rows` bytes of float
+    rows each and whose own tail is `tail` bytes."""
+    stage = (_round_up(12 * (depth + 4), 16) + 2 * _round_up(depth + w + 8, 16)
+             + (8 * _round_up(depth + w + 4, 4) if rle else 0) + rows)
+    return ((4 * _REP * _REP * 4 if rle else 0) + 36 * 4 + 2 * stage + tail
+            + 48 * _MAX_NW)
+
+
 def _k3_smem_bytes(w: int, seg_d: int, rle: bool, sweep: str) -> int:
-    """The layout of csrc/banded_seg.cu:layout, in bytes."""
+    """The layout of csrc/banded_seg.cu:k3_layout, in bytes."""
     bwd = sweep == "bwd"
-    stage = (_round_up(12 * (seg_d + 4), 16) + 2 * _round_up(seg_d + w + 8, 16)
-             + (8 * _round_up(seg_d + w + 4, 4) if rle else 0)
-             + (24 * w if bwd else 0))
-    return ((4 * _REP * _REP * 4 if rle else 0) + 36 * 4 + 2 * stage
-            + (12 * seg_d * w + 8 * _K3_WORDS if bwd else 0)
-            + 48 * _K3_MAX_NW)
+    return _block_bytes(w, seg_d, rle, 24 * w if bwd else 0,
+                        12 * seg_d * w + 8 * _K3_WORDS if bwd else 0)
+
+
+def _k2_smem_bytes(w: int, chunk: int, rle: bool, sweep: str) -> int:
+    """The layout of csrc/banded_fb.cu:k2_layout, in bytes."""
+    return _block_bytes(w, chunk, rle, 12 * chunk * w if sweep == "bwd"
+                        else 0, 0)
+
+
+def k2_smem(w: int, chunk: int, rle: bool, sweep: str) -> int:
+    """Shared-memory bytes of one K2 block ("fwd" or "bwd") at width w
+    and chunk depth `chunk`: the problem's repeat table (RLE) and
+    emissions, and two staging buffers of a chunk's geometry, symbol and
+    run-length windows and, K2-bwd, its forward rows. Raises ValueError
+    for a chunk the block cannot hold."""
+    if chunk < 1:
+        raise ValueError(f"chunk depth must be >= 1, got {chunk}")
+    n = _k2_smem_bytes(w, chunk, rle, sweep)
+    if n > MAX_SMEM:
+        raise ValueError(f"K2 block of {n} bytes at W={w}, C={chunk}, RLE "
+                         f"{'on' if rle else 'off'} exceeds the {MAX_SMEM} "
+                         "bytes of shared memory a block may use")
+    return n
+
+
+def k2_chunk(w: int, rle: bool) -> int:
+    """The deepest chunk whose K2-bwd block fits at width w."""
+    c = 1
+    while _k2_smem_bytes(w, c + 1, rle, "bwd") <= MAX_SMEM:
+        c += 1
+    return c
+
+
+# Chunk depth of K2-fwd and K2-bwd per (band-width bucket, RLE): what a
+# K2-bwd block holds (443 / 233 / 119 / 60 diagonals at W = 16 / 32 / 64 /
+# 128 with RLE on, a few more without its repeat table).
+K2_CHUNK = {(w, rle): k2_chunk(w, rle) for w in (16, 32, 64, 128)
+            for rle in (True, False)}
 
 
 def k3_smem(w: int, seg_d: int, rle: bool, sweep: str) -> int:
@@ -96,10 +142,10 @@ def k3_smem(w: int, seg_d: int, rle: bool, sweep: str) -> int:
     if seg_d < 2:
         raise ValueError(f"segment depth must be >= 2, got {seg_d}")
     n = _k3_smem_bytes(w, seg_d, rle, sweep)
-    if n > K3_MAX_SMEM:
+    if n > MAX_SMEM:
         raise ValueError(f"K3 block of {n} bytes at W={w}, S={seg_d}, RLE "
                          f"{'on' if rle else 'off'} exceeds the "
-                         f"{K3_MAX_SMEM} bytes of shared memory a block may "
+                         f"{MAX_SMEM} bytes of shared memory a block may "
                          "use")
     return n
 
@@ -108,7 +154,7 @@ def seg_depth(w: int, rle: bool = True) -> int:
     """The largest multiple of SEG_STEP whose K3-bwd block fits at width
     w."""
     s = SEG_STEP
-    while _k3_smem_bytes(w, s + SEG_STEP, rle, "bwd") <= K3_MAX_SMEM:
+    while _k3_smem_bytes(w, s + SEG_STEP, rle, "bwd") <= MAX_SMEM:
         s += SEG_STEP
     return s
 
@@ -277,8 +323,10 @@ def _k2():
     for name in ("k2_forward", "k2_backward"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+    lib.k2_smem_bytes.restype = ctypes.c_int
+    lib.k2_smem_bytes.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -321,6 +369,29 @@ def _validate(pack: BandPack):
                dev)
 
 
+def _validate_windows(pack: BandPack):
+    """K2 and K3 stage symbol windows by whole 4-byte words: the flat
+    symbol arrays need 4 spare entries past the last sequence (_pack_host
+    pads them). Checked on the host geometries, without a device sync."""
+    if (pack.xs.numel() < sum(g.lx for g in pack.geoms) + 4
+            or pack.ys.numel() < sum(g.ly for g in pack.geoms) + 4):
+        raise ValueError("K2 and K3 read the flat symbols by 4-byte words: "
+                         "they need 4 spare entries at the end (_pack_host "
+                         "pads them)")
+
+
+def _k2_launch(pack: BandPack, chunk: Optional[int], sweep: str):
+    """(chunk, shared-memory bytes) of a K2 launch on a pack: chunk
+    defaults to K2_CHUNK of the pack's width and RLE state; k2_smem raises
+    for a chunk the block cannot hold."""
+    _validate(pack)
+    _validate_windows(pack)
+    rle = pack.rep_x is not None
+    if chunk is None:
+        chunk = K2_CHUNK[(pack.W, rle)]
+    return chunk, k2_smem(pack.W, chunk, rle, sweep)
+
+
 def _args(pack: BandPack, *extra):
     """The 18 pack pointers of csrc/banded_cell.cuh:BandArgs, then the
     kernel's own buffers."""
@@ -332,13 +403,14 @@ def _args(pack: BandPack, *extra):
         *[None if p is None else p.data_ptr() for p in ptrs])
 
 
-def fb_forward(pack: BandPack, use_lut: bool):
+def fb_forward(pack: BandPack, use_lut: bool, chunk: Optional[int] = None):
     """Banded forward of a pack: returns (fwd (rows, 3, W) f32, totals (B,)
-    f32). A pack on a CUDA device launches K2-fwd; on the CPU the plain
-    twin runs."""
+    f32). A pack on a CUDA device launches K2-fwd, walking chunks of
+    `chunk` diagonals (default K2_CHUNK; the results do not depend on it);
+    on the CPU the plain twin runs."""
     if pack.device.type != "cuda":
         return fb_forward_plain(pack, use_lut)
-    _validate(pack)
+    chunk, smem = _k2_launch(pack, chunk, "fwd")
     if grid_bytes(pack.n_rows, pack.W) > FB_GRID_BUDGET_BYTES:
         raise ValueError("pack grids exceed FB_GRID_BUDGET_BYTES; deep "
                          "problems take the segmented kernels (seg_forward)")
@@ -347,27 +419,29 @@ def fb_forward(pack: BandPack, use_lut: bool):
                       device=dev)
     totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k2().k2_forward(_args(pack, fwd, totals, None), pack.B, pack.W,
-                          int(bool(use_lut)), stream)
+    rc = _k2().k2_forward(_args(pack, fwd, totals), pack.B, pack.W, chunk,
+                          int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "banded forward (K2-fwd)")
     FB_FORWARD.launches += 1
     return fwd, totals
 
 
 def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
-                use_lut: bool) -> torch.Tensor:
+                use_lut: bool, chunk: Optional[int] = None) -> torch.Tensor:
     """Backward + posterior of a pack: returns post (rows, 3, W) f32,
-    zero outside the band. CUDA: K2-bwd; CPU: the plain twin."""
+    zero outside the band. CUDA: K2-bwd, which stages each chunk's forward
+    rows in shared memory (chunk as in fb_forward); CPU: the plain
+    twin."""
     if pack.device.type != "cuda":
         return fb_backward_plain(pack, fwd, totals, use_lut)
-    _validate(pack)
+    chunk, smem = _k2_launch(pack, chunk, "bwd")
     dev = pack.device
     _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
     _check(totals, "totals", torch.float32, (pack.B,), dev)
     post = torch.empty_like(fwd)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _k2().k2_backward(_args(pack, fwd, totals, post), pack.B, pack.W,
-                           int(bool(use_lut)), stream)
+                           chunk, int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "banded backward (K2-bwd)")
     FB_BACKWARD.launches += 1
     return post
@@ -385,18 +459,13 @@ def seg_layout(pack: BandPack, seg_d: int):
 
 def _validate_seg(pack: BandPack, seg_d: int):
     _validate(pack)
+    _validate_windows(pack)
     if seg_d < 2:
         raise ValueError(f"segment depth must be >= 2, got {seg_d}")
-    d_max, x_end, y_end = torch.stack([
-        (pack.lxs.long() + pack.lys.long()).max(),
-        pack.x_off[-1] + pack.lxs[-1], pack.y_off[-1] + pack.lys[-1]]).tolist()
+    d_max = max(g.lx + g.ly for g in pack.geoms)
     if d_max >= 1 << 22:
         raise ValueError(f"diagonal {d_max} beyond the extraction word's "
                          "22-bit budget")
-    if (pack.xs.numel() < x_end + 4 or pack.ys.numel() < y_end + 4):
-        raise ValueError("K3 reads the flat symbols by 4-byte words: they "
-                         "need 4 spare entries at the end (_pack_host pads "
-                         "them)")
 
 
 def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):

@@ -286,26 +286,108 @@ def test_pack_beyond_budget_raises(monkeypatch):
         assert np.array_equal(a, b)
 
 
+# anchor expansion that puts _width_pack's problems in each width bucket
+WIDTH_EXPANSION = {16: 4, 32: 20, 64: 50, 128: 110}
+
+
+def _width_pack(w, rle, device="cpu"):
+    """A pack of width bucket w: five anchored problems of 180-380
+    diagonals (mixed strands, ragged ends)."""
+    exp = WIDTH_EXPANSION[w]
+    items = _items(30 + rle, rle, 6)
+    for it in items:
+        it["anchors"] = [(a[0], a[1], exp) for a in it["anchors"]]
+    geoms = [banded._item_geom(it, exp, False) for it in items]
+    w_pad = banded._bucket_w(max(g.w_pad for g in geoms))
+    assert w_pad == w
+    return cuda_banded._pack_host(_port_tables(rle, device), items, w_pad,
+                                  exp, False, rle, geoms, device=device)
+
+
+@pytest.mark.parametrize("rle", [True, False])
+@pytest.mark.parametrize("w", [16, 32, 64, 128])
+def test_k2_launch_config(w, rle):
+    """Every width bucket gets a chunk depth whose K2 blocks fit the
+    shared memory a Hopper block may use; one diagonal more does not fit
+    K2-bwd's block, and k2_smem raises for it."""
+    C = cuda_banded.K2_CHUNK[(w, rle)]
+    assert C == cuda_banded.k2_chunk(w, rle) >= 1
+    for sweep in ("fwd", "bwd"):
+        assert cuda_banded.k2_smem(w, C, rle, sweep) <= 232_448
+    with pytest.raises(ValueError):
+        cuda_banded.k2_smem(w, C + 1, rle, "bwd")
+    with pytest.raises(ValueError):
+        cuda_banded.k2_smem(w, 0, rle, "fwd")
+    # K2-bwd's block is K2-fwd's plus two chunks of forward rows
+    assert (cuda_banded.k2_smem(w, C, rle, "bwd")
+            - cuda_banded.k2_smem(w, C, rle, "fwd")) == 2 * C * 3 * w * 4
+
+
 @pytest.mark.cuda
 def test_fb_kernels_match_plain():
+    """K2 against its twins at every width bucket, RLE on and off, both
+    logAdds, at the launch's chunk depth and at a chunk of 7 diagonals
+    (many chunk seams a problem), and on two packs with an anchorless
+    problem."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    packs = [_width_pack(w, rle, "cuda") for w in (16, 32, 64, 128)
+             for rle in (False, True)]
     for rle in (False, True):
         items = _items(20 + rle, rle, 6 + 6 * rle)
         tc = _port_tables(rle, device="cuda")
         geoms = [banded._item_geom(it, EXPANSION, False) for it in items]
         w = banded._bucket_w(max(g.w_pad for g in geoms))
-        pack = cuda_banded._pack_host(tc, items, w, EXPANSION, False, rle,
-                                      geoms, device="cuda")
+        packs.append(cuda_banded._pack_host(tc, items, w, EXPANSION, False,
+                                            rle, geoms, device="cuda"))
+    for pack in packs:
         for use_lut in (True, False):
-            fk, tk = cuda_banded.fb_forward(pack, use_lut)
-            pk = cuda_banded.fb_backward(pack, fk, tk, use_lut)
             fp, tp = cuda_banded.fb_forward_plain(pack, use_lut)
             pp = cuda_banded.fb_backward_plain(pack, fp, tp, use_lut)
-            torch.cuda.synchronize()
-            if use_lut:
-                assert torch.equal(tk, tp) and torch.equal(fk, fp)
-                assert torch.equal(pk, pp)
-            else:
-                assert (tk - tp).abs().max().item() <= 1e-4
-                assert (pk - pp).abs().max().item() <= 1e-4
+            for chunk in (None, 7):
+                fk, tk = cuda_banded.fb_forward(pack, use_lut, chunk)
+                pk = cuda_banded.fb_backward(pack, fk, tk, use_lut, chunk)
+                torch.cuda.synchronize()
+                if use_lut:
+                    assert torch.equal(tk, tp) and torch.equal(fk, fp)
+                    assert torch.equal(pk, pp)
+                else:
+                    assert (tk - tp).abs().max().item() <= 1e-4
+                    assert (pk - pp).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fb_kernels_refuse_a_chunk_beyond_the_block():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the wrapper's layout is the kernel's
+    lib = cuda_banded._k2()
+    for w in (16, 32, 64, 128):
+        for rle in (0, 1):
+            for C in (1, 7, cuda_banded.K2_CHUNK[(w, bool(rle))]):
+                for bwd, sweep in ((0, "fwd"), (1, "bwd")):
+                    assert lib.k2_smem_bytes(w, C, rle, bwd) == \
+                        cuda_banded.k2_smem(w, C, bool(rle), sweep)
+    pack = _width_pack(128, True, "cuda")
+    fk, tk = cuda_banded.fb_forward(pack, True)
+    with pytest.raises(ValueError):
+        cuda_banded.fb_backward(pack, fk, tk, True,
+                                cuda_banded.K2_CHUNK[(128, True)] + 1)
+    c_fwd = cuda_banded.K2_CHUNK[(128, True)]
+    while cuda_banded._k2_smem_bytes(128, c_fwd + 1, True, "fwd") <= \
+            cuda_banded.MAX_SMEM:
+        c_fwd += 1
+    cuda_banded.fb_forward(pack, True, c_fwd)
+    with pytest.raises(ValueError):
+        cuda_banded.fb_forward(pack, True, c_fwd + 1)
+    # the kernel refuses a launch given less shared memory than its layout
+    C = cuda_banded.K2_CHUNK[(128, True)]
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, bufs, bwd in ((lib.k2_forward, (fk, tk), 0),
+                          (lib.k2_backward, (fk, tk, torch.empty_like(fk)),
+                           1)):
+        need = lib.k2_smem_bytes(128, C, 1, bwd)
+        args = cuda_banded._args(pack, *bufs)
+        assert fn(args, pack.B, 128, C, 1, need - 1, stream) != 0
+        assert fn(args, pack.B, 128, C, 1, need, stream) == 0
+    torch.cuda.synchronize()

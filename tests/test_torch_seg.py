@@ -239,7 +239,7 @@ def test_k3_launch_config(w, rle):
     # SEG_D holds the depth of a block with RLE on, which fits RLE off too
     assert cuda_banded.SEG_D[w] == cuda_banded.seg_depth(w, True) <= S
     assert cuda_banded.k3_smem(w, cuda_banded.SEG_D[w], rle, "bwd") <= \
-        cuda_banded.K3_MAX_SMEM
+        cuda_banded.MAX_SMEM
 
 
 def _bucket_pack(w, device="cpu"):
