@@ -36,11 +36,16 @@
 //     memory, and computes its next diagonal's input part before the
 //     current recurrence; one __syncthreads() a chunk makes the copies
 //     visible. C is a property of the launch: the largest chunk whose
-//     K2-bwd block fits the 227 KB a block may use
-//     (ops/cuda_banded.py:k2_smem mirrors the layout).
-//   * Each diagonal's (3, W) cells go to the grid as coalesced stores
-//     that nothing waits for: the forward's values, the backward's
-//     posteriors exp(min(f + b - total, 0)) (0 outside the band).
+//     block fits the 227 KB a block may use (ops/cuda_banded.py:k2_smem
+//     mirrors the layout, the same for both sweeps).
+//   * Off the chain, K2-fwd writes each diagonal's (3, W) cells into the
+//     chunk's rows in shared memory, and one thread copies a finished
+//     chunk to the grid with one bulk asynchronous copy (cp.async.bulk)
+//     while the block walks the next: on the H100 a direct global store
+//     a diagonal cost the forward step up to a third at W = 128 (PERF.md).
+//     K2-bwd stores each diagonal's posteriors exp(min(f + b - total, 0))
+//     (0 outside the band) to the grid as coalesced stores: its row
+//     buffers hold the staged forward rows.
 // The per-cell arithmetic is banded_cell.cuh's, shared with K3, so every
 // cell equals K3's and the plain twins' bit for bit; built with
 // --fmad=false.
@@ -51,17 +56,17 @@ using namespace margin;
 namespace {
 
 // Shared-memory layout of a K2 block, in bytes; ops/cuda_banded.py:k2_smem
-// mirrors it. A staging buffer carries, K2-bwd, the chunk's forward rows.
-__host__ __device__ inline Layout k2_layout(int W, int C, bool rle,
-                                            bool bwd) {
-  return layout(W, C, rle, bwd ? C * 3 * W * 4 : 0, 0);
+// mirrors it. A staging buffer carries the chunk's forward rows: K2-fwd
+// writes them there for a bulk copy to the grid, K2-bwd reads them.
+__host__ __device__ inline Layout k2_layout(int W, int C, bool rle) {
+  return layout(W, C, rle, C * 3 * W * 4, 0);
 }
 
 template <bool LUT, bool RLE, int NW>
 __global__ void __launch_bounds__(32 * NW)
     k2_fwd_kernel(BandArgs a, float* fwd_all, float* totals, int W, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = k2_layout(W, C, RLE, false);
+  const Layout L = k2_layout(W, C, RLE);
   const int b = blockIdx.x;
   const int k = threadIdx.x;
   const Ctx c = context(a, b, W);
@@ -77,9 +82,19 @@ __global__ void __launch_bounds__(32 * NW)
   Diag p1, p2;
   set_zero(p2);
   for (int ch = 0; ch < n_chunk; ++ch) {
+    // the previous chunk's rows are complete: one thread copies them out
+    fence_proxy_async();
+    if (k == 0) bulk_wait_read();  // the copy out of this buffer is done
     cp_wait_all();
     __syncthreads();
-    const Stage st = stage_at(buf0 + (ch & 1) * L.stage, L);
+    if (ch > 0 && k == 0) {
+      const int q0 = (ch - 1) * C;
+      bulk_store(out + (size_t)q0 * 3 * W,
+                 buf0 + ((ch - 1) & 1) * L.stage + L.rows, C * 3 * W * 4);
+    }
+    unsigned char* const sb = buf0 + (ch & 1) * L.stage;
+    const Stage st = stage_at(sb, L);
+    float* const rows = (float*)(sb + L.rows);
     const int d0 = ch * C, d1 = min(d0 + C, c.D + 1);
     Win nxt = cur;
     if (ch + 1 < n_chunk)  // the next chunk's inputs, while this one runs
@@ -89,7 +104,7 @@ __global__ void __launch_bounds__(32 * NW)
     if (ch == 0) {  // diagonal 0: the start weights at k = 0
       init_diag(a, b, k, p1);
       link<NW>(p1, sm.xch, step);
-      store_row(out, W, k, p1);
+      store_row(rows, W, k, p1);
       g = 1;
     }
     if (g < d1) {
@@ -99,12 +114,22 @@ __global__ void __launch_bounds__(32 * NW)
         nx = fwd_inputs<RLE>(sm, st, cur, c, min(g + 1, d1 - 1), k);
         Diag nd;
         fwd_step<LUT, NW>(sm, tr, in, p1, p2, nd, step);
-        store_row(out + (size_t)g * 3 * W, W, k, nd);
+        store_row(rows + (g - d0) * 3 * W, W, k, nd);
         p2 = p1;
         p1 = nd;
       }
     }
     cur = nxt;
+  }
+  // the last chunk's rows
+  fence_proxy_async();
+  __syncthreads();
+  if (k == 0) {
+    const int q0 = (n_chunk - 1) * C;
+    bulk_store(out + (size_t)q0 * 3 * W,
+               buf0 + ((n_chunk - 1) & 1) * L.stage + L.rows,
+               (c.D + 1 - q0) * 3 * W * 4);
+    bulk_wait_read();
   }
   // the total at the final corner, from diagonal D
   if (k == c.kf)
@@ -116,7 +141,7 @@ __global__ void __launch_bounds__(32 * NW)
     k2_bwd_kernel(BandArgs a, const float* fwd_all, const float* totals,
                   float* post_all, int W, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = k2_layout(W, C, RLE, true);
+  const Layout L = k2_layout(W, C, RLE);
   const int b = blockIdx.x;
   const int k = threadIdx.x;
   const Ctx c = context(a, b, W);
@@ -211,20 +236,20 @@ int backward_block(const BandArgs& a, void** q, int B, int W, int C,
 
 }  // namespace
 
-// Shared-memory bytes of a K2 block (bwd = 0: K2-fwd, 1: K2-bwd).
-extern "C" int k2_smem_bytes(int W, int C, int rle, int bwd) {
-  return k2_layout(W, C, rle != 0, bwd != 0).total;
+// Shared-memory bytes of a K2 block (K2-fwd's and K2-bwd's are alike).
+extern "C" int k2_smem_bytes(int W, int C, int rle) {
+  return k2_layout(W, C, rle != 0).total;
 }
 
 // ptrs: the 18 BandArgs pointers in field order (rep_* may be null), then
 // fwd, totals; smem: the block's shared-memory bytes, at least
-// k2_smem_bytes(W, C, rle, 0).
+// k2_smem_bytes(W, C, rle).
 extern "C" int k2_forward(void** ptrs, int B, int W, int C, int use_lut,
                           int smem, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
   const bool rle = a.rep_x != nullptr;
-  if (C < 1 || smem < k2_layout(W, C, rle, false).total)
+  if (C < 1 || smem < k2_layout(W, C, rle).total)
     return (int)cudaErrorInvalidValue;
   void** q = ptrs + BAND_ARGS_N;
   cudaStream_t st = (cudaStream_t)stream;
@@ -236,13 +261,13 @@ extern "C" int k2_forward(void** ptrs, int B, int W, int C, int use_lut,
 }
 
 // ptrs: the 18 BandArgs pointers, then fwd, totals, post; smem at least
-// k2_smem_bytes(W, C, rle, 1).
+// k2_smem_bytes(W, C, rle).
 extern "C" int k2_backward(void** ptrs, int B, int W, int C, int use_lut,
                            int smem, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
   const bool rle = a.rep_x != nullptr;
-  if (C < 1 || smem < k2_layout(W, C, rle, true).total)
+  if (C < 1 || smem < k2_layout(W, C, rle).total)
     return (int)cudaErrorInvalidValue;
   void** q = ptrs + BAND_ARGS_N;
   cudaStream_t st = (cudaStream_t)stream;

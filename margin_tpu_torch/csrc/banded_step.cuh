@@ -29,7 +29,7 @@ __host__ __device__ inline int round_up(int v, int m) {
 // it). Two staging buffers, each: geometry (3 x G ints), the x and y
 // symbol windows (XB bytes each), the x and y run-length windows (RW ints
 // each, RLE only) and `rows` bytes of float rows (K3-bwd: a checkpoint;
-// K2-bwd: the chunk's forward rows). Then the block's own: the repeat
+// K2: the chunk's forward rows). Then the block's own: the repeat
 // table (RLE), the emissions, the two buffers, `tail` bytes of the
 // kernel's own (K3-bwd: the recomputed segment and the staged words) and
 // the warps' exchange slots.
@@ -94,6 +94,25 @@ __device__ __forceinline__ void cp_commit() {
 }
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// bulk copies from shared to device memory (the async proxy reads shared
+// memory: writers fence before the barrier that precedes the copy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(s), "r"(bytes)
+      : "memory");
+}
+// wait until every bulk copy of this thread has read its shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -95,21 +95,21 @@ def _k3_smem_bytes(w: int, seg_d: int, rle: bool, sweep: str) -> int:
                         12 * seg_d * w + 8 * _K3_WORDS if bwd else 0)
 
 
-def _k2_smem_bytes(w: int, chunk: int, rle: bool, sweep: str) -> int:
+def _k2_smem_bytes(w: int, chunk: int, rle: bool) -> int:
     """The layout of csrc/banded_fb.cu:k2_layout, in bytes."""
-    return _block_bytes(w, chunk, rle, 12 * chunk * w if sweep == "bwd"
-                        else 0, 0)
+    return _block_bytes(w, chunk, rle, 12 * chunk * w, 0)
 
 
-def k2_smem(w: int, chunk: int, rle: bool, sweep: str) -> int:
-    """Shared-memory bytes of one K2 block ("fwd" or "bwd") at width w
-    and chunk depth `chunk`: the problem's repeat table (RLE) and
-    emissions, and two staging buffers of a chunk's geometry, symbol and
-    run-length windows and, K2-bwd, its forward rows. Raises ValueError
-    for a chunk the block cannot hold."""
+def k2_smem(w: int, chunk: int, rle: bool) -> int:
+    """Shared-memory bytes of one K2 block, K2-fwd's or K2-bwd's (one
+    layout), at width w and chunk depth `chunk`: the problem's repeat
+    table (RLE) and emissions, and two staging buffers of a chunk's
+    geometry, symbol and run-length windows and forward rows (K2-fwd
+    writes them, K2-bwd reads them). Raises ValueError for a chunk the
+    block cannot hold."""
     if chunk < 1:
         raise ValueError(f"chunk depth must be >= 1, got {chunk}")
-    n = _k2_smem_bytes(w, chunk, rle, sweep)
+    n = _k2_smem_bytes(w, chunk, rle)
     if n > MAX_SMEM:
         raise ValueError(f"K2 block of {n} bytes at W={w}, C={chunk}, RLE "
                          f"{'on' if rle else 'off'} exceeds the {MAX_SMEM} "
@@ -118,15 +118,15 @@ def k2_smem(w: int, chunk: int, rle: bool, sweep: str) -> int:
 
 
 def k2_chunk(w: int, rle: bool) -> int:
-    """The deepest chunk whose K2-bwd block fits at width w."""
+    """The deepest chunk whose K2 block fits at width w."""
     c = 1
-    while _k2_smem_bytes(w, c + 1, rle, "bwd") <= MAX_SMEM:
+    while _k2_smem_bytes(w, c + 1, rle) <= MAX_SMEM:
         c += 1
     return c
 
 
 # Chunk depth of K2-fwd and K2-bwd per (band-width bucket, RLE): what a
-# K2-bwd block holds (443 / 233 / 119 / 60 diagonals at W = 16 / 32 / 64 /
+# K2 block holds (443 / 233 / 119 / 60 diagonals at W = 16 / 32 / 64 /
 # 128 with RLE on, a few more without its repeat table).
 K2_CHUNK = {(w, rle): k2_chunk(w, rle) for w in (16, 32, 64, 128)
             for rle in (True, False)}
@@ -326,7 +326,7 @@ def _k2():
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     lib.k2_smem_bytes.restype = ctypes.c_int
-    lib.k2_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.k2_smem_bytes.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -380,7 +380,7 @@ def _validate_windows(pack: BandPack):
                          "pads them)")
 
 
-def _k2_launch(pack: BandPack, chunk: Optional[int], sweep: str):
+def _k2_launch(pack: BandPack, chunk: Optional[int]):
     """(chunk, shared-memory bytes) of a K2 launch on a pack: chunk
     defaults to K2_CHUNK of the pack's width and RLE state; k2_smem raises
     for a chunk the block cannot hold."""
@@ -389,7 +389,7 @@ def _k2_launch(pack: BandPack, chunk: Optional[int], sweep: str):
     rle = pack.rep_x is not None
     if chunk is None:
         chunk = K2_CHUNK[(pack.W, rle)]
-    return chunk, k2_smem(pack.W, chunk, rle, sweep)
+    return chunk, k2_smem(pack.W, chunk, rle)
 
 
 def _args(pack: BandPack, *extra):
@@ -410,7 +410,7 @@ def fb_forward(pack: BandPack, use_lut: bool, chunk: Optional[int] = None):
     on the CPU the plain twin runs."""
     if pack.device.type != "cuda":
         return fb_forward_plain(pack, use_lut)
-    chunk, smem = _k2_launch(pack, chunk, "fwd")
+    chunk, smem = _k2_launch(pack, chunk)
     if grid_bytes(pack.n_rows, pack.W) > FB_GRID_BUDGET_BYTES:
         raise ValueError("pack grids exceed FB_GRID_BUDGET_BYTES; deep "
                          "problems take the segmented kernels (seg_forward)")
@@ -434,7 +434,7 @@ def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     twin."""
     if pack.device.type != "cuda":
         return fb_backward_plain(pack, fwd, totals, use_lut)
-    chunk, smem = _k2_launch(pack, chunk, "bwd")
+    chunk, smem = _k2_launch(pack, chunk)
     dev = pack.device
     _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
     _check(totals, "totals", torch.float32, (pack.B,), dev)

@@ -307,20 +307,16 @@ def _width_pack(w, rle, device="cpu"):
 @pytest.mark.parametrize("rle", [True, False])
 @pytest.mark.parametrize("w", [16, 32, 64, 128])
 def test_k2_launch_config(w, rle):
-    """Every width bucket gets a chunk depth whose K2 blocks fit the
-    shared memory a Hopper block may use; one diagonal more does not fit
-    K2-bwd's block, and k2_smem raises for it."""
+    """Every width bucket gets a chunk depth whose K2 block fits the
+    shared memory a Hopper block may use; one diagonal more does not, and
+    k2_smem raises for it."""
     C = cuda_banded.K2_CHUNK[(w, rle)]
     assert C == cuda_banded.k2_chunk(w, rle) >= 1
-    for sweep in ("fwd", "bwd"):
-        assert cuda_banded.k2_smem(w, C, rle, sweep) <= 232_448
+    assert cuda_banded.k2_smem(w, C, rle) <= 232_448
     with pytest.raises(ValueError):
-        cuda_banded.k2_smem(w, C + 1, rle, "bwd")
+        cuda_banded.k2_smem(w, C + 1, rle)
     with pytest.raises(ValueError):
-        cuda_banded.k2_smem(w, 0, rle, "fwd")
-    # K2-bwd's block is K2-fwd's plus two chunks of forward rows
-    assert (cuda_banded.k2_smem(w, C, rle, "bwd")
-            - cuda_banded.k2_smem(w, C, rle, "fwd")) == 2 * C * 3 * w * 4
+        cuda_banded.k2_smem(w, 0, rle)
 
 
 @pytest.mark.cuda
@@ -365,28 +361,22 @@ def test_fb_kernels_refuse_a_chunk_beyond_the_block():
     for w in (16, 32, 64, 128):
         for rle in (0, 1):
             for C in (1, 7, cuda_banded.K2_CHUNK[(w, bool(rle))]):
-                for bwd, sweep in ((0, "fwd"), (1, "bwd")):
-                    assert lib.k2_smem_bytes(w, C, rle, bwd) == \
-                        cuda_banded.k2_smem(w, C, bool(rle), sweep)
+                assert lib.k2_smem_bytes(w, C, rle) == \
+                    cuda_banded.k2_smem(w, C, bool(rle))
     pack = _width_pack(128, True, "cuda")
     fk, tk = cuda_banded.fb_forward(pack, True)
     with pytest.raises(ValueError):
         cuda_banded.fb_backward(pack, fk, tk, True,
                                 cuda_banded.K2_CHUNK[(128, True)] + 1)
-    c_fwd = cuda_banded.K2_CHUNK[(128, True)]
-    while cuda_banded._k2_smem_bytes(128, c_fwd + 1, True, "fwd") <= \
-            cuda_banded.MAX_SMEM:
-        c_fwd += 1
-    cuda_banded.fb_forward(pack, True, c_fwd)
     with pytest.raises(ValueError):
-        cuda_banded.fb_forward(pack, True, c_fwd + 1)
+        cuda_banded.fb_forward(pack, True,
+                               cuda_banded.K2_CHUNK[(128, True)] + 1)
     # the kernel refuses a launch given less shared memory than its layout
     C = cuda_banded.K2_CHUNK[(128, True)]
     stream = torch.cuda.current_stream().cuda_stream
-    for fn, bufs, bwd in ((lib.k2_forward, (fk, tk), 0),
-                          (lib.k2_backward, (fk, tk, torch.empty_like(fk)),
-                           1)):
-        need = lib.k2_smem_bytes(128, C, 1, bwd)
+    need = lib.k2_smem_bytes(128, C, 1)
+    for fn, bufs in ((lib.k2_forward, (fk, tk)),
+                     (lib.k2_backward, (fk, tk, torch.empty_like(fk)))):
         args = cuda_banded._args(pack, *bufs)
         assert fn(args, pack.B, 128, C, 1, need - 1, stream) != 0
         assert fn(args, pack.B, 128, C, 1, need, stream) == 0
