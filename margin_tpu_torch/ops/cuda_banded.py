@@ -62,12 +62,13 @@ FB_GRID_BUDGET_BYTES = 8 << 30
 
 # Launch configuration of the kernels. A K2 or K3 block holds, in shared
 # memory, the problem's tables and two staging buffers of a chunk of
-# diagonals' inputs (csrc/banded_step.cuh:layout): K2-bwd stages the
-# chunk's forward rows there, and K3-bwd keeps its recomputed (S, 3, W)
-# segment besides. The chunk depth is therefore a property of the launch,
-# bounded by the 227 KB a Hopper block may use (232,448 bytes, set per
-# kernel with cudaFuncSetAttribute). The JAX package's `_seg_d`
-# (pallas_banded.py:863-870) sized a device-memory scratch instead.
+# diagonals' inputs (csrc/banded_step.cuh:layout): K2 stages the chunk's
+# forward rows there (K2-fwd writes them, K2-bwd reads them), and K3-bwd
+# keeps its recomputed (S, 3, W) segment besides. The chunk depth is
+# therefore a property of the launch, bounded by the 227 KB a Hopper block
+# may use (232,448 bytes, set per kernel with cudaFuncSetAttribute). The
+# JAX package's `_seg_d` (pallas_banded.py:863-870) sized a device-memory
+# scratch instead.
 MAX_SMEM = 232_448
 SEG_STEP = 16
 _K3_WORDS = 1024   # extraction words staged per block (WORDS_PER_BLOCK)
