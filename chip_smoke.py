@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase` and
-haploid `margin polish` on one NVIDIA GPU and check it end to end.
+"""Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase`,
+haploid and diploid `margin polish` on one NVIDIA GPU and check it end to
+end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only kernels,phase,polish,diploid]
+
+(--only runs a subset after the build, for iterating on one path; a plain
+run takes them all and is the one that prints the kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      and the host C++ engines from the checkout's sources, in parallel;
+     fail unless every host engine loads (marginio against the system's
+     libdeflate or the port's zlib stand-in, printed);
   2. hold every kernel against its plain PyTorch twin on the card: K1 on
      131072 pairs of 29x32 and on a ragged batch with lx, ly in 1..1024
      (RLE on and off); K2 on packs of 128 problems with lx, ly ~ 500-1200
@@ -52,10 +58,24 @@ Phases (any failure raises and the script exits non-zero):
      (the twin walks one diagonal at a time, so its time follows the
      deepest problem it is given); K2-fwd / K2-bwd are timed on the
      same pack beside it, and K2 / K3 per sweep is printed (a ratio
-     that compares across cards where a time does not).
+     that compares across cards where a time does not);
+  8. run `python -m margin_tpu_torch polish --diploid` (cli.main, LUT
+     logAdd) on a seeded synthetic diploid 205 kb draft at 30x (two
+     haplotypes with a het SNV or 1-10 bp het indel every 1-1.5 kb, the
+     draft made from haplotype 1 with phase 6's draft edits, 5-30 kb reads
+     from both, 100 kb chunks with 1 kb boundaries: three chunks, two
+     phased seams); launch counters zeroed right before, read right after.
+     Checks: K1, K2 and K3 launched, haplotag agreement with the reads'
+     true haplotypes >= 90% (up to a swap: the stitched contig is one
+     phase set); logs each haplotype FASTA's edit distance to each truth
+     haplotype and the draft's, the stages and the device ms;
+  9. diploid-polish a 10 kb sub-region in process with SEG_MIN_D lowered
+     to 2048, through the kernels and then through the plain twins bound
+     in their place: identical hap FASTAs and haplotagged BAM records.
 Every K2 and K3 timing also prints the pack's deepest diagonal count and
 the nanoseconds per diagonal; the device time each kernel summed over
-the phase and polish runs' launches is printed after phase 7.
+the phase and polish runs' launches is printed after phase 9 (the diploid
+run's on its own line in phase 8).
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -408,14 +428,21 @@ def phase_build():
         _ext.kernel_lib(k)
     engines = {n: _ext.native_lib(n) is not None
                for n in _ext.NATIVE_ENGINES}
-    for n, ok in engines.items():
-        if not ok:  # the port then takes the pure-Python host path
+    deflate = _ext.deflate_variant()
+    secs = time.perf_counter() - t0
+    log(f"build: {secs:.1f} s; host engines loaded: {engines}; marginio "
+        f"built against {deflate}")
+    # the port keeps pure-Python paths for a missing engine, but the
+    # measured path runs the engines the CPU tests hold against margin_tpu
+    missing = [n for n, ok in engines.items() if not ok]
+    if missing:
+        for n in missing:
             tail = [ln for ln in (errors.get(n) or "").splitlines()
                     if ln.strip()][-3:]
-            log(f"host engine {n} did not build: {' | '.join(tail)}")
-    secs = time.perf_counter() - t0
-    log(f"build: {secs:.1f} s; host engines loaded: {engines}")
-    return {"build_s": secs, "engines": engines,
+            log(f"host engine {n} did not load: {' | '.join(tail)} "
+                f"{_ext.LOAD_ERRORS.get(n, '')}")
+        raise RuntimeError(f"host engines not loaded: {missing}")
+    return {"build_s": secs, "engines": engines, "deflate": deflate,
             "per_source_s": dict(_ext.BUILD_SECONDS)}
 
 
@@ -976,22 +1003,11 @@ def phase_polish(device, work, out_dir, span=205_000):
             "dataset_s": gen_s, "span": span}, ds, rec
 
 
-def phase_polish_region(ds, work, region_len=10_000):
-    """A sub-region in process through the kernels, then through the plain
-    twins bound in their place: byte-identical FASTA. The dataset's own
-    POA-consensus iterations and bubble pass run; the region is cut to
-    10 kb to keep the twins' run near three minutes (they walk one
-    diagonal at a time, ~0.5 ms each, through every pack of every
-    realignment)."""
-    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
-    from margin_tpu_torch.params import Params
-    from margin_tpu_torch.polish.driver import run_polish
-    params = Params.load(ds.params)
-    mid = len(fasta_seq(ds.draft)) // 2
-    region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
-    saved_min = banded.SEG_MIN_D
-    banded.SEG_MIN_D = 2048
-    twins = {
+def twins():
+    """(module, name) -> the plain twin to bind in the kernel wrapper's
+    place for a kernels-against-twins rerun."""
+    from margin_tpu_torch.ops import cuda_banded, pairhmm
+    return {
         (pairhmm, "forward_total"): pairhmm.forward_total_plain,
         (cuda_banded, "fb_forward"): cuda_banded.fb_forward_plain,
         (cuda_banded, "fb_backward"): cuda_banded.fb_backward_plain,
@@ -1000,7 +1016,25 @@ def phase_polish_region(ds, work, region_len=10_000):
             lambda pack, ckpt, totals, use_lut, seg_d, threshold, cap=None:
             cuda_banded.seg_backward_plain(pack, ckpt, totals, use_lut,
                                            seg_d, threshold)}
-    saved = {k: getattr(*k) for k in twins}
+
+
+def phase_polish_region(ds, work, region_len=10_000):
+    """A sub-region in process through the kernels, then through the plain
+    twins bound in their place: byte-identical FASTA. The dataset's own
+    POA-consensus iterations and bubble pass run; the region is cut to
+    10 kb to keep the twins' run near three minutes (they walk one
+    diagonal at a time, ~0.5 ms each, through every pack of every
+    realignment)."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.params import Params
+    from margin_tpu_torch.polish.driver import run_polish
+    params = Params.load(ds.params)
+    mid = len(fasta_seq(ds.draft)) // 2
+    region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
+    saved_min = banded.SEG_MIN_D
+    banded.SEG_MIN_D = 2048
+    plain = twins()
+    saved = {k: getattr(*k) for k in plain}
     try:
         zero_counters()
         t0 = time.perf_counter()
@@ -1011,7 +1045,7 @@ def phase_polish_region(ds, work, region_len=10_000):
         kern_s = time.perf_counter() - t0
         launches = read_counters()
         seg_items = banded.ROUTES.seg_items
-        for (mod, name), fn in twins.items():
+        for (mod, name), fn in plain.items():
             setattr(mod, name, fn)
         t0 = time.perf_counter()
         run_polish(ds.bam, ds.draft, params, f"{work}/rp",
@@ -1037,6 +1071,160 @@ def phase_polish_region(ds, work, region_len=10_000):
             "launches": launches, "k3_items": seg_items,
             "poa_consensus_iterations":
                 params.polish.maxPoaConsensusIterations}
+
+
+def haplotag_agreement(bam, read_hap):
+    """(share of HP-tagged reads whose tag is their true haplotype, up to
+    one swap: the polish BAM carries no PS tag and the stitched contig is
+    one phase set; tagged reads)."""
+    import struct
+    from margin_tpu_torch.io import bam as bamio
+    agree = tagged = 0
+    with bamio.BamReader(bam) as r:
+        for rec in r:
+            blob = rec.tags_blob()
+            i = blob.find(b"HPi")
+            if i < 0:
+                continue
+            tagged += 1
+            agree += struct.unpack_from("<i", blob, i + 3)[0] \
+                == read_hap[rec.name]
+    return max(agree, tagged - agree) / max(tagged, 1), tagged
+
+
+def phase_diploid(device, work, out_dir, span=205_000):
+    """`margin polish --diploid` end to end on a seeded synthetic diploid
+    draft: launches, kernel ms, routes, stages, haplotag agreement, and
+    each haplotype FASTA's edit distance to each truth haplotype."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.parallel.executor import DEVICE_STATS
+    from margin_tpu_torch.testing.synth import (DiploidPolishSynthConfig,
+                                                banded_edit_distance,
+                                                write_diploid_polish_dataset)
+    t0 = time.perf_counter()
+    ds = write_diploid_polish_dataset(
+        f"{work}/diploid", DiploidPolishSynthConfig(
+            contig_len=span, coverage=30.0, read_len=(5000, 30000),
+            p_sub=0.03, p_ins=0.02, p_del=0.03, chunk_size=100_000,
+            chunk_boundary=1000, seed=13))
+    gen_s = time.perf_counter() - t0
+    log(f"diploid dataset: {span} bp, {len(ds.hets)} het sites, "
+        f"{len(ds.draft_edits)} draft edits, {len(ds.read_hap)} reads, "
+        f"generated in {gen_s:.1f} s")
+    log_path = os.path.join(out_dir, "chip_smoke_diploid.log")
+    rec = Recorder()
+    rec.install()
+    zero_counters()
+    try:
+        wall = run_cli(["polish", ds.bam, ds.draft, ds.params, "-o",
+                        f"{work}/dip", "--diploid", "--device", device,
+                        "--profile"], log_path)
+    finally:
+        rec.restore()
+    launches = read_counters()
+    routes = {"k2_items": banded.ROUTES.pack_items,
+              "k3_items": banded.ROUTES.seg_items,
+              "host_items": banded.ROUTES.host_items,
+              "k2_packs": banded.ROUTES.packs,
+              "k3_packs": banded.ROUTES.seg_packs}
+    scoring = DEVICE_STATS.snapshot()
+    kms = rec.kernel_ms()
+    with open(f"{work}/dip.profile.json") as fh:
+        prof = json.load(fh)
+    agree, tagged = haplotag_agreement(f"{work}/dip.haplotagged.bam",
+                                       ds.read_hap)
+    t0 = time.perf_counter()
+    seqs = {"draft": fasta_seq(ds.draft),
+            "hap1": fasta_seq(f"{work}/dip.hap1.fa"),
+            "hap2": fasta_seq(f"{work}/dip.hap2.fa")}
+    truths = {"truth1": fasta_seq(ds.truth1), "truth2": fasta_seq(ds.truth2)}
+    # banded distances are upper bounds (see phase_polish)
+    ed = {f"{a}-{b}": banded_edit_distance(seqs[a], truths[b], 300)
+          for a in seqs for b in truths}
+    ed_s = time.perf_counter() - t0
+    log(f"diploid polish {span} bp: wall {wall:.1f} s; launches {launches}; "
+        f"kernel ms { {k: round(v, 1) for k, v in kms.items()} }; routes "
+        f"{routes}; haplotag agreement {agree:.4f} on {tagged} reads; edit "
+        f"distances {ed} ({ed_s:.1f} s)")
+    log(f"diploid stages: {prof.get('stages_s')}; chunk stages: "
+        f"{prof.get('chunk_stage_totals_s')}")
+    log(f"diploid device ms: { {k: round(v, 1) for k, v in kms.items()} }")
+    missing = [k for k in ("K1", "K2-fwd", "K2-bwd", "K3-fwd", "K3-bwd")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the diploid path never launched: "
+                             f"{missing}")
+    if agree < 0.9:
+        raise AssertionError(f"diploid haplotag agreement {agree:.4f} < 0.9")
+    return {"wall_s": wall, "launches": launches, "routes": routes,
+            "kernel_ms": kms, "scoring": scoring, "profile": prof,
+            "haplotag_agreement": agree, "tagged_reads": tagged,
+            "edit_distances": ed,
+            "lengths": {k: len(v) for k, v in {**seqs, **truths}.items()},
+            "dataset_s": gen_s, "span": span}, ds
+
+
+def bam_records(path):
+    from margin_tpu_torch.io import bam as bamio
+    with bamio.BamReader(path) as r:
+        return [(rec.name, rec.flag, rec.pos, rec.tags_blob()) for rec in r]
+
+
+def phase_diploid_region(ds, work, region_len=10_000):
+    """Diploid polish of a sub-region in process through the kernels, then
+    through the plain twins bound in their place (SEG_MIN_D lowered to
+    2048 so K3 runs): identical hap FASTAs and haplotagged BAM records."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.params import Params
+    from margin_tpu_torch.polish.driver import run_polish
+    params = Params.load(ds.params)
+    mid = len(fasta_seq(ds.draft)) // 2
+    region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
+    saved_min = banded.SEG_MIN_D
+    banded.SEG_MIN_D = 2048
+    plain = twins()
+    saved = {k: getattr(*k) for k in plain}
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        run_polish(ds.bam, ds.draft, params, f"{work}/dk", region=region,
+                   diploid=True, use_lut=True, device="cuda",
+                   log=lambda *a: None)
+        torch_sync()
+        kern_s = time.perf_counter() - t0
+        launches = read_counters()
+        seg_items = banded.ROUTES.seg_items
+        for (mod, name), fn in plain.items():
+            setattr(mod, name, fn)
+        t0 = time.perf_counter()
+        run_polish(ds.bam, ds.draft, params, f"{work}/dp", region=region,
+                   diploid=True, use_lut=True, device="cuda",
+                   log=lambda *a: None)
+        torch_sync()
+        plain_s = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+        banded.SEG_MIN_D = saved_min
+    if launches["K1"] == 0 or launches["K3-fwd"] == 0 or seg_items == 0:
+        raise AssertionError(f"{region}: K1 or K3 did not run ({launches})")
+    for ext in ("hap1.fa", "hap2.fa"):
+        with open(f"{work}/dk.{ext}", "rb") as a, \
+                open(f"{work}/dp.{ext}", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{region}: kernel and plain diploid "
+                                     f"{ext} differ")
+    recs = bam_records(f"{work}/dk.haplotagged.bam")
+    if recs != bam_records(f"{work}/dp.haplotagged.bam"):
+        raise AssertionError(f"{region}: kernel and plain haplotagged BAM "
+                             "records differ")
+    log(f"diploid polish {region} (SEG_MIN_D 2048, {seg_items} items on "
+        f"K3, launches {launches}): kernels {kern_s:.1f} s, plain twins "
+        f"{plain_s:.1f} s, hap FASTAs and {len(recs)} haplotagged BAM "
+        "records identical")
+    return {"region": region, "kernel_s": kern_s, "plain_s": plain_s,
+            "launches": launches, "k3_items": seg_items,
+            "bam_records": len(recs)}
 
 
 def phase_k3_main_path(rec, max_b=16):
@@ -1113,7 +1301,20 @@ SOURCES = {
 }
 
 
-def main() -> int:
+PHASES = ("kernels", "phase", "polish", "diploid")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated subset of %s to run after the "
+                         "build, for iterating on one path; the kernels "
+                         "line is printed only when all run" % (PHASES,))
+    args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(PHASES):
+        ap.error(f"--only takes names from {PHASES}")
     try:
         import torch
     except ImportError:
@@ -1140,41 +1341,51 @@ def main() -> int:
     t_start = time.perf_counter()
     report = {"card": card, "device": torch.cuda.get_device_name(0)}
     report["build"] = phase_build()
-    report["k1"] = phase_k1("cuda")
-    report["k2"] = phase_k2("cuda")
-    report["k3"] = phase_k3("cuda")
-    report["k3_deep"] = phase_k3_deep("cuda")
+    if "kernels" in only:
+        report["k1"] = phase_k1("cuda")
+        report["k2"] = phase_k2("cuda")
+        report["k3"] = phase_k3("cuda")
+        report["k3_deep"] = phase_k3_deep("cuda")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        report["phase"], rec = phase_e2e("cuda", work, out_dir)
-        report["main_path_shapes"] = phase_main_path_shapes(rec)
-        report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
-        report["polish_region"] = phase_polish_region(ds, work)
-        report["main_path_shapes"].update(phase_k3_main_path(prec))
-        summed = {k: report["phase"]["kernel_ms"][k]
-                  + report["polish"]["kernel_ms"][k]
-                  for k in report["polish"]["kernel_ms"]}
-        report["main_path_device_ms"] = summed
-        log("device ms summed over the phase and polish runs' launches: "
-            f"{ {k: round(v, 1) for k, v in summed.items()} }")
+        if "phase" in only:
+            report["phase"], rec = phase_e2e("cuda", work, out_dir)
+            report["main_path_shapes"] = phase_main_path_shapes(rec)
+        if "polish" in only:
+            report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
+            report["polish_region"] = phase_polish_region(ds, work)
+            report.setdefault("main_path_shapes", {}).update(
+                phase_k3_main_path(prec))
+        if "diploid" in only:
+            report["diploid"], dds = phase_diploid("cuda", work, out_dir)
+            report["diploid_region"] = phase_diploid_region(dds, work)
+        if "phase" in only and "polish" in only:
+            summed = {k: report["phase"]["kernel_ms"][k]
+                      + report["polish"]["kernel_ms"][k]
+                      for k in report["polish"]["kernel_ms"]}
+            report["main_path_device_ms"] = summed
+            log("device ms summed over the phase and polish runs' launches: "
+                f"{ {k: round(v, 1) for k, v in summed.items()} }")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["total_s"] = time.perf_counter() - t_start
-    kernels = []
-    for name, (src, rep) in SOURCES.items():
-        m = report["main_path_shapes"][name]
-        path = "polish" if name.startswith("K3") else "phase"
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep,
-                        "launches": report[path]["launches"][name],
-                        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                        "bound_by": m["bound_by"], "library_ms": None})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)
     log(f"total {report['total_s']:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    if only == set(PHASES):
+        kernels = []
+        for name, (src, rep) in SOURCES.items():
+            m = report["main_path_shapes"][name]
+            path = "polish" if name.startswith("K3") else "phase"
+            kernels.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": rep,
+                            "launches": report[path]["launches"][name],
+                            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                            "plain_ms": m["plain_ms"],
+                            "bound_ms": m["bound_ms"],
+                            "bound_by": m["bound_by"], "library_ms": None})
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,11 @@ package.
     one fails to build, `native_lib` returns None and the caller takes the
     same pure-Python path the JAX package takes (host code, not a device
     fallback).
+  * marginio includes <libdeflate.h>. Where the system's libdeflate does
+    not compile and link (a one-line trial, `deflate_variant`), it builds
+    against `csrc/compat/libdeflate.h`, the same calls over zlib, and
+    links -lz alone. `deflate_variant()` says which: "libdeflate" or
+    "zlib stand-in".
 
 Builds are serialised across processes with a lock file and land by
 atomic rename, so concurrent test workers never load a half-written
@@ -57,11 +62,17 @@ _NATIVE_LIBS = {
     "marginpoa": ["-shared", "-lm"],
 }
 
+COMPAT = os.path.join(CSRC, "compat")
+DEFLATE_SYSTEM = "libdeflate"
+DEFLATE_STAND_IN = "zlib stand-in"
+
 KERNEL_SOURCES = ("pairhmm_forward", "banded_fb", "banded_seg")
 NATIVE_ENGINES = tuple(_NATIVE_FLAGS)
 
 _loaded: Dict[str, Optional[ctypes.CDLL]] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+LOAD_ERRORS: Dict[str, str] = {}
+_deflate: List[str] = []
 
 
 def nvcc_path() -> str:
@@ -79,8 +90,38 @@ def _source(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def deflate_variant() -> str:
+    """DEFLATE_SYSTEM when a program that includes <libdeflate.h> and links
+    -ldeflate builds here, else DEFLATE_STAND_IN (decided once)."""
+    if not _deflate:
+        trial = ("#include <libdeflate.h>\n"
+                 "int main() { libdeflate_free_compressor(0); }\n")
+        try:
+            ok = subprocess.run(
+                ["g++", "-x", "c++", "-", "-o", os.devnull, "-ldeflate"],
+                input=trial.encode(), stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL).returncode == 0
+        except OSError:
+            ok = False
+        _deflate.append(DEFLATE_SYSTEM if ok else DEFLATE_STAND_IN)
+    return _deflate[0]
+
+
+def marginio_command(out: str, deflate: str) -> List[str]:
+    """The g++ command that builds marginio into `out` against the system's
+    libdeflate (DEFLATE_SYSTEM) or the zlib stand-in (DEFLATE_STAND_IN)."""
+    if deflate == DEFLATE_SYSTEM:
+        return (_NATIVE_FLAGS["marginio"] + ["-o", out, _source("marginio")]
+                + _NATIVE_LIBS["marginio"])
+    libs = [f for f in _NATIVE_LIBS["marginio"] if f != "-ldeflate"]
+    return (_NATIVE_FLAGS["marginio"] + ["-I", COMPAT, "-o", out,
+                                         _source("marginio")] + libs)
+
+
 def _command(name: str, out: str) -> List[str]:
     src = _source(name)
+    if name == "marginio":
+        return marginio_command(out, deflate_variant())
     if name in _NATIVE_FLAGS:
         return _NATIVE_FLAGS[name] + ["-o", out, src] + _NATIVE_LIBS[name]
     return [nvcc_path()] + NVCC_FLAGS + ["-o", out, src]
@@ -88,6 +129,8 @@ def _command(name: str, out: str) -> List[str]:
 
 def _inputs(name: str) -> List[str]:
     """The source and, for a kernel, the shared headers it includes."""
+    if name == "marginio":
+        return [_source(name), os.path.join(COMPAT, "libdeflate.h")]
     if name in _NATIVE_FLAGS:
         return [_source(name)]
     return [_source(name)] + sorted(
@@ -159,8 +202,8 @@ def native_lib(name: str) -> Optional[ctypes.CDLL]:
         if _fresh(name):
             try:
                 lib = ctypes.CDLL(_so_path(name))
-            except OSError:
-                lib = None
+            except OSError as e:
+                LOAD_ERRORS[name] = str(e)
         _loaded[name] = lib
     return _loaded[name]
 

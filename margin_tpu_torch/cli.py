@@ -1,12 +1,12 @@
 """Command line interface: `python -m margin_tpu_torch phase|polish ...`.
 
 Counterpart of `margin_tpu/cli.py` (margin.c dispatch + phase.c/polish.c
-argument handling): the common flags, the `phase` subcommand, the haploid
-`polish` subcommand and `--device {cuda,cpu}`, which takes the place of
-JAX_PLATFORMS. The aux tools, `--workers process`,
-`--hosts`/`--host-id`/`--coordinator`, `--jaxTrace` and the polish flags
-of diploid polish, HELEN features, supplementary outputs and VCF-guided
-polish are not ported yet and stop with an error naming their ROADMAP
+argument handling): the common flags, the `phase` subcommand, the
+`polish` subcommand (haploid and `--diploid`, with VCF-guided polish and
+the supplementary outputs) and `--device {cuda,cpu}`, which takes the
+place of JAX_PLATFORMS. The aux tools, `--workers process`,
+`--hosts`/`--host-id`/`--coordinator`, `--jaxTrace` and the HELEN feature
+flags are not ported yet and stop with an error naming their ROADMAP
 item.
 """
 
@@ -19,46 +19,57 @@ import sys
 _AUX_TOOLS = ("calcLocalPhasingCorrectness", "tagFromIds",
               "tagFromPhasedVcf", "runLengthMatrix")
 
-_DIPLOID = "Diploid polish"
 _HELEN = "HELEN, EM with K4, and the aux tools"
-# polish flags of margin_tpu/cli.py:108-156 this package does not run yet:
+_SCALE = "IPC workers, multi-GPU and multi-host"
+# polish flags of margin_tpu/cli.py:126-138 this package does not run yet:
 # (flags, dest, what, ROADMAP queue 1 item)
 _UNPORTED_POLISH = [
-    (("-2", "--diploid"), "diploid", "diploid polish", _DIPLOID),
-    (("-v", "--vcf"), "vcf", "VCF-guided polish", _DIPLOID),
-    (("-A", "--onlyVcfAlleles"), "onlyVcfAlleles", "VCF-only alleles",
-     _DIPLOID),
-    (("-T", "--skipOutputFasta"), "skipOutputFasta",
-     "polish without a FASTA", _DIPLOID),
-    (("-S", "--skipFilteredReads"), "skipFilteredReads",
-     "filtered-read haplotyping", _DIPLOID),
-    (("-R", "--skipRealignment"), "skipRealignment",
-     "CIGAR-only haplotyping", _DIPLOID),
-    (("-M", "--skipHaplotypeBAM"), "skipHaplotypeBAM",
-     "the haplotagged polish BAM", _DIPLOID),
-    (("-n", "--outputHaplotypeReads"), "outputHaplotypeReads",
-     "phased-read outputs", _DIPLOID),
-    (("-s", "--outputPhasingState"), "outputPhasingState",
-     "phasing-state outputs", _DIPLOID),
     (("-f", "--produceFeatures"), "produceFeatures", "HELEN features",
      _HELEN),
     (("-F", "--featureType"), "featureType", "HELEN features", _HELEN),
     (("-L", "--splitRleWeightMaxRL"), "splitRleWeightMaxRL",
      "HELEN features", _HELEN),
     (("-u", "--trueReferenceBam"), "trueReferenceBam",
-     "HELEN feature labels", _HELEN),
+     "HELEN feature labels and the truth-haplotype partition", _HELEN),
     (("--fullFeatureOutput",), "fullFeatureOutput", "HELEN features",
      _HELEN),
-    (("-i", "--outputRepeatCounts"), "outputRepeatCounts",
-     "supplementary repeat-count outputs", _DIPLOID),
-    (("-j", "--outputPoaCsv"), "outputPoaCsv", "supplementary POA outputs",
-     _DIPLOID),
-    (("-d", "--outputPoaDot"), "outputPoaDot", "supplementary POA outputs",
-     _DIPLOID),
 ]
 # flags that take a value
-_UNPORTED_WITH_VALUE = {"vcf", "featureType", "splitRleWeightMaxRL",
+_UNPORTED_WITH_VALUE = {"featureType", "splitRleWeightMaxRL",
                         "trueReferenceBam"}
+
+
+def _add_polish(po):
+    """The polish flags of margin_tpu/cli.py:110-156 that this package
+    runs."""
+    po.add_argument("-2", "--diploid", action="store_true")
+    po.add_argument("-v", "--vcf", default=None,
+                    help="VCF with variants for diploid phasing")
+    po.add_argument("-A", "--onlyVcfAlleles", action="store_true",
+                    help="only consider alleles from the VCF (requires "
+                         "non-RLE params and --skipOutputFasta)")
+    po.add_argument("-T", "--skipOutputFasta", action="store_true",
+                    help="skip consensus FASTA output (diploid: only the "
+                         "haplotagged BAM and ancillary files are written)")
+    po.add_argument("-S", "--skipFilteredReads", action="store_true",
+                    help="do NOT haplotype filtered reads (--diploid only; "
+                         "polish.c:51)")
+    po.add_argument("-R", "--skipRealignment", action="store_true",
+                    help="fill the POA from CIGAR likelihoods only, no DP "
+                         "realignment (--diploid haplotyping; polish.c:52)")
+    po.add_argument("-M", "--skipHaplotypeBAM", action="store_true",
+                    help="do not write the haplotagged BAM (--diploid only)")
+    po.add_argument("-i", "--outputRepeatCounts", action="store_true",
+                    help="write per-chunk repeat count observations as CSV")
+    po.add_argument("-j", "--outputPoaCsv", action="store_true",
+                    help="write per-chunk POA as CSV")
+    po.add_argument("-d", "--outputPoaDot", action="store_true",
+                    help="write per-chunk POA as DOT")
+    po.add_argument("-n", "--outputHaplotypeReads", action="store_true",
+                    help="write phased reads and likelihoods as CSV "
+                         "(--diploid only)")
+    po.add_argument("-s", "--outputPhasingState", action="store_true",
+                    help="write phasing likelihoods as JSON (--diploid only)")
 
 
 def _add_common(p):
@@ -135,8 +146,9 @@ def main(argv=None):
     ph.add_argument("vcf", help="VCF with variants to phase")
     ph.add_argument("-M", "--skipHaplotypeBAM", action="store_true")
     ph.add_argument("-V", "--skipPhasedVCF", action="store_true")
-    po = sub.add_parser("polish", help="polish an assembly (haploid)")
+    po = sub.add_parser("polish", help="polish an assembly")
     _add_common(po)
+    _add_polish(po)
     for flags, dest, _what, _item in _UNPORTED_POLISH:
         if dest in _UNPORTED_WITH_VALUE:
             po.add_argument(*flags, dest=dest, default=None,
@@ -158,14 +170,17 @@ def main(argv=None):
             if getattr(args, dest) not in (None, False):
                 top.error(f"{flags[-1]}: {what} is not ported yet (ROADMAP "
                           f"queue 1, \"{item}\")")
+        if args.diploid and (args.checkpoint or args.shard is not None
+                             or args.threads > 1):
+            top.error("--checkpoint, --shard and -t of --diploid are not "
+                      f"ported yet (ROADMAP queue 1, \"{_SCALE}\")")
     if args.workers == "process" and args.threads > 1:
         top.error("--workers process is not ported yet (ROADMAP queue 1, "
-                  "\"IPC workers, multi-GPU and multi-host\")")
+                  f"\"{_SCALE}\")")
     if args.hosts is not None or args.host_id is not None \
             or args.coordinator is not None:
         top.error("--hosts/--host-id/--coordinator are not ported yet "
-                  "(ROADMAP queue 1, \"IPC workers, multi-GPU and "
-                  "multi-host\")")
+                  f"(ROADMAP queue 1, \"{_SCALE}\")")
     if args.jaxTrace is not None:
         top.error("--jaxTrace traces JAX, which this package does not use; "
                   "use --profile")
@@ -173,6 +188,18 @@ def main(argv=None):
                        (args.params, "params")]:
         if not os.path.exists(path):
             top.error(f"Could not read from input {desc} file: {path}")
+    if args.command == "polish":
+        if args.vcf is not None and not os.path.exists(args.vcf):
+            top.error(f"Could not read from vcf file: {args.vcf}")
+        if args.onlyVcfAlleles and not args.skipOutputFasta:
+            top.error("The --onlyVcfAlleles parameter must be used with "
+                      "the --skipOutputFasta option")
+        if args.skipOutputFasta and (args.outputPoaCsv
+                                     or args.outputRepeatCounts
+                                     or args.outputPoaDot):
+            # polish.c:313-314
+            top.error("Cannot --outputPoaCsv, --outputRepeatCounts, or "
+                      "--outputPoaDot with --skipOutputFasta")
 
     from margin_tpu_torch.params import Params
     params = Params.load(args.params)
@@ -209,9 +236,21 @@ def main(argv=None):
     else:
         from margin_tpu_torch.polish.driver import run_polish
         run_polish(args.bam, args.reference, params, args.outputBase,
-                   region=args.region, seed=args.seed,
-                   use_lut=args.lut_logadd, checkpoint=args.checkpoint,
-                   shard=shard, profiler=profiler, threads=args.threads,
+                   region=args.region, diploid=args.diploid, seed=args.seed,
+                   use_lut=args.lut_logadd,
+                   output_poa_csv=args.outputPoaCsv,
+                   output_poa_dot=args.outputPoaDot,
+                   output_repeat_counts=args.outputRepeatCounts,
+                   output_haplotype_reads=args.outputHaplotypeReads,
+                   output_phasing_state=args.outputPhasingState,
+                   vcf_file=args.vcf,
+                   only_use_vcf_alleles=args.onlyVcfAlleles,
+                   skip_output_fasta=args.skipOutputFasta,
+                   skip_filtered_reads=args.skipFilteredReads,
+                   skip_realignment=args.skipRealignment,
+                   skip_haplotype_bam=args.skipHaplotypeBAM,
+                   checkpoint=args.checkpoint, shard=shard,
+                   profiler=profiler, threads=args.threads,
                    device=args.device, log=log)
         profiler.log_summary(log)
     profiler.write(f"{args.outputBase}.profile.json")

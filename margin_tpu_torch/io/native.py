@@ -21,8 +21,13 @@ def lib() -> Optional[ctypes.CDLL]:
     _TRIED = True
     from margin_tpu_torch import _ext
     L = _ext.native_lib("marginio")
-    if L is None:
-        return None
+    if L is not None:
+        _LIB = bind(L)
+    return _LIB
+
+
+def bind(L: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare marginio's C entry points on the loaded library L."""
     L.mio_open.restype = ctypes.c_void_p
     L.mio_open.argtypes = [ctypes.c_char_p]
     L.mio_close.argtypes = [ctypes.c_void_p]
@@ -86,15 +91,15 @@ def lib() -> Optional[ctypes.CDLL]:
     L.mio_rle_dedup.restype = ctypes.c_int64
     L.mio_rle_dedup.argtypes = [np.ctypeslib.ndpointer(np.int64),
                                 ctypes.c_int64, ctypes.c_int64]
-    _LIB = L
-    return _LIB
+    return L
 
 
 class NativeBam:
-    """Thin wrapper over the native BAM handle."""
+    """Thin wrapper over the native BAM handle (of `engine`, a library
+    from `bind`, or the port's own build)."""
 
-    def __init__(self, path: str):
-        L = lib()
+    def __init__(self, path: str, engine: Optional[ctypes.CDLL] = None):
+        L = engine or lib()
         if L is None:
             raise RuntimeError("native marginio library unavailable")
         self._lib = L
@@ -225,10 +230,11 @@ class NativeBam:
 
 def write_haplotagged_native(bam_in: str, bam_out: str, tags: Dict[str, int],
                              tid: int = -1, start: int = -1, end: int = -1,
-                             include_secondary=False, include_supplementary=False):
+                             include_secondary=False, include_supplementary=False,
+                             engine: Optional[ctypes.CDLL] = None):
     """Native haplotagged-BAM rewrite. tags: read name -> 1/2.
     Returns (h1, h2, h0) counts or None if native lib unavailable."""
-    L = lib()
+    L = engine or lib()
     if L is None:
         return None
     names = list(tags.keys())

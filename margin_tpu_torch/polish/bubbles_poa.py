@@ -6,8 +6,6 @@ impl/bubbleGraph.c:186-423 (candidate machinery, consensus path/string),
 :506-602 (read substrings), :910-1123 (bubbleGraph_constructFromPoaAndVCF).
 Allele supports are scored with the dense pair-HMM forward (kernel K1,
 through `parallel/executor.score_pairs`), one call per chunk.
-`bubble_graph_from_poa_and_vcf_only_alleles` waits for the `-v` VCF mode
-(ROADMAP queue 1, "Diploid polish").
 """
 
 from __future__ import annotations
@@ -270,6 +268,43 @@ def get_candidate_consensus_substrings(poa: Poa, start: int, end: int,
 
 
 # -- bubble graph from POA (bubbleGraph.c:918-1123) --------------------------
+
+def bubble_graph_from_poa_and_vcf_only_alleles(
+        poa: Poa, reads: List[PoaRead], rle_reference: RleString,
+        vcf_entries, params: Params, tables: pairhmm.PairHmmTables,
+        use_lut: bool = False) -> BubbleGraph:
+    """bubbleGraph_constructFromPoaAndVCFOnlyVCFAllele
+    (bubbleGraph.c:1126-1290): one bubble per VCF entry with exactly the
+    VCF's alleles (plus reference context), no consensus-derived
+    candidates. Requires non-RLE params (polish.c:364-367)."""
+    from margin_tpu_torch.phase.variants import get_allele_substrings
+    pp = params.polish
+    expanded_ref = rle_reference.expand()
+    poa.sort_observations()
+    bubbles: List[Bubble] = []
+    pending = []
+    for vcf in vcf_entries:
+        alleles = get_allele_substrings(vcf, expanded_ref, params, True,
+                                        pp.columnAnchorTrim)
+        ref_start = vcf.ref_aln_start
+        ref_end_incl = vcf.ref_aln_stop_incl
+        subs = get_read_substrings(reads, poa, ref_start, ref_end_incl, pp)
+        if not subs:  # nothing to phase with (bubbleGraph.c:1152-1156)
+            continue
+        bubble_reads = list(reversed(subs))  # stList_pop order
+        allele_rles = [a.copy() for a in alleles]
+        b = Bubble(ref_start, ref_end_incl - ref_start, -1, vcf,
+                   allele_rles[0].copy(), bubble_reads, allele_rles,
+                   np.zeros((len(allele_rles), len(bubble_reads)),
+                            dtype=np.float32))
+        b.variant_position_offsets = [vcf.ref_pos]  # bubbleGraph.c:1170-1171
+        pending.append(b)
+        bubbles.append(b)
+    _score_bubbles(pending, tables, pp, use_lut)
+    bg = BubbleGraph(bubbles)
+    bg.ref_string = poa.ref_string
+    return bg
+
 
 def bubble_graph_from_poa(poa: Poa, reads: List[PoaRead], vcf_entries,
                           params: Params, tables: pairhmm.PairHmmTables,

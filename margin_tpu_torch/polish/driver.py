@@ -1,18 +1,19 @@
-"""Haploid `margin polish` driver.
+"""`margin polish` driver (haploid and diploid).
 
-Counterpart of the haploid part of `margin_tpu/polish/driver.py`
-(`poa_realign_iterative`, `poa_realign_all`, `run_polish` :116-376) with an
-explicit `device`. Parity: polish_main (polish.c:87-1014): per chunk,
-realign the reads to the chunk's reference with the banded
+Counterpart of `margin_tpu/polish/driver.py` (`poa_realign_iterative`,
+`poa_realign_all`, `run_polish` :116-376, `run_polish_diploid` :379-763)
+with an explicit `device`. Parity: polish_main (polish.c:87-1014): per
+chunk, realign the reads to the chunk's reference with the banded
 forward-backward (K2, or K3 for reads over SEG_MIN_D diagonals), build the
 POA, call consensus with bubble scoring on the dense forward (K1),
 re-estimate run lengths, then stitch the chunk sequences into the polished
-FASTA.
+FASTA. Diploid adds bubble-graph phasing over the POA, per-haplotype
+consensus, phased stitching and the haplotagged BAM.
 
-Not ported in this slice, each raising NotImplementedError that names its
-ROADMAP queue 1 item: diploid polish, HELEN features, the supplementary
-POA/repeat-count outputs, VCF-guided polish and multi-host runs. The JAX
-package's device-mesh block has no counterpart (one GPU).
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+queue 1 item: HELEN features, multi-host runs, and diploid polish's
+checkpoints, shards and chunk threads. The JAX package's device-mesh
+block has no counterpart (one GPU).
 """
 
 from __future__ import annotations
@@ -24,13 +25,16 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
+
 from margin_tpu_torch import _ext
 from margin_tpu_torch.io import bam as bamio
 from margin_tpu_torch.io.fasta import FastaIndex, write_fasta
 from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.params import Params
 from margin_tpu_torch.phase import chunker as chunkermod
-from margin_tpu_torch.polish import bubbles_poa, repeats, stitcher
+from margin_tpu_torch.phase.downsample import knapsack_probs
+from margin_tpu_torch.polish import bubbles_poa, outputs, repeats, stitcher
 from margin_tpu_torch.polish.poa import Poa, PoaRead, poa_realign
 from margin_tpu_torch.polish.reads import convert_to_reads_and_alignments
 from margin_tpu_torch.rle import RleString
@@ -41,6 +45,11 @@ from margin_tpu_torch.utils import profiling
 class PolishOutputs:
     fasta: Optional[str] = None
     sequences: Optional[list] = None
+    hap1_fasta: Optional[str] = None
+    hap2_fasta: Optional[str] = None
+    haplotagged_bam: Optional[str] = None
+    hap1_count: int = 0
+    hap2_count: int = 0
 
 
 def poa_realign_iterative(poa: Poa, reads: List[PoaRead], params: Params,
@@ -105,9 +114,21 @@ def poa_realign_all(reads: List[PoaRead], alignments, reference: RleString,
     return poa
 
 
+_HELEN = "HELEN, EM with K4, and the aux tools"
+_SCALE = "IPC workers, multi-GPU and multi-host"
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
                               f"\"{item}\")")
+
+
+def _write_chunks_csv(output_base: str, chunkr) -> None:
+    """The per-run chunk geometry dump (polish.c:410-418)."""
+    with open(f"{output_base}.chunks.csv", "w") as fh:
+        for c in chunkr.chunks:
+            fh.write(f"{c.ref_name},{c.chunk_overlap_start},"
+                     f"{c.chunk_overlap_end},{c.chunk_start},{c.chunk_end}\n")
 
 
 def run_polish(bam_file: str, reference_fasta: str, params: Params,
@@ -116,16 +137,25 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
                feature_type: Optional[str] = None,
                output_poa_csv: bool = False, output_poa_dot: bool = False,
                output_repeat_counts: bool = False,
+               output_haplotype_reads: bool = False,
+               output_phasing_state: bool = False,
                vcf_file: Optional[str] = None,
+               only_use_vcf_alleles: bool = False,
+               skip_output_fasta: bool = False,
                checkpoint: bool = False,
                shard: Optional[tuple] = None,
+               skip_filtered_reads: bool = False,
+               skip_realignment: bool = False,
+               skip_haplotype_bam: bool = False,
                profiler=None,
                threads: int = 1,
                hosts: Optional[tuple] = None,
                device="cuda",
                log=print) -> PolishOutputs:
-    """Haploid polish_main (polish.c:87-1014): BAM + draft FASTA + params in,
-    `<output_base>.fa` (and `<output_base>.chunks.csv`) out.
+    """polish_main (polish.c:87-1014): BAM + draft FASTA + params in,
+    `<output_base>.fa` (and `<output_base>.chunks.csv`) out; diploid=True
+    runs run_polish_diploid. The haploid path takes no VCF and ignores the
+    diploid-only flags, as margin_tpu's does.
 
     shard=(i, n) polishes every nth chunk (offset i) into the shared
     checkpoint directory; shard=("merge",) combines. threads>1 runs chunks
@@ -133,19 +163,24 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
     the same streams as shard mode. device: "cuda" (default) runs the
     kernels on the GPU; "cpu" runs their plain PyTorch twins. CUDA asked
     for and absent raises."""
-    if diploid:
-        _not_ported("diploid polish (--diploid)", "Diploid polish")
     if feature_type is not None:
-        _not_ported("HELEN feature output", "HELEN, EM with K4, and the "
-                    "aux tools")
-    if output_poa_csv or output_poa_dot or output_repeat_counts:
-        _not_ported("supplementary POA / repeat-count outputs",
-                    "Diploid polish")
-    if vcf_file is not None:
-        _not_ported("VCF-guided polish (-v)", "Diploid polish")
+        _not_ported("HELEN feature output", _HELEN)
     if hosts is not None:
-        _not_ported("multi-host polish", "IPC workers, multi-GPU and "
-                    "multi-host")
+        _not_ported("multi-host polish", _SCALE)
+    if diploid:
+        return run_polish_diploid(
+            bam_file, reference_fasta, params, output_base, region=region,
+            seed=seed, use_lut=use_lut, output_poa_csv=output_poa_csv,
+            output_poa_dot=output_poa_dot,
+            output_repeat_counts=output_repeat_counts,
+            output_haplotype_reads=output_haplotype_reads,
+            output_phasing_state=output_phasing_state, vcf_file=vcf_file,
+            only_use_vcf_alleles=only_use_vcf_alleles,
+            skip_output_fasta=skip_output_fasta, checkpoint=checkpoint,
+            shard=shard, skip_filtered_reads=skip_filtered_reads,
+            skip_realignment=skip_realignment,
+            skip_haplotype_bam=skip_haplotype_bam, profiler=profiler,
+            threads=threads, device=device, log=log)
     device = _ext.resolve_device(device)
     bamio.set_cram_reference(reference_fasta)
     profiler = profiler or profiling.NULL
@@ -162,10 +197,7 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         chunkr = chunkermod.construct_chunker(bam_file, region, None, pp,
                                               record_filtered_reads=False)
     log(f"> Built {len(chunkr.chunks)} chunks")
-    with open(f"{output_base}.chunks.csv", "w") as fh:
-        for c in chunkr.chunks:   # polish.c:410-418
-            fh.write(f"{c.ref_name},{c.chunk_overlap_start},"
-                     f"{c.chunk_overlap_end},{c.chunk_start},{c.chunk_end}\n")
+    _write_chunks_csv(output_base, chunkr)
     fasta = FastaIndex(reference_fasta)
     tables = pairhmm.PairHmmTables.from_params(
         pp.sm_forward, pp.sm_reverse,
@@ -218,6 +250,10 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
             with profiler.chunk_stage(chunk.chunk_idx, "repeat_counts"):
                 repeats.estimate_repeat_counts(poa, reads,
                                                pp.repeat_sub_matrix)
+        if output_poa_csv or output_poa_dot or output_repeat_counts:
+            outputs.write_supplemental_chunk_information(
+                output_base, chunk.chunk_idx, chunk, poa, reads, params,
+                output_poa_dot, output_poa_csv, output_repeat_counts)
         seq_rec = (chunk.ref_name, chunk.chunk_idx, poa.ref_string.expand())
         with ckpt_lock:
             ckpt.save(chunk.chunk_idx, {
@@ -264,6 +300,13 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
             f"to produce outputs")
         return PolishOutputs()
 
+    if skip_output_fasta:
+        # polish.c --skipOutputFasta: supplementary files only
+        if ckpt.enabled:
+            log(f"> {ckpt.report()}")
+        ckpt.finalize()
+        log(f"> Finished (skipped FASTA output) in {time.time() - t0:.1f}s")
+        return PolishOutputs()
     with profiler.stage("stitch"):
         sequences = stitcher.stitch_sequences(chunk_seqs, params, device)
     out = PolishOutputs(fasta=f"{output_base}.fa", sequences=sequences)
@@ -272,4 +315,268 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         log(f"> {ckpt.report()}")
     ckpt.finalize()
     log(f"> Wrote polished FASTA {out.fasta} in {time.time() - t0:.1f}s")
+    return out
+
+
+def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
+                       output_base: str, region: Optional[str] = None,
+                       seed: int = 0, use_lut: bool = False,
+                       output_poa_csv: bool = False,
+                       output_poa_dot: bool = False,
+                       output_repeat_counts: bool = False,
+                       output_haplotype_reads: bool = False,
+                       output_phasing_state: bool = False,
+                       vcf_file: Optional[str] = None,
+                       only_use_vcf_alleles: bool = False,
+                       skip_output_fasta: bool = False,
+                       checkpoint: bool = False,
+                       shard: Optional[tuple] = None,
+                       skip_filtered_reads: bool = False,
+                       skip_realignment: bool = False,
+                       skip_haplotype_bam: bool = False,
+                       profiler=None,
+                       threads: int = 1,
+                       hosts: Optional[tuple] = None,
+                       device="cuda",
+                       log=print) -> PolishOutputs:
+    """polish_main --diploid (polish.c:620-863): per-chunk bubble phasing +
+    per-hap consensus, phased stitching (seam vote + trim both haps),
+    phased FASTAs + haplotagged BAM. With `vcf_file`, candidate variant
+    positions come from the VCF; `only_use_vcf_alleles` restricts alleles
+    to the VCF's (requires non-RLE params and skip_output_fasta,
+    polish.c:364-371). margin_tpu's truth-haplotype partition
+    (true_reference_bam) comes with HELEN's -u."""
+    from margin_tpu_torch.phase.driver import write_haplotagged_bam
+    from margin_tpu_torch.phase.stitching import (ChunkPhaseResult,
+                                                  stitch_next_chunk)
+    from margin_tpu_torch.polish import diploid as diploidmod
+    if hosts is not None:
+        _not_ported("multi-host polish", _SCALE)
+    if checkpoint or shard is not None:
+        _not_ported("checkpoints and shards of diploid polish", _SCALE)
+    if threads > 1:
+        _not_ported("chunk threads (-t) of diploid polish", _SCALE)
+    device = _ext.resolve_device(device)
+    bamio.set_cram_reference(reference_fasta)
+    profiler = profiler or profiling.NULL
+    rng = random.Random(seed)
+    t0 = time.time()
+    pp = params.polish
+    if not skip_filtered_reads and not pp.skipHaploidPolishingIfDiploid:
+        # polish.c:361-363: only the filtered-read partition path requires
+        # the non-mutating POA; with --skipFilteredReads the reference runs
+        # the refining poa_realignAll instead
+        raise ValueError("Parameter polish->skipHaploidPolishingIfDiploid "
+                         "must be TRUE unless skipFilteredReads is set")
+    if only_use_vcf_alleles:
+        if pp.useRunLengthEncoding:
+            raise ValueError("The --onlyVcfAlleles parameter can only be "
+                             "used without runLengthEncoding")
+        if not skip_output_fasta:
+            raise ValueError("The --onlyVcfAlleles parameter must be used "
+                             "with the --skipOutputFasta option")
+
+    vcf_entries_map = None
+    if vcf_file is not None:
+        from margin_tpu_torch.io.vcf import parse_vcf
+        vcf_entries_map = parse_vcf(vcf_file, region,
+                                    use_rle=pp.useRunLengthEncoding)
+
+    # polish.c:400: filtered reads are only recorded when they will be
+    # partitioned afterwards
+    with profiler.stage("chunker"):
+        chunkr = chunkermod.construct_chunker(
+            bam_file, region, None, pp,
+            record_filtered_reads=not skip_filtered_reads)
+    log(f"> Built {len(chunkr.chunks)} chunks (diploid)")
+    _write_chunks_csv(output_base, chunkr)
+    fasta = FastaIndex(reference_fasta)
+    tables = pairhmm.PairHmmTables.from_params(
+        pp.sm_forward, pp.sm_reverse,
+        repeat=pp.repeat_sub_matrix if pp.useRepeatCountsInAlignment else None,
+        device=device)
+
+    def process_chunk(chunk, reader, rng):
+        raw_ref = fasta.fetch(chunk.ref_name, chunk.chunk_overlap_start,
+                              chunk.chunk_overlap_end).upper()
+        rle_ref = (RleString.encode(raw_ref) if pp.useRunLengthEncoding
+                   else RleString.identity(raw_ref))
+        with profiler.chunk_stage(chunk.chunk_idx, "readextract"):
+            reads, alignments, f_reads, f_alns = \
+                convert_to_reads_and_alignments(chunk, rle_ref, reader, pp,
+                                                keep_filtered=True)
+        # downsample via full read length (polish.c:544-549)
+        if pp.maxDepth > 0 and reads:
+            lengths = np.array([r.rle_read.length for r in reads])
+            span = chunk.chunk_overlap_end - chunk.chunk_overlap_start
+            if lengths.sum() / span >= pp.maxDepth:
+                metrics = np.array([r.full_read_length for r in reads])
+                probs = knapsack_probs(lengths, metrics, pp.maxDepth, span)
+                kept_r, kept_a = [], []
+                for r, a, p in zip(reads, alignments, probs):
+                    if rng.random() < p:
+                        kept_r.append(r)
+                        kept_a.append(a)
+                    elif not skip_filtered_reads:
+                        # polish.c:530: downsampled-out reads only join the
+                        # filtered pool when it will be partitioned
+                        f_reads.append(r)
+                        f_alns.append(a)
+                reads, alignments = kept_r, kept_a
+        with profiler.chunk_stage(chunk.chunk_idx, "poa_realign"):
+            if skip_realignment:
+                # polish.c:591-594: CIGAR-string likelihoods only, POA
+                # unmutated
+                from margin_tpu_torch.polish.poa import \
+                    poa_realign_only_anchor_alignments
+                poa = poa_realign_only_anchor_alignments(reads, alignments,
+                                                         rle_ref, pp)
+            elif pp.skipHaploidPolishingIfDiploid:
+                poa = poa_realign(reads, alignments, rle_ref, pp, tables,
+                                  use_lut=use_lut)
+            else:
+                # polish.c:599-601 (reachable only with --skipFilteredReads)
+                poa = poa_realign_all(reads, alignments, rle_ref, params,
+                                      tables, use_lut, profiler,
+                                      chunk.chunk_idx)
+        chunk_vcf_entries = None
+        if vcf_entries_map is not None:
+            # polish.c:630-642
+            from margin_tpu_torch.phase import variants
+            rle_map = (rle_ref.non_rle_to_rle_map()
+                       if pp.useRunLengthEncoding else None)
+            chunk_vcf_entries, _filtered = variants.get_vcf_entries_for_region(
+                vcf_entries_map, chunk.ref_name, chunk.chunk_overlap_start,
+                chunk.chunk_overlap_end, params, rng, rle_map=rle_map)
+        want_supplemental = (output_poa_csv or output_poa_dot
+                             or output_repeat_counts
+                             or output_haplotype_reads
+                             or output_phasing_state)
+        collect = {} if want_supplemental else None
+        with profiler.chunk_stage(chunk.chunk_idx, "diploid"):
+            (hap1_seq, hap2_seq, hap1_names, hap2_names, gf, phreds,
+             name_by_id) = diploidmod.diploid_chunk(
+                poa, reads, f_reads, f_alns, rle_ref, chunk_vcf_entries,
+                params, tables, ref_name=chunk.ref_name, use_lut=use_lut,
+                collect=collect, only_vcf_alleles=only_use_vcf_alleles,
+                output_fasta=not skip_output_fasta, alignments=alignments,
+                chunk=chunk, rng=rng, skip_filtered=skip_filtered_reads,
+                skip_realignment=skip_realignment, profiler=profiler)
+        if want_supplemental:
+            # poa_writeSupplementalChunkInformationDiploid
+            # (htsIntegration.c:1546-1587)
+            for hap_id, key in ((".hap1", "poa_hap1"), (".hap2", "poa_hap2")):
+                outputs.write_supplemental_chunk_information(
+                    output_base, chunk.chunk_idx, chunk, collect[key], reads,
+                    params, output_poa_dot, output_poa_csv,
+                    output_repeat_counts, hap_identifier=hap_id)
+            if output_haplotype_reads:
+                min_phred = params.phase.minPhredScoreForHaplotypePartition
+                for hap_id, ids in ((".hap1", collect["hap1_ids"]),
+                                    (".hap2", collect["hap2_ids"])):
+                    path = outputs._chunk_file_base(
+                        output_base, "readIds", chunk.chunk_idx,
+                        chunk, hap_id) + ".csv"
+                    hap_reads = {r.read_name: phreds.get(id(r), 0.0) or 0.0
+                                 for r in reads if id(r) in ids}
+                    with open(path, "w") as fh:
+                        outputs.write_partition_csv(fh, hap_reads, min_phred)
+            if output_phasing_state:
+                path = (f"{output_base}.C{chunk.chunk_idx:05d}."
+                        f"{chunk.ref_name}-{chunk.chunk_overlap_start}-"
+                        f"{chunk.chunk_overlap_end}.phasingInfo.json")
+                rle_map = rle_ref.rle_to_non_rle_map()
+                with open(path, "w") as fh:
+                    fh.write("{\n")
+                    outputs.save_bubble_phasing_info(
+                        chunk, collect["bg"], gf, collect["hap1_ids"],
+                        collect["hap2_ids"], rle_map, fh)
+                    outputs.write_phased_read_info_json(
+                        chunk, reads, alignments, f_reads, f_alns,
+                        collect["hap1_ids"], collect["hap2_ids"],
+                        rle_map, fh)
+                    fh.write("\n}\n")
+        res = ChunkPhaseResult(chunk.chunk_idx, chunk.ref_name)
+        for r in reads:
+            p = phreds.get(id(r))
+            if r.read_name in hap1_names:
+                res.hap1_reads[r.read_name] = p if p and p > 0 else -1.0
+            elif r.read_name in hap2_names:
+                res.hap2_reads[r.read_name] = p if p and p > 0 else -1.0
+        for r in f_reads:
+            if r.read_name in hap1_names and r.read_name not in res.hap1_reads:
+                res.hap1_reads[r.read_name] = -1.0
+            elif r.read_name in hap2_names and r.read_name not in res.hap2_reads:
+                res.hap2_reads[r.read_name] = -1.0
+        log(f"  chunk {chunk.chunk_idx}: {len(reads)} reads -> "
+            f"{len(res.hap1_reads)} hap1 / {len(res.hap2_reads)} hap2; "
+            f"consensus {len(hap1_seq)}/{len(hap2_seq)}bp")
+        return (res, hap1_seq, hap2_seq)
+
+    with profiler.stage("chunks"):
+        reader = bamio.open_alignment(bam_file)
+        chunk_results = [process_chunk(chunk, reader, rng)
+                         for chunk in chunkr.chunks]
+        reader.close()
+
+    # phased stitch: vote + swap + trim both hap sequences
+    # (mergeContigChunkz, stitching.c:1413-1499)
+    out = PolishOutputs()
+    hap1_records, hap2_records = [], []
+    ids1, ids2 = [], []
+    with profiler.stage("stitch"):
+        chunk_results.sort(key=lambda t: t[0].chunk_idx)
+        i = 0
+        while i < len(chunk_results):
+            name = chunk_results[i][0].ref_name
+            j = i
+            acc1 = dict(chunk_results[i][0].hap1_reads)
+            acc2 = dict(chunk_results[i][0].hap2_reads)
+            prev1, prev2 = chunk_results[i][1], chunk_results[i][2]
+            pieces1, pieces2 = [], []
+            j += 1
+            while j < len(chunk_results) \
+                    and chunk_results[j][0].ref_name == name:
+                res, s1, s2 = chunk_results[j]
+                stitch_next_chunk(acc1, acc2, res,
+                                  params.phase.stitchWithPrimaryReadsOnly)
+                if res.was_switched:
+                    s1, s2 = s2, s1
+                if not skip_output_fasta:
+                    prev1, s1, _ = stitcher.trim_adjacent_sequences(
+                        prev1, s1, params, device)
+                    prev2, s2, _ = stitcher.trim_adjacent_sequences(
+                        prev2, s2, params, device)
+                pieces1.append(prev1)
+                pieces2.append(prev2)
+                prev1, prev2 = s1, s2
+                j += 1
+            pieces1.append(prev1)
+            pieces2.append(prev2)
+            hap1_records.append((name, "".join(pieces1)))
+            hap2_records.append((name, "".join(pieces2)))
+            ids1.extend(acc1.keys())
+            ids2.extend(acc2.keys())
+            i = j
+
+    if not skip_output_fasta:
+        out.hap1_fasta = f"{output_base}.hap1.fa"
+        out.hap2_fasta = f"{output_base}.hap2.fa"
+        write_fasta(out.hap1_fasta, hap1_records)
+        write_fasta(out.hap2_fasta, hap2_records)
+    if skip_haplotype_bam:
+        # polish.c -M/--skipHaplotypeBAM
+        out.hap1_count, out.hap2_count = len(set(ids1)), len(set(ids2))
+    else:
+        out.haplotagged_bam = f"{output_base}.haplotagged.bam"
+        with profiler.stage("haplotag_bam"):
+            h1, h2, h0 = write_haplotagged_bam(bam_file, out.haplotagged_bam,
+                                               region, set(ids1), set(ids2),
+                                               params)
+        out.hap1_count, out.hap2_count = h1, h2
+    bam_note = ("BAM skipped" if skip_haplotype_bam
+                else f"BAM H1 {h1} H2 {h2} H0 {h0}")
+    log(f"> Diploid polish done in {time.time() - t0:.1f}s: "
+        f"hap lengths {sum(len(s) for _, s in hap1_records)}/"
+        f"{sum(len(s) for _, s in hap2_records)}, {bam_note}")
     return out

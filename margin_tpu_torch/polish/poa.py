@@ -2,9 +2,8 @@
 posterior-weighted alignments, consensus calling, and iterative realignment.
 
 Copy of `margin_tpu/polish/poa.py` with the port's imports, less what
-only diploid polish, HELEN and the aux tools call (ROADMAP queue 1): the
-un-batched realign branch with `get_aligned_pairs_cropping_reference`, and
-`poa_realign_only_anchor_alignments`. Parity:
+only HELEN and the aux tools call (ROADMAP queue 1): the un-batched
+realign branch with `get_aligned_pairs_cropping_reference`. Parity:
 impl/poa.c. The DP alignment of each read runs on the device
 (ops/banded.py: K2, or K3 for reads over SEG_MIN_D diagonals); the graph
 bookkeeping (left-shift normalized inserts and deletes, base/repeat
@@ -589,6 +588,45 @@ def _crop_item(reference: RleString, read: PoaRead, anchors,
         item["rep_x"] = reference.counts[first_ref:end_ref]
         item["rep_y"] = read.rle_read.counts
     return item, first_ref
+
+
+def poa_realign_only_anchor_alignments(reads: List[PoaRead], anchor_alignments,
+                                       reference: RleString,
+                                       params: PolishParams) -> Poa:
+    """poa_realignOnlyAnchorAlignments (poa.c:718-788): convert each read's
+    anchor alignment (CIGAR-derived) directly into weight-1.0 matches and
+    indels without any DP."""
+    max_rc = 2
+    if params.useRunLengthEncoding:
+        max_rc = (params.repeat_sub_matrix.max_repeat
+                  if params.repeat_sub_matrix is not None else 51)
+    poa = _make_poa_builder(reference, max_rc, params)
+    for i, read in enumerate(reads):
+        aln = anchor_alignments[i]
+        aln = [] if aln is None else [tuple(int(v) for v in a) for a in aln]
+        matches, inserts, deletes = [], [], []
+        if aln:
+            it = iter(aln)
+            cur = next(it, None)
+            pos_ref, pos_read = cur[0], cur[1]
+            while cur is not None:
+                ca_ref, ca_read = cur[0], cur[1]
+                if pos_ref < ca_ref:
+                    deletes.append((PAIR1, pos_ref, ca_read - 1))
+                    pos_ref += 1
+                elif pos_read < ca_read:
+                    inserts.append((PAIR1, ca_ref - 1, pos_read))
+                    pos_read += 1
+                else:
+                    matches.append((PAIR1, pos_ref, pos_read))
+                    pos_ref += 1
+                    pos_read += 1
+                    cur = next(it, None)
+        poa.augment(read.rle_read, read.forward_strand, i,
+                    np.array(matches, dtype=np.int64).reshape(-1, 3),
+                    np.array(inserts, dtype=np.int64).reshape(-1, 3),
+                    np.array(deletes, dtype=np.int64).reshape(-1, 3), params)
+    return _finish_poa(poa)
 
 
 def poa_realign(reads: List[PoaRead], anchor_alignments, reference: RleString,

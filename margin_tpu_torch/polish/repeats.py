@@ -1,19 +1,18 @@
 """Bayesian run-length (repeat count) inference over POA observations.
 
-Copy of the haploid part of `margin_tpu/polish/repeats.py` with the
-port's imports; the phased variants wait for diploid polish (ROADMAP
-queue 1). Parity: impl/repeatSubMatrix.c (ML repeat counts) and the mode
+Copy of `margin_tpu/polish/repeats.py` with the port's imports. Parity:
+impl/repeatSubMatrix.c (ML and phased-ML repeat counts) and the mode
 fallback (poa.c:1678-1698), host-side numpy.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Set
 
 import numpy as np
 
 from margin_tpu_torch.alphabet import seq_to_symbols
-from margin_tpu_torch.params import RepeatSubMatrix
+from margin_tpu_torch.params import PolishParams, RepeatSubMatrix
 from margin_tpu_torch.polish.poa import PAIR1, Poa, PoaRead
 
 
@@ -140,6 +139,75 @@ def estimate_repeat_counts(poa: Poa, reads: List[PoaRead],
             lp = _log_probs_for_counts(rm, int(bases[i]), cnt, wts, strs,
                                        lo, hi)
             rc = lo + int(np.argmax(lp))
+        counts[i] = max(rc, 1)
+        node.repeat_count = int(counts[i])
+    poa.ref_string.non_rle_length = int(counts.sum())
+
+
+def phased_ml_repeat_count(rm: RepeatSubMatrix, node, reads: List[PoaRead],
+                           hap1_ids: Set[int], params: PolishParams) -> int:
+    """repeatSubMatrix_getPhasedMLRepeatCount (repeatSubMatrix.c:169-238):
+    hap2 observations act as a prior with a het-substitution escape."""
+    from margin_tpu_torch.alphabet import seq_to_symbols as s2s
+    base = int(s2s(node.base)[0])
+    counts, weights, strands = _observed_counts_and_weights(node, reads, rm.max_repeat)
+    if counts is None or len(counts) == 0 or counts.min() == rm.max_repeat:
+        return 0
+    lo, hi = int(counts.min()), int(counts.max())
+    in_h1 = np.array([id(reads[o[0]]) in hap1_ids for o in node.observations])
+    lp1 = _log_probs_for_counts(rm, base, counts[in_h1], weights[in_h1],
+                                strands[in_h1], lo, hi)
+    lp2 = _log_probs_for_counts(rm, base, counts[~in_h1], weights[~in_h1],
+                                strands[~in_h1], lo, hi)
+    ml2 = float(lp2.max())
+    esc = np.log(params.hetRunLengthSubstitutionProbability)
+    combined = lp1 + np.maximum(lp2, ml2 + esc)
+    # >= comparison in the loop -> last max wins (repeatSubMatrix.c:211-220)
+    best = lo
+    best_p = combined[0]
+    for i in range(1, len(combined)):
+        if combined[i] >= best_p:
+            best_p = combined[i]
+            best = lo + i
+    return best
+
+
+def estimate_phased_repeat_counts(poa: Poa, reads: List[PoaRead],
+                                  rm: RepeatSubMatrix, hap1_ids: Set[int],
+                                  params: PolishParams):
+    """poa_estimatePhasedRepeatCountsUsingBayesianModel (poa.c:1729-1756).
+    Observations are flattened once (_FlatObs); the per-node float path
+    (_log_probs_for_counts + the last-max-wins scan) is unchanged."""
+    counts = poa.ref_string.counts
+    nodes = poa.nodes[1:]
+    flat = _FlatObs(nodes, reads, rm.max_repeat)
+    in_h1_read = np.fromiter((id(r) in hap1_ids for r in reads),
+                             dtype=bool, count=len(reads))
+    bases = np.empty(len(nodes), dtype=np.int64)
+    bases[:] = seq_to_symbols("".join(n.base for n in nodes))
+    esc = np.log(params.hetRunLengthSubstitutionProbability)
+    for i, node in enumerate(nodes):
+        cnt, wts, strs = flat.node(i)
+        if cnt is None or cnt.min() == rm.max_repeat:
+            rc = 0
+        else:
+            s, e = flat.starts[i], flat.starts[i + 1]
+            in_h1 = in_h1_read[flat.read_nos[s:e]]
+            lo, hi = int(cnt.min()), int(cnt.max())
+            base = int(bases[i])
+            lp1 = _log_probs_for_counts(rm, base, cnt[in_h1], wts[in_h1],
+                                        strs[in_h1], lo, hi)
+            lp2 = _log_probs_for_counts(rm, base, cnt[~in_h1], wts[~in_h1],
+                                        strs[~in_h1], lo, hi)
+            ml2 = float(lp2.max())
+            combined = lp1 + np.maximum(lp2, ml2 + esc)
+            # >= comparison -> last max wins (repeatSubMatrix.c:211-220)
+            rc = lo
+            best_p = combined[0]
+            for k in range(1, len(combined)):
+                if combined[k] >= best_p:
+                    best_p = combined[k]
+                    rc = lo + k
         counts[i] = max(rc, 1)
         node.repeat_count = int(counts[i])
     poa.ref_string.non_rle_length = int(counts.sum())

@@ -455,6 +455,22 @@ def _repeat_matrix_json(rng, cfg: PolishSynthConfig, n_sim: int = 4000
     return out
 
 
+def _polish_params(rng, cfg: PolishSynthConfig) -> dict:
+    """The polish parameters of a synthetic set: the default nucleotide
+    HMM, run-length encoding with the simulated repeat-count matrix, the
+    config's chunk geometry and consensus iterations."""
+    return {
+        "hmmForwardStrandReadGivenReference":
+            hmm_json(StateMachineParams.default_nucleotide()),
+        "useRunLengthEncoding": True,
+        "repeatCountSubstitutionMatrix": _repeat_matrix_json(rng, cfg),
+        "chunkSize": cfg.chunk_size,
+        "chunkBoundary": cfg.chunk_boundary,
+        "maxPoaConsensusIterations": cfg.poa_consensus_iterations,
+        "maxRealignmentPolishIterations": cfg.realign_polish_iterations,
+        "minRealignmentPolishIterations": 0}
+
+
 def write_polish_dataset(out_dir: str, cfg: PolishSynthConfig
                          ) -> PolishDataset:
     """Write a seeded `margin polish` input set: truth.fa (a random
@@ -510,19 +526,150 @@ def write_polish_dataset(out_dir: str, cfg: PolishSynthConfig
     bamio.build_bai(bam)
 
     params = os.path.join(out_dir, "params.json")
-    sm = StateMachineParams.default_nucleotide()
     with open(params, "w") as fh:
-        json.dump({"polish": {
-            "hmmForwardStrandReadGivenReference": hmm_json(sm),
-            "useRunLengthEncoding": True,
-            "repeatCountSubstitutionMatrix": _repeat_matrix_json(rng, cfg),
-            "chunkSize": cfg.chunk_size,
-            "chunkBoundary": cfg.chunk_boundary,
-            "maxPoaConsensusIterations": cfg.poa_consensus_iterations,
-            "maxRealignmentPolishIterations":
-                cfg.realign_polish_iterations,
-            "minRealignmentPolishIterations": 0}}, fh)
+        json.dump({"polish": _polish_params(rng, cfg)}, fh)
     return PolishDataset(bam, draft_fa, truth_fa, params, cfg.contig, edits)
+
+
+# ---------------------------------------------------------------------------
+# margin polish --diploid
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DiploidPolishSynthConfig(PolishSynthConfig):
+    coverage: float = 30.0           # both haplotypes together
+    read_len: Tuple[int, int] = (5000, 30000)
+    # one het site per this many draft bases (drawn uniformly), human
+    # heterozygosity: SNVs and 1-10 bp insertions and deletions
+    het_every: Tuple[int, int] = (1000, 1500)
+    het_indel_fraction: float = 0.3
+    het_indel_len: Tuple[int, int] = (1, 10)
+
+
+@dataclass
+class DiploidPolishDataset:
+    bam: str
+    draft: str
+    truth1: str                      # the draft's haplotype
+    truth2: str
+    vcf: str                         # the het sites in draft coordinates
+    params: str
+    contig: str
+    hets: List[Variant] = field(default_factory=list)
+    draft_edits: List[Variant] = field(default_factory=list)
+    read_hap: Dict[str, int] = field(default_factory=dict)
+
+
+def _place_hets(rng, cfg: DiploidPolishSynthConfig, draft: np.ndarray,
+                edits: List[Variant]) -> List[Variant]:
+    """Het variants on haplotype 2 in draft coordinates, one per
+    cfg.het_every bases, each at least 15 bases from a draft edit."""
+    L = len(draft)
+    near = np.zeros(L + 1, dtype=bool)
+    for e in edits:
+        near[max(0, e.pos - 15):e.pos + len(e.ref) + 15] = True
+    out: List[Variant] = []
+    p = int(rng.integers(*cfg.het_every)) // 2
+    while p < L - 50:
+        n = int(rng.integers(cfg.het_indel_len[0], cfg.het_indel_len[1] + 1))
+        if near[p:p + n + 2].any():
+            p += 7
+            continue
+        b = chr(draft[p])
+        if rng.random() >= cfg.het_indel_fraction:
+            alt = chr(_BASES[(int(np.searchsorted(_BASES, draft[p]))
+                              + int(rng.integers(1, 4))) % 4])
+            out.append(Variant(p, b, alt, 2, "snv"))
+        elif rng.random() < 0.5:
+            ins = _BASES[rng.integers(0, 4, n)].tobytes().decode()
+            out.append(Variant(p, b, b + ins, 2, "ins"))
+        else:
+            out.append(Variant(p, draft[p:p + n + 1].tobytes().decode(), b,
+                               2, "del"))
+        p += len(out[-1].ref) + int(rng.integers(*cfg.het_every))
+    return out
+
+
+def write_diploid_polish_dataset(out_dir: str, cfg: DiploidPolishSynthConfig
+                                 ) -> DiploidPolishDataset:
+    """Write a seeded `margin polish --diploid` input set: truth1.fa and
+    truth2.fa (two haplotypes that differ at the het sites), draft.fa
+    (haplotype 1 with the draft edits of PolishSynthConfig), calls.vcf
+    (the het sites as unphased 0/1 calls on the draft), reads.bam(.bai)
+    (ONT-like reads drawn alternately from the two haplotypes on both
+    strands, aligned to the draft by their true alignments, named
+    "..._h1" / "..._h2" after their haplotype) and params.json (as
+    write_polish_dataset, with polish.skipHaploidPolishingIfDiploid)."""
+    rng = np.random.default_rng(cfg.seed)
+    os.makedirs(out_dir, exist_ok=True)
+    truth1 = _BASES[rng.integers(0, 4, cfg.contig_len)]
+    draft, edits = _draft_from_truth(rng, cfg, truth1)
+    hets = _place_hets(rng, cfg, draft, edits)
+    both = sorted([Variant(e.pos, e.ref, e.alt, 2, e.kind) for e in edits]
+                  + hets, key=lambda v: v.pos)
+    haps = {1: _haplotype(draft, edits, 1), 2: _haplotype(draft, both, 2)}
+    assert np.array_equal(haps[1][0], truth1)
+
+    paths = {}
+    for name, seq in (("truth1", haps[1][0]), ("truth2", haps[2][0]),
+                      ("draft", draft)):
+        paths[name] = os.path.join(out_dir, f"{name}.fa")
+        write_fasta(paths[name], [(cfg.contig, seq.tobytes().decode())])
+
+    vcf = os.path.join(out_dir, "calls.vcf")
+    with open(vcf, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write(f"##contig=<ID={cfg.contig},length={len(draft)}>\n")
+        fh.write('##FORMAT=<ID=GT,Number=1,Type=String,'
+                 'Description="Genotype">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"
+                 "\tSAMPLE\n")
+        for v in hets:
+            fh.write(f"{cfg.contig}\t{v.pos + 1}\t.\t{v.ref}\t{v.alt}\t50"
+                     f"\tPASS\t.\tGT\t0/1\n")
+
+    records = []
+    read_hap: Dict[str, int] = {}
+    lo, hi = cfg.read_len
+    total, idx = 0, 0
+    while total < cfg.coverage * len(draft):
+        h = 1 + idx % 2
+        seq, hmap = haps[h]
+        L = len(seq)
+        ln = min(int(rng.integers(lo, hi + 1)), L)
+        start = int(rng.integers(-(ln // 2), L - ln // 2 + 1))
+        end = min(start + ln, L)
+        start = max(start, 0)
+        aln = _read_alignment(rng, cfg, seq, hmap, start, end)
+        if aln is None:
+            continue
+        pos, cigar, bases = aln
+        name = f"read{idx:06d}_h{h}"
+        reverse = bool(rng.integers(0, 2))
+        quals = rng.integers(8, 30, len(bases)).astype(np.uint8).tobytes()
+        records.append((pos, name, build_bam_record(
+            name, 16 if reverse else 0, 0, pos, 60, cigar, bases.tobytes(),
+            quals)))
+        read_hap[name] = h
+        total += len(bases)
+        idx += 1
+    records.sort(key=lambda r: (r[0], r[1]))
+    bam = os.path.join(out_dir, "reads.bam")
+    header = bamio.BamHeader(
+        f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{cfg.contig}\t"
+        f"LN:{len(draft)}\n", [cfg.contig], [len(draft)])
+    with bamio.BamWriter(bam, header) as w:
+        for _, _, raw in records:
+            w.write_raw(raw)
+    bamio.build_bai(bam)
+
+    params = os.path.join(out_dir, "params.json")
+    with open(params, "w") as fh:
+        json.dump({"polish": dict(_polish_params(rng, cfg),
+                                  skipHaploidPolishingIfDiploid=True)}, fh)
+    return DiploidPolishDataset(bam, paths["draft"], paths["truth1"],
+                                paths["truth2"], vcf, params, cfg.contig,
+                                hets, edits, read_hap)
 
 
 def banded_edit_distance(a: str, b: str, band: int = 500) -> int:

@@ -86,10 +86,11 @@ def test_cuda_requested_without_cuda_raises(tmp_path):
 
 def test_cli_rejects_unported_parts(capsys):
     from margin_tpu_torch import cli
-    for flag, item in (("--diploid", "Diploid polish"),
-                       ("-f", "HELEN, EM with K4")):
+    for flags, item in ((["--diploid", "--checkpoint"], "multi-host"),
+                        (["-u", "truth.bam"], "HELEN, EM with K4"),
+                        (["-f"], "HELEN, EM with K4")):
         with pytest.raises(SystemExit):
-            cli.main(["polish", "a", "b", "c", flag])
+            cli.main(["polish", "a", "b", "c"] + flags)
         assert item in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["tagFromIds"])
