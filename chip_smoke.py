@@ -3,10 +3,12 @@
 haploid and diploid `margin polish` on one NVIDIA GPU and check it end to
 end.
 
-    python3 chip_smoke.py [--only kernels,phase,polish,diploid]
+    python3 chip_smoke.py [--only kernels,phase,polish,diploid,k1]
 
-(--only runs a subset after the build, for iterating on one path; a plain
-run takes them all and is the one that prints the kernels line.)
+(--only runs a subset after the build, for iterating on one path; k1 runs
+K1's shapes of phase 2 alone, about a minute with the build; a plain run
+takes kernels, phase, polish and diploid and is the one that prints the
+kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
@@ -14,13 +16,17 @@ Phases (any failure raises and the script exits non-zero):
      fail unless every host engine loads (marginio against the system's
      libdeflate or the port's zlib stand-in, printed);
   2. hold every kernel against its plain PyTorch twin on the card: K1 on
-     131072 pairs of 29x32 and on a ragged batch with lx, ly in 1..1024
-     (RLE on and off); K2 on packs of 128 problems with lx, ly ~ 500-1200
-     at band widths 16, 32, 64 and 128 (one block shape per width), each
-     with RLE on and off, LUT everywhere and the exact logAdd at two of
-     them, each width at its launch's chunk depth K2_CHUNK, and timed on
-     packs of lx, ly ~ 2000-5000. LUT logAdd: identical bits; exact
-     logAdd: max |diff| <= 1e-4;
+     131072 pairs of 29x32, on ragged batches with lx, ly in 1..1024 (RLE
+     on and off), on 630 pairs like the phase run's largest batch (one
+     909x916 pair, 629 of 60..200, padded to 909x916) and on 16 deep pairs
+     (ly 4000..8191, padded to 8191, RLE on), both logAdds, each line with
+     the deepest pair's diagonal count and ns per diagonal; K2 on packs of
+     128 problems with lx, ly ~ 500-1200 at band widths 16, 32, 64 and 128
+     (one block shape per width), each with RLE on and off, LUT
+     everywhere and the exact logAdd at two of them, each width at its
+     launch's chunk depth K2_CHUNK, and timed on packs of lx, ly ~
+     2000-5000. LUT logAdd: identical bits; exact logAdd: max |diff| <=
+     1e-4;
   3. run `python -m margin_tpu_torch phase` (its `cli.main`, LUT logAdd)
      on a seeded synthetic 1 Mb contig at 30x (5-30 kb reads, ~8% errors,
      ~1000 het SNVs, 30 het SVs of 50-2000 bp); the launch counters are
@@ -72,10 +78,10 @@ Phases (any failure raises and the script exits non-zero):
   9. diploid-polish a 10 kb sub-region in process with SEG_MIN_D lowered
      to 2048, through the kernels and then through the plain twins bound
      in their place: identical hap FASTAs and haplotagged BAM records.
-Every K2 and K3 timing also prints the pack's deepest diagonal count and
-the nanoseconds per diagonal; the device time each kernel summed over
-the phase and polish runs' launches is printed after phase 9 (the diploid
-run's on its own line in phase 8).
+Every K1, K2 and K3 timing also prints the deepest pair's or problem's
+diagonal count and the nanoseconds per diagonal; the device time each
+kernel summed over the phase and polish runs' launches is printed after
+phase 9 (the diploid run's on its own line in phase 8).
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -176,12 +182,17 @@ def tables(device, rle):
         StateMachineParams.default_nucleotide(), repeat=rep, device=device)
 
 
-def k1_batch(device, B, lx_range, ly_range, seed, rle=False):
+def k1_batch(device, B, lx_range, ly_range, seed, rle=False, first=None,
+             pad_to=None):
+    """B seeded pairs with lx, ly uniform in their ranges; first: (lx, ly)
+    of pair 0 instead; pad_to: the batch's least (Lx, Ly)."""
     import numpy as np
     from margin_tpu_torch.ops import pairhmm
     rng = np.random.default_rng(seed)
     lxs = rng.integers(lx_range[0], lx_range[1] + 1, B)
     lys = rng.integers(ly_range[0], ly_range[1] + 1, B)
+    if first is not None:
+        lxs[0], lys[0] = first
     pairs = [(rng.integers(0, 4, a).astype(np.uint8),
               rng.integers(0, 4, b).astype(np.uint8))
              for a, b in zip(lxs, lys)]
@@ -190,7 +201,7 @@ def k1_batch(device, B, lx_range, ly_range, seed, rle=False):
     return pairhmm.make_batch(pairs, strands=rng.integers(0, 2, B),
                               ragged_left=rng.random(B) < 0.1,
                               ragged_right=rng.random(B) < 0.1,
-                              rep_pairs=reps, device=device)
+                              rep_pairs=reps, device=device, pad_to=pad_to)
 
 
 def k2_items(n, w_bucket, expansion, seed, rle, lx_range=(2000, 5000)):
@@ -235,6 +246,12 @@ def k2_pack(device, tabs, items, w_bucket, expansion, rle):
 # ---------------------------------------------------------------------------
 # bytes and operations of each kernel's work on its inputs
 # ---------------------------------------------------------------------------
+
+def k1_diagonals(batch):
+    """The deepest pair's diagonal steps, max(lx + ly): a K1 launch lasts
+    as long as that chain."""
+    return int((batch.lxs.long() + batch.lys.long()).max())
+
 
 def k1_work(batch, tabs, lut):
     lx = batch.lxs.long()
@@ -447,32 +464,55 @@ def phase_build():
 
 
 def phase_k1(device):
+    """K1 against its twin, both logAdds, with the time of each: the
+    bubble-scoring shape (131072 x 29x32), ragged batches, a batch like
+    the phase run's largest (one 909x916 pair among 629 of 60-200, padded
+    to 909x916) and a deep batch (ly 4000-8191, padded to 8191: R = 8)."""
+    import torch
     from margin_tpu_torch.ops import pairhmm
     rows = []
-    shapes = [("131072 x 29x32", 131072, (29, 29), (32, 32), False),
-              ("2048 ragged 1..1024", 2048, (1, 1024), (1, 1024), False),
-              ("2048 ragged 1..1024, RLE", 2048, (1, 1024), (1, 1024), True)]
-    for si, (label, B, lxr, lyr, rle) in enumerate(shapes):
+    # (label, B, lx range, ly range, RLE, seed, pair 0, padded to)
+    shapes = [
+        ("131072 x 29x32", 131072, (29, 29), (32, 32), False, 100, None,
+         None),
+        ("2048 ragged 1..1024", 2048, (1, 1024), (1, 1024), False, 101,
+         None, None),
+        ("2048 ragged 1..1024, RLE", 2048, (1, 1024), (1, 1024), True, 102,
+         None, None),
+        ("630 like the main path, 909x916 + 60..200", 630, (60, 200),
+         (60, 200), False, 103, (909, 916), (909, 916)),
+        ("16 deep, lx 200..400, ly 4000..8191, RLE", 16, (200, 400),
+         (4000, 8191), True, 104, None, (400, 8191))]
+    for label, B, lxr, lyr, rle, seed, first, pad_to in shapes:
         tabs = tables(device, rle)
-        batch = k1_batch(device, B, lxr, lyr, seed=100 + si, rle=rle)
-        for lut in ((True, False) if si < 2 else (True,)):
+        batch = k1_batch(device, B, lxr, lyr, seed=seed, rle=rle,
+                         first=first, pad_to=pad_to)
+        d_max = k1_diagonals(batch)
+        for lut in (True, False):
             got = pairhmm.forward_total(tabs, batch, use_lut=lut)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
             want = pairhmm.forward_total_plain(tabs, batch, use_lut=lut)
+            e.record()
+            torch_sync()
+            pms = s.elapsed_time(e)
             diff = compare(f"K1 {label}", got, want, lut)
             if not bool(got.isfinite().all()):
                 raise AssertionError(f"K1 {label}: non-finite totals")
             ms = cuda_ms(lambda: pairhmm.forward_total(tabs, batch, lut))
-            pms = cuda_ms(lambda: pairhmm.forward_total_plain(tabs, batch,
-                                                              lut),
-                          reps=3 if B > 4096 else 1, warmup=0)
             ops, nbytes = k1_work(batch, tabs, lut)
             bms, by = bound_ms(ops, nbytes)
             rows.append({"kernel": "K1", "shape": label, "lut": lut,
+                         "Lx": batch.xs.shape[1], "Ly": batch.ys.shape[1],
+                         "deepest_diagonals": d_max,
+                         "ns_per_diagonal": ms * 1e6 / d_max,
                          "max_abs_err": diff, "ms": ms, "plain_ms": pms,
                          "bound_ms": bms, "bound_by": by})
             log(f"K1 {label} {'LUT' if lut else 'exact'}: kernel {ms:.3f} ms"
-                f", plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), "
-                f"max|diff| {diff}")
+                f", plain {pms:.1f} ms, bound {bms:.4f} ms ({by}); deepest "
+                f"{d_max} diagonals, {ms * 1e6 / d_max:.1f} ns per diagonal;"
+                f" max|diff| {diff}")
     return rows
 
 
@@ -854,11 +894,12 @@ def phase_main_path_shapes(rec):
     bms, by = bound_ms(ops, nbytes)
     shape = f"B={batch.xs.shape[0]} Lx={batch.xs.shape[1]} " \
         f"Ly={batch.ys.shape[1]}"
-    out["K1"] = {"shape": shape, "max_abs_err": d1,
-                 "ms": cuda_ms(lambda: pairhmm.forward_total(tabs, batch,
-                                                             lut)),
-                 "plain_ms": p1,
-                 "bound_ms": bms, "bound_by": by}
+    ms = cuda_ms(lambda: pairhmm.forward_total(tabs, batch, lut))
+    d_max = k1_diagonals(batch)
+    out["K1"] = {"shape": shape, "max_abs_err": d1, "ms": ms,
+                 "plain_ms": p1, "bound_ms": bms, "bound_by": by,
+                 "deepest_diagonals": d_max,
+                 "ns_per_diagonal": ms * 1e6 / d_max}
     _, pack, lut = rec.k2_max
     fk, tk = cuda_banded.fb_forward(pack, lut)
     pk = cuda_banded.fb_backward(pack, fk, tk, lut)
@@ -1302,6 +1343,7 @@ SOURCES = {
 
 
 PHASES = ("kernels", "phase", "polish", "diploid")
+CHOICES = PHASES + ("k1",)
 
 
 def main(argv=None) -> int:
@@ -1309,12 +1351,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
-                         "build, for iterating on one path; the kernels "
-                         "line is printed only when all run" % (PHASES,))
+                         "build, for iterating on one path (k1: K1's "
+                         "shapes of the kernels phase alone); the kernels "
+                         "line is printed only when all of %s run"
+                         % (CHOICES, PHASES))
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= set(PHASES):
-        ap.error(f"--only takes names from {PHASES}")
+    if not only <= set(CHOICES):
+        ap.error(f"--only takes names from {CHOICES}")
     try:
         import torch
     except ImportError:
@@ -1341,8 +1385,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     report = {"card": card, "device": torch.cuda.get_device_name(0)}
     report["build"] = phase_build()
-    if "kernels" in only:
+    if "kernels" in only or "k1" in only:
         report["k1"] = phase_k1("cuda")
+    if "kernels" in only:
         report["k2"] = phase_k2("cuda")
         report["k3"] = phase_k3("cuda")
         report["k3_deep"] = phase_k3_deep("cuda")
@@ -1373,7 +1418,7 @@ def main(argv=None) -> int:
         json.dump(report, fh, indent=1, default=str)
     log(f"total {report['total_s']:.1f} s")
     print(card)
-    if only == set(PHASES):
+    if only >= set(PHASES):
         kernels = []
         for name, (src, rep) in SOURCES.items():
             m = report["main_path_shapes"][name]

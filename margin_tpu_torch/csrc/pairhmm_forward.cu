@@ -4,141 +4,334 @@
 // lax.scan that walks anti-diagonals with the batch on the TPU's lanes.
 //
 // What bounds it on this card: operations. Every cell of the (lx+1)(ly+1)
-// rectangle costs three 3-way logAdds (six cubic or exp/log1p evaluations)
-// on data that stays in shared memory; the bytes are the two sequences and
-// one float out per pair. The recurrence is serial along anti-diagonals,
-// so a pair's parallelism is its diagonal width.
+// rectangle costs three 3-way logAdds (six cubic or exp/log1p evaluations);
+// the bytes are the two sequences and one float out per pair. The
+// recurrence is serial along anti-diagonals, so a pair's parallelism is its
+// diagonal width and a launch lasts as long as its deepest pair's chain of
+// lx + ly diagonal steps.
 //
-// Design: one thread block per pair, threads over the rows y of an
-// anti-diagonal (a thread takes rows y, y+blockDim, ... when ly+1 exceeds
-// the block). The block walks d = 1..lx+ly of ITS OWN pair, so padding of
-// the batch costs nothing; the previous two diagonals (3 states x (ly+1))
-// live in a three-deep ring in shared memory with one __syncthreads() per
-// diagonal, and only the valid rows [max(0, d-lx), min(d, ly)] run the
-// logAdds (the others are written LOG_ZERO, as the JAX mask does).
-// Emissions are table reads of the 25/5/5-entry per-strand tables staged
-// in shared memory, plus the optional RLE addend
-// repeat[slot(base), rep_x, rep_y] (pairhmm.py:300-305). The arithmetic
-// and its order follow pairhmm.py:240-345 exactly; built with
-// --fmad=false.
+// Design: the diagonal step of csrc/banded_step.cuh. Lane t holds rows
+// y = t*R .. t*R+R-1 of the pair and computes cell (d-1-y, y) of diagonal d
+// at step d, with everything a cell reads in registers: its own three
+// states of diagonal d-1 (gapX), the row above's states of d-1 (gapY) and
+// of d-2 (match). Within a lane the row above is the lane's previous row;
+// at its top edge it comes from the lane above by __shfl_up_sync, and at a
+// warp's top edge from lane 31 of the warp above through a two-slot
+// shared-memory exchange behind one named barrier a diagonal, counting only
+// the warps that hold a row of the pair's own ly (the others leave at the
+// start; a pair held in one warp uses no barrier). A warp none of whose
+// rows holds a cell of diagonal d (rows max(0, d-lx) .. min(d, ly)) writes
+// LOG_ZERO without computing; the total is taken from the last diagonal
+// after the walk. Y and its run lengths are
+// loaded into registers once a lane; X (by cp.async where whole words) and
+// its run lengths (as bytes: counts are clamped to 50) are staged in shared
+// memory once a block, beside the per-strand emission and transition
+// tables; the RLE repeat table is read through the read-only cache.
+//
+// Two launch shapes of the same step, chosen from the batch's padded Ly
+// (ops/pairhmm.py:k1_launch; the kernel checks it, config_ok):
+//   Ly + 1 <= 32: one warp a pair, WARP_PAIRS pairs a block, no barrier;
+//   otherwise:    one block a pair of ceil((Ly+1) / (32 R)) warps, R in
+//                 {1, 2, 4, 8} the fewest rows a lane that keep the block at
+//                 <= 1024 threads (Ly <= 8191).
+// Emissions are table reads plus the optional RLE addend
+// repeat[slot(base), rep_x, rep_y] (pairhmm.py:300-305). The arithmetic and
+// its order follow pairhmm.py:240-345 exactly; built with --fmad=false.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "logadd.cuh"
+#include "banded_step.cuh"
 
 using namespace margin;
 
-template <bool LUT, bool RLE>
-__global__ void k1_kernel(const uint8_t* __restrict__ xs,
-                          const uint8_t* __restrict__ ys,
-                          const int* __restrict__ lxs,
-                          const int* __restrict__ lys,
-                          const int* __restrict__ strands,
-                          const uint8_t* __restrict__ ragged_left,
-                          const uint8_t* __restrict__ ragged_right,
-                          const int* __restrict__ rep_x,
-                          const int* __restrict__ rep_y,
-                          const float* __restrict__ match,
-                          const float* __restrict__ gap_x,
-                          const float* __restrict__ gap_y,
-                          const float* __restrict__ trans,
-                          const float* __restrict__ repeat,
-                          float* __restrict__ out, int Lx, int Ly) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int lx = lxs[b];
-  const int ly = lys[b];
-  const int W = ly + 1;
-  const int s = strands[b];
-  __shared__ float m_tab[25], gx_tab[5], gy_tab[5], tr[9];
-  for (int i = threadIdx.x; i < 25; i += blockDim.x) m_tab[i] = match[s * 25 + i];
-  for (int i = threadIdx.x; i < 5; i += blockDim.x) {
-    gx_tab[i] = gap_x[s * 5 + i];
-    gy_tab[i] = gap_y[s * 5 + i];
+namespace {
+
+constexpr int MAX_LY = 8191;
+constexpr int MAX_SMEM = 232448;  // a Hopper block's shared memory
+constexpr int MAX_THREADS = 1024;
+constexpr int WARP_PAIRS = 8;
+constexpr int TAB_FLOATS = 44;  // match 25, gapX 5, gapY 5, transitions 9
+
+struct K1Args {
+  const uint8_t* xs;
+  const uint8_t* ys;
+  const int* lxs;
+  const int* lys;
+  const int* strands;
+  const uint8_t* ragged_left;
+  const uint8_t* ragged_right;
+  const int* rep_x;
+  const int* rep_y;
+  const float* match;
+  const float* gap_x;
+  const float* gap_y;
+  const float* trans;
+  const float* repeat;
+  float* out;
+};
+
+// Shared memory of one pair, in bytes: its tables, then the x symbols and
+// (RLE) x run lengths, each in xbytes(Lx) (room for the 0-3 bytes that
+// align the symbols' whole words).
+__host__ __device__ inline int xbytes(int Lx) { return round_up(Lx + 4, 16); }
+__host__ __device__ inline int slot_bytes(int Lx, bool rle) {
+  return TAB_FLOATS * 4 + (rle ? 2 : 1) * xbytes(Lx);
+}
+
+// A block's bytes: its pairs' slots (shape 0: one warp a pair, `warps`
+// pairs) or its pair's slot and the exchange's two slots of warps x 3
+// floats (shape 1: one block a pair).
+__host__ __device__ inline int block_bytes(int Lx, bool rle, int shape,
+                                           int warps) {
+  const int slot = slot_bytes(Lx, rle);
+  return shape == 0 ? warps * slot : slot + 2 * warps * 3 * 4;
+}
+
+// The wrapper's launch configuration (ops/pairhmm.py:k1_launch): shape 0
+// holds a pair in one warp (rows 1, Ly + 1 <= 32, up to WARP_PAIRS pairs
+// a block); shape 1 a pair in a block of `warps` warps of `rows` rows a
+// lane, rows in {1, 2, 4, 8}.
+bool config_ok(int Ly, int shape, int warps, int rows) {
+  if (Ly < 0 || Ly > MAX_LY || warps < 1) return false;
+  if (shape == 0) return rows == 1 && Ly + 1 <= 32 && warps <= WARP_PAIRS;
+  return shape == 1 && (rows == 1 || rows == 2 || rows == 4 || rows == 8) &&
+         warps <= MAX_THREADS / 32 && 32 * warps * rows >= Ly + 1;
+}
+
+__device__ __forceinline__ void named_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// u <- the states v of the row above this lane's top row: from lane-1, at
+// a warp's top edge from lane 31 of the warp above (xch: two slots of
+// warps x 3 floats, alternating by step, so one barrier a diagonal orders
+// both the write and the read), LOG_ZERO above row 0. nt: the active
+// threads.
+template <bool WARP>
+__device__ __forceinline__ void from_above(const float v[3], float u[3],
+                                           float* xch, int nt, int& step) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    u[s] = __shfl_up_sync(FULL, v[s], 1);
+    if (lane == 0) u[s] = LOG_ZERO_F;
   }
-  for (int i = threadIdx.x; i < 9; i += blockDim.x) tr[i] = trans[s * 9 + i];
-  // ring of three diagonals x three states, each W floats
-  float* ring = smem;
-  const bool rl = ragged_left[b] != 0;
-  for (int y = threadIdx.x; y < W; y += blockDim.x) {
-    // diagonal 0: start cell (0, 0) (stateMachine.c:521-530)
-    ring[0 * W + y] = (y == 0 && !rl) ? 0.0f : LOG_ZERO_F;  // match
-    ring[1 * W + y] = (y == 0 && rl) ? 0.0f : LOG_ZERO_F;   // gapX
-    ring[2 * W + y] = (y == 0 && rl) ? 0.0f : LOG_ZERO_F;   // gapY
-    for (int q = 6; q < 9; ++q) ring[q * W + y] = LOG_ZERO_F;  // diagonal -1
+  if (!WARP && nt > 32) {
+    const int w = threadIdx.x >> 5;
+    float* x = xch + (step & 1) * 3 * (blockDim.x >> 5);
+    if (lane == 31)
+      for (int s = 0; s < 3; ++s) x[w * 3 + s] = v[s];
+    named_sync(nt);
+    if (lane == 0 && w > 0)
+      for (int s = 0; s < 3; ++s) u[s] = x[(w - 1) * 3 + s];
+    ++step;
   }
-  __syncthreads();
-  const int d_final = lx + ly;
-  if (d_final == 0) {
-    if (threadIdx.x == 0) out[b] = 0.0f;  // LOG_ONE (pairwiseAligner.c:860-862)
+}
+
+template <bool LUT, bool RLE, int R, bool WARP>
+__global__ void __launch_bounds__(WARP ? 32 * WARP_PAIRS : MAX_THREADS)
+    k1_kernel(const K1Args a, int B, int Lx, int Ly) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, t, nt;
+  unsigned char* slot;
+  if (WARP) {
+    const int w = threadIdx.x >> 5;
+    b = blockIdx.x * (blockDim.x >> 5) + w;
+    if (b >= B) return;
+    t = threadIdx.x & 31;
+    nt = 32;
+    slot = smem + w * slot_bytes(Lx, RLE);
+  } else {
+    b = blockIdx.x;
+    t = threadIdx.x;
+    slot = smem;
+  }
+  const int lx = a.lxs[b];
+  const int ly = a.lys[b];
+  if (!WARP) {
+    // the warps that hold a row of [0, ly]; the others leave
+    nt = 32 * ((ly + 32 * R) / (32 * R));
+    if (t >= nt) return;
+  }
+  const int D = lx + ly;
+  if (D == 0) {
+    if (t == 0) a.out[b] = 0.0f;  // LOG_ONE (pairwiseAligner.c:860-862)
     return;
   }
-  const uint8_t* X = xs + (size_t)b * Lx;
-  const uint8_t* Y = ys + (size_t)b * Ly;
-  const int* RX = RLE ? rep_x + (size_t)b * Lx : nullptr;
-  const int* RY = RLE ? rep_y + (size_t)b * Ly : nullptr;
-  const float* rep = RLE ? repeat + (size_t)s * 4 * REP_N * REP_N : nullptr;
+
+  // --- stage the pair's tables, x symbols and x run lengths
+  const int s = a.strands[b];
+  float* tabs = (float*)slot;
+  for (int i = t; i < 25; i += nt) tabs[i] = a.match[s * 25 + i];
+  for (int i = t; i < 5; i += nt) {
+    tabs[25 + i] = a.gap_x[s * 5 + i];
+    tabs[30 + i] = a.gap_y[s * 5 + i];
+  }
+  for (int i = t; i < 9; i += nt) tabs[35 + i] = a.trans[s * 9 + i];
+  const uint8_t* xrow = a.xs + (int64_t)b * Lx;
+  const int head = (int)((uintptr_t)xrow & 3);
+  uint8_t* sx = slot + TAB_FLOATS * 4 + head;  // sx[i] = X[i]
+  // the whole 4-byte words by cp.async, the 0-3 bytes on either side of
+  // them by plain loads
+  const int pre = (4 - head) & 3;
+  const int nw = lx > pre ? (lx - pre) >> 2 : 0;
+  for (int i = t; i < nw; i += nt)
+    cp_async4(sx + pre + 4 * i, xrow + pre + 4 * i);
+  for (int i = t; i < lx; i += nt)
+    if (i < pre || i >= pre + 4 * nw) sx[i] = xrow[i];
+  uint8_t* srx = slot + TAB_FLOATS * 4 + xbytes(Lx);
+  if (RLE)
+    for (int i = t; i < lx; i += nt)
+      srx[i] = (uint8_t)a.rep_x[(int64_t)b * Lx + i];
+  cp_commit();
+  cp_wait_all();
+  if (WARP)
+    __syncwarp();
+  else
+    named_sync(nt);
+
+  const float* m_tab = tabs;
+  const float* gx_tab = tabs + 25;
+  const float* gy_tab = tabs + 30;
+  const float* tr = tabs + 35;
   const float t_mm = tr[T_MM], t_mgx = tr[T_M_FROM_GX], t_mgy = tr[T_M_FROM_GY];
   const float t_ox = tr[T_OPEN_X], t_oy = tr[T_OPEN_Y];
   const float t_ex = tr[T_EXT_X], t_ey = tr[T_EXT_Y];
   const float t_sx = tr[T_SW_X], t_sy = tr[T_SW_Y];
+  const float* rep = RLE ? a.repeat + (size_t)s * 4 * REP_N * REP_N : nullptr;
+  float* xch = (float*)(slot + slot_bytes(Lx, RLE));
 
-  for (int d = 1; d <= d_final; ++d) {
-    float* cur = ring + (d % 3) * 3 * W;
-    const float* p1 = ring + ((d + 2) % 3) * 3 * W;  // diagonal d-1
-    const float* p2 = ring + ((d + 1) % 3) * 3 * W;  // diagonal d-2
-    const int y_lo = max(0, d - lx);
-    const int y_hi = min(d, ly);
-    for (int y = threadIdx.x; y < W; y += blockDim.x) {
-      float nm = LOG_ZERO_F, ngx = LOG_ZERO_F, ngy = LOG_ZERO_F;
-      if (y >= y_lo && y <= y_hi) {
-        const int xi = d - 1 - y;  // x symbol consumed at this cell
-        const int cx = (xi >= 0 && xi < lx) ? X[xi] : 4;
-        const int cy = (y >= 1) ? Y[y - 1] : 4;
-        float e_m = m_tab[cx * 5 + cy];
-        const float e_gx = gx_tab[cx];
-        const float e_gy = gy_tab[cy];
-        if (RLE) {
-          const int rx = (xi >= 0 && xi < lx) ? RX[xi] : 0;
-          const int ry = (y >= 1) ? RY[y - 1] : 0;
-          const int base = cx >= 4 ? 0 : cx;  // N -> A (repeatSubMatrix.c:16-27)
-          e_m = e_m + rep[base * REP_N * REP_N + rx * REP_N + ry];
-        }
-        // gapX <- (x-1, y): diagonal d-1, row y
-        const float p1m = p1[y], p1x = p1[W + y], p1y = p1[2 * W + y];
-        // gapY <- (x, y-1): diagonal d-1, row y-1; match <- (x-1, y-1):
-        // diagonal d-2, row y-1
-        float u1m = LOG_ZERO_F, u1x = LOG_ZERO_F, u1y = LOG_ZERO_F;
-        float s2m = LOG_ZERO_F, s2x = LOG_ZERO_F, s2y = LOG_ZERO_F;
-        if (y >= 1) {
-          u1m = p1[y - 1]; u1x = p1[W + y - 1]; u1y = p1[2 * W + y - 1];
-          s2m = p2[y - 1]; s2x = p2[W + y - 1]; s2y = p2[2 * W + y - 1];
-        }
-        ngx = e_gx + log_add3<LUT>(p1m + t_ox, p1x + t_ex, p1y + t_sx);
-        nm = e_m + log_add3<LUT>(s2m + t_mm, s2x + t_mgx, s2y + t_mgy);
-        ngy = e_gy + log_add3<LUT>(u1m + t_oy, u1y + t_ey, u1x + t_sy);
-        // clamp accumulated underflow to the finite LOG_ZERO
-        nm = fmaxf(nm, LOG_ZERO_F);
-        ngx = fmaxf(ngx, LOG_ZERO_F);
-        ngy = fmaxf(ngy, LOG_ZERO_F);
-        if (d == d_final && y == ly) {
-          // total at (lx, ly) with the end-state weights
-          // (pairwiseAligner.c:882-892; stateMachine.c:531-560)
-          const bool rr = ragged_right[b] != 0;
-          const float em = rr ? (t_ox + t_oy) / 2.0f : t_mm;
-          const float ex = rr ? t_ex : t_mgx;
-          const float ey = rr ? t_ey : t_mgy;
-          out[b] = log_add<LUT>(log_add<LUT>(nm + em, ngx + ex), ngy + ey);
-        }
-      }
-      cur[y] = nm;
-      cur[W + y] = ngx;
-      cur[2 * W + y] = ngy;
-    }
-    __syncthreads();
+  // --- a lane's rows: y symbol, its gapY emission and run length
+  const int y0 = t * R;
+  int cy[R], ry[R];
+  float e_gy[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + r;
+    const bool hy = y >= 1 && y <= ly;
+    cy[r] = hy ? a.ys[(int64_t)b * Ly + y - 1] : 4;
+    e_gy[r] = gy_tab[cy[r]];
+    ry[r] = (RLE && hy) ? a.rep_y[(int64_t)b * Ly + y - 1] : 0;
   }
+
+  // --- diagonal 0: the start cell (0, 0) (stateMachine.c:521-530);
+  // diagonal -1: LOG_ZERO
+  const bool rl = a.ragged_left[b] != 0;
+  float p1[R][3], p2[R][3], up1[3], up2[3];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool y_0 = y0 + r == 0;
+    p1[r][0] = (y_0 && !rl) ? 0.0f : LOG_ZERO_F;
+    p1[r][1] = p1[r][2] = (y_0 && rl) ? 0.0f : LOG_ZERO_F;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) p2[r][q] = LOG_ZERO_F;
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) up2[q] = LOG_ZERO_F;
+  int step = 0;
+  from_above<WARP>(p1[R - 1], up1, xch, nt, step);
+
+  for (int d = 1; d <= D; ++d) {
+    float c[R][3];
+    // a warp whose rows [wy, wy + 32 R) hold none of the diagonal's cells
+    // (rows max(0, d - lx) .. min(d, ly)) writes LOG_ZERO and skips them
+    const int wy = (t & ~31) * R;
+    if (WARP || (wy <= min(d, ly) && wy + 32 * R > d - lx)) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int y = y0 + r;
+        const int xi = d - 1 - y;  // x symbol consumed at this cell
+        const bool inx = (unsigned)xi < (unsigned)lx;
+        const int cx = inx ? sx[xi] : 4;
+        float e_m = m_tab[cx * 5 + cy[r]];
+        const float e_gx = gx_tab[cx];
+        if (RLE) {
+          const int rx = inx ? srx[xi] : 0;
+          const int base = cx >= 4 ? 0 : cx;  // N -> A (repeatSubMatrix.c:16-27)
+          e_m = e_m + __ldg(rep + base * REP_N * REP_N + rx * REP_N + ry[r]);
+        }
+        // gapX <- (x-1, y): diagonal d-1, row y; gapY <- (x, y-1):
+        // diagonal d-1, row y-1; match <- (x-1, y-1): diagonal d-2, row y-1
+        const int ra = r > 0 ? r - 1 : 0;
+        float u1[3], s2[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          u1[q] = r == 0 ? up1[q] : p1[ra][q];
+          s2[q] = r == 0 ? up2[q] : p2[ra][q];
+        }
+        float ngx = e_gx + log_add3<LUT>(p1[r][0] + t_ox, p1[r][1] + t_ex,
+                                         p1[r][2] + t_sx);
+        float nm = e_m + log_add3<LUT>(s2[0] + t_mm, s2[1] + t_mgx,
+                                       s2[2] + t_mgy);
+        float ngy = e_gy[r] + log_add3<LUT>(u1[0] + t_oy, u1[2] + t_ey,
+                                            u1[1] + t_sy);
+        // clamp accumulated underflow to the finite LOG_ZERO; the valid
+        // cells are rows y <= ly with 0 <= d - y <= lx
+        const bool valid = y <= ly && (unsigned)(d - y) <= (unsigned)lx;
+        c[r][0] = valid ? fmaxf(nm, LOG_ZERO_F) : LOG_ZERO_F;
+        c[r][1] = valid ? fmaxf(ngx, LOG_ZERO_F) : LOG_ZERO_F;
+        c[r][2] = valid ? fmaxf(ngy, LOG_ZERO_F) : LOG_ZERO_F;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) c[r][q] = LOG_ZERO_F;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        p2[r][q] = p1[r][q];
+        p1[r][q] = c[r][q];
+      }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) up2[q] = up1[q];
+    if (d < D) from_above<WARP>(p1[R - 1], up1, xch, nt, step);
+  }
+  // the total at (lx, ly) with the end-state weights
+  // (pairwiseAligner.c:882-892; stateMachine.c:531-560)
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (y0 + r == ly) {
+      const bool rr = a.ragged_right[b] != 0;
+      const float em = rr ? (t_ox + t_oy) / 2.0f : t_mm;
+      const float ex = rr ? t_ex : t_mgx;
+      const float ey = rr ? t_ey : t_mgy;
+      a.out[b] = log_add<LUT>(log_add<LUT>(p1[r][0] + em, p1[r][1] + ex),
+                              p1[r][2] + ey);
+    }
 }
 
+template <bool LUT, bool RLE>
+int launch(const K1Args& a, int B, int Lx, int Ly, int shape, int warps,
+           int rows, int smem, cudaStream_t stream) {
+  void (*kern)(const K1Args, int, int, int) =
+      shape == 0  ? k1_kernel<LUT, RLE, 1, true>
+      : rows == 1 ? k1_kernel<LUT, RLE, 1, false>
+      : rows == 2 ? k1_kernel<LUT, RLE, 2, false>
+      : rows == 4 ? k1_kernel<LUT, RLE, 4, false>
+                  : k1_kernel<LUT, RLE, 8, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = shape == 0 ? (B + warps - 1) / warps : B;
+  kern<<<grid, 32 * warps, smem, stream>>>(a, B, Lx, Ly);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared-memory bytes of a block of the given shape and warps at a
+// batch's padded Lx and RLE state (ops/pairhmm.py:k1_launch mirrors it).
+extern "C" int k1_smem_bytes(int Lx, int rle, int shape, int warps) {
+  return block_bytes(Lx, rle != 0, shape, warps);
+}
+
+// shape, warps, rows: the wrapper's launch configuration; smem: the
+// shared-memory bytes it computed. The launch is refused for a
+// configuration the kernel does not take or less shared memory than its
+// layout needs.
 extern "C" int k1_forward_total(const void* xs, const void* ys,
                                 const void* lxs, const void* lys,
                                 const void* strands, const void* ragged_left,
@@ -147,32 +340,26 @@ extern "C" int k1_forward_total(const void* xs, const void* ys,
                                 const void* gap_x, const void* gap_y,
                                 const void* trans, const void* repeat,
                                 void* out, int B, int Lx, int Ly, int use_lut,
+                                int shape, int warps, int rows, int smem,
                                 void* stream) {
-  const int W = Ly + 1;
-  int threads = ((W + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  const size_t smem = (size_t)9 * W * sizeof(float);
   const bool rle = rep_x != nullptr;
-  void (*kern)(const uint8_t*, const uint8_t*, const int*, const int*,
-               const int*, const uint8_t*, const uint8_t*, const int*,
-               const int*, const float*, const float*, const float*,
-               const float*, const float*, float*, int, int);
-  if (use_lut) {
-    kern = rle ? k1_kernel<true, true> : k1_kernel<true, false>;
-  } else {
-    kern = rle ? k1_kernel<false, true> : k1_kernel<false, false>;
-  }
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)xs, (const uint8_t*)ys, (const int*)lxs,
-      (const int*)lys, (const int*)strands, (const uint8_t*)ragged_left,
-      (const uint8_t*)ragged_right, (const int*)rep_x, (const int*)rep_y,
-      (const float*)match, (const float*)gap_x, (const float*)gap_y,
-      (const float*)trans, (const float*)repeat, (float*)out, Lx, Ly);
-  return (int)cudaGetLastError();
+  if (!config_ok(Ly, shape, warps, rows) || Lx < 0 ||
+      smem < block_bytes(Lx, rle, shape, warps) || smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const K1Args a{(const uint8_t*)xs,     (const uint8_t*)ys,
+                 (const int*)lxs,        (const int*)lys,
+                 (const int*)strands,    (const uint8_t*)ragged_left,
+                 (const uint8_t*)ragged_right, (const int*)rep_x,
+                 (const int*)rep_y,      (const float*)match,
+                 (const float*)gap_x,    (const float*)gap_y,
+                 (const float*)trans,    (const float*)repeat,
+                 (float*)out};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (use_lut)
+    return rle ? launch<true, true>(a, B, Lx, Ly, shape, warps, rows, smem, st)
+               : launch<true, false>(a, B, Lx, Ly, shape, warps, rows, smem,
+                                     st);
+  return rle ? launch<false, true>(a, B, Lx, Ly, shape, warps, rows, smem, st)
+             : launch<false, false>(a, B, Lx, Ly, shape, warps, rows, smem,
+                                    st);
 }

@@ -45,10 +45,10 @@ import torch
 
 from margin_tpu_torch import _ext
 from margin_tpu_torch.ops import logmath
-from margin_tpu_torch.ops.pairhmm import (LOG_ZERO, T_EXT_X, T_EXT_Y, T_MM,
-                                          T_M_FROM_GX, T_M_FROM_GY, T_OPEN_X,
-                                          T_OPEN_Y, T_SW_X, T_SW_Y, _Counter,
-                                          _check)
+from margin_tpu_torch.ops.pairhmm import (LOG_ZERO, MAX_SMEM, T_EXT_X,
+                                          T_EXT_Y, T_MM, T_M_FROM_GX,
+                                          T_M_FROM_GY, T_OPEN_X, T_OPEN_Y,
+                                          T_SW_X, T_SW_Y, _Counter, _check)
 from margin_tpu_torch.params import MAXIMUM_REPEAT_LENGTH
 
 MATCH, GAPX, GAPY = 0, 1, 2
@@ -69,7 +69,6 @@ FB_GRID_BUDGET_BYTES = 8 << 30
 # may use (232,448 bytes, set per kernel with cudaFuncSetAttribute). The
 # JAX package's `_seg_d` (pallas_banded.py:863-870) sized a device-memory
 # scratch instead.
-MAX_SMEM = 232_448
 SEG_STEP = 16
 _K3_WORDS = 1024   # extraction words staged per block (WORDS_PER_BLOCK)
 _MAX_NW = 4        # warps of a block (MAX_NW)

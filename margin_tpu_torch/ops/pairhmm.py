@@ -7,9 +7,11 @@ the whole rectangle and the dense anti-diagonal recurrence is exactly the
 reference computation.
 
 `forward_total` sends a batch on a CUDA device to the hand-written kernel
-`csrc/pairhmm_forward.cu` (one thread block per pair) and a batch on the
-CPU to `forward_total_plain`, the same recurrence in plain PyTorch with the
-JAX function's operation order (`_forward_total`, pairhmm.py:194-346).
+`csrc/pairhmm_forward.cu` (a lane per anti-diagonal row, a warp or a
+block per pair; `k1_launch` mirrors its launch configuration) and a batch
+on the CPU to `forward_total_plain`, the same recurrence in plain PyTorch
+with the JAX function's operation order (`_forward_total`,
+pairhmm.py:194-346).
 
 States: 0=match, 1=gapX (consumes x), 2=gapY (consumes y)
 (stateMachine.c:10-12); transitions/emissions per StateMachine3
@@ -203,6 +205,57 @@ def make_batch(seq_pairs, strands=None, ragged_left=None, ragged_right=None,
 # kernel K1 wrapper
 # ---------------------------------------------------------------------------
 
+# Launch configuration of K1 (csrc/pairhmm_forward.cu checks it,
+# config_ok, and lays out its shared memory, block_bytes). A lane
+# holds R consecutive rows of an anti-diagonal; a batch whose padded Ly + 1
+# fits one warp runs a warp a pair, WARP_PAIRS pairs a block, any other a
+# block a pair of ceil((Ly + 1) / (32 R)) warps, R in {1, 2, 4, 8} the
+# fewest rows a lane that keep the block at <= 1024 threads. A pair's slot
+# of shared memory holds its 44 table floats and its x symbols and (RLE)
+# x run lengths as bytes, each in round_up(Lx + 4, 16) bytes; a block a
+# pair adds the two exchange slots of warps x 3 floats. A Hopper block may
+# use 232,448 bytes (set per kernel with cudaFuncSetAttribute).
+MAX_SMEM = 232_448
+MAX_LY = 8191
+WARP_PAIRS = 8
+
+
+@dataclass(frozen=True)
+class K1Launch:
+    """shape: "warp" (a warp a pair) or "block" (a block a pair); warps:
+    of a block; rows: R, rows a lane holds; pairs: of a block; smem:
+    shared-memory bytes of a block."""
+    shape: str
+    warps: int
+    rows: int
+    pairs: int
+    smem: int
+
+
+def k1_launch(Lx: int, Ly: int, rle: bool) -> K1Launch:
+    """K1's launch configuration for a batch padded to (Lx, Ly). Raises
+    ValueError for Ly > MAX_LY or an Lx whose staged bytes exceed the
+    shared memory a block may use."""
+    if Ly > MAX_LY:
+        raise ValueError(f"K1 takes Ly <= {MAX_LY} (a block holds 1024 "
+                         f"lanes of at most 8 rows), got {Ly}")
+    slot = 44 * 4 + (2 if rle else 1) * (-(-(Lx + 4) // 16) * 16)
+    w = Ly + 1
+    if w <= 32:
+        pairs = min(WARP_PAIRS, MAX_SMEM // slot)
+        cfg, need = K1Launch("warp", pairs, 1, pairs, pairs * slot), slot
+    else:
+        rows = next(r for r in (1, 2, 4, 8) if w <= 1024 * r)
+        warps = -(-w // (32 * rows))
+        need = slot + 2 * warps * 3 * 4
+        cfg = K1Launch("block", warps, rows, 1, need)
+    if need > MAX_SMEM:
+        raise ValueError(f"K1 at Lx={Lx}, RLE {'on' if rle else 'off'} "
+                         f"needs {need} bytes of shared memory a pair, more "
+                         f"than the {MAX_SMEM} a block may use")
+    return cfg
+
+
 class _Counter:
     """Plain launch counter of one kernel wrapper."""
 
@@ -216,12 +269,17 @@ _P = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=None)
-def _k1():
+def _k1_lib():
     lib = _ext.kernel_lib("pairhmm_forward")
-    fn = lib.k1_forward_total
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 15 + [ctypes.c_int] * 4 + [_P]
-    return fn
+    lib.k1_forward_total.restype = ctypes.c_int
+    lib.k1_forward_total.argtypes = [_P] * 15 + [ctypes.c_int] * 8 + [_P]
+    lib.k1_smem_bytes.restype = ctypes.c_int
+    lib.k1_smem_bytes.argtypes = [ctypes.c_int] * 4
+    return lib
+
+
+def _k1():
+    return _k1_lib().k1_forward_total
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -265,8 +323,7 @@ def forward_total(tables: PairHmmTables, batch: PairBatch,
         _check(batch.rep_y, "rep_y", torch.int32, (B, Ly), dev)
         n = MAXIMUM_REPEAT_LENGTH
         _check(tables.repeat, "repeat", torch.float32, (2, 4 * n * n), dev)
-    if Ly + 1 > 8192:
-        raise ValueError(f"K1 takes Ly <= 8191 (shared memory), got {Ly}")
+    launch = k1_launch(Lx, Ly, use_rle)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out
@@ -279,7 +336,8 @@ def forward_total(tables: PairHmmTables, batch: PairBatch,
                _ptr(tables.match), _ptr(tables.gap_x), _ptr(tables.gap_y),
                _ptr(tables.trans),
                _ptr(tables.repeat) if use_rle else None, _ptr(out),
-               B, Lx, Ly, int(bool(use_lut)), stream)
+               B, Lx, Ly, int(bool(use_lut)), int(launch.shape == "block"),
+               launch.warps, launch.rows, launch.smem, stream)
     _ext.check_launch(rc, "pairhmm forward (K1)")
     FORWARD_TOTAL.launches += 1
     return out

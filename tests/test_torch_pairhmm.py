@@ -166,19 +166,132 @@ def test_cpu_batch_never_counts_a_launch():
     assert pairhmm.FORWARD_TOTAL.launches == before
 
 
+# (Ly, shape, warps, rows a lane, pairs a block) of K1's launch at Lx = 909
+K1_LAUNCHES = [(0, "warp", 8, 1, 8), (31, "warp", 8, 1, 8),
+               (32, "block", 2, 1, 1), (916, "block", 29, 1, 1),
+               (1023, "block", 32, 1, 1), (1024, "block", 17, 2, 1),
+               (8191, "block", 32, 8, 1)]
+
+
+@pytest.mark.parametrize("ly,shape,warps,rows,pairs", K1_LAUNCHES)
+def test_k1_launch_config(ly, shape, warps, rows, pairs):
+    """The warp-a-pair shape up to Ly + 1 = 32 lanes, then a block a pair
+    with the fewest rows a lane (1, 2, 4, 8) that keep it at <= 1024
+    threads; shared memory: 44 table floats and 928 bytes each of x
+    symbols and run lengths a pair, plus (block) 2 x warps x 3 floats."""
+    for rle, slot in ((True, 176 + 2 * 928), (False, 176 + 928)):
+        cfg = pairhmm.k1_launch(909, ly, rle)
+        assert (cfg.shape, cfg.warps, cfg.rows, cfg.pairs) == \
+            (shape, warps, rows, pairs)
+        assert cfg.smem == (pairs * slot if shape == "warp"
+                            else slot + 24 * warps)
+        assert cfg.smem <= pairhmm.MAX_SMEM
+        if shape == "block":
+            assert 32 * warps * rows >= ly + 1 > 32 * (warps - 1) * rows
+            assert 32 * warps <= 1024
+
+
+def test_k1_launch_config_raises():
+    """Beyond Ly = 8191, and at an Lx whose staged symbols and run lengths
+    exceed the 232,448 bytes a block may use (the same Lx fits without
+    run lengths)."""
+    with pytest.raises(ValueError):
+        pairhmm.k1_launch(909, 8192, False)
+    for ly in (31, 916):
+        with pytest.raises(ValueError):
+            pairhmm.k1_launch(150_000, ly, True)
+        assert pairhmm.k1_launch(150_000, ly, False).smem <= pairhmm.MAX_SMEM
+    assert pairhmm.k1_launch(150_000, 31, False).pairs == 1
+
+
+def _shaped_inputs(seed, b, lx_range, ly_range, rle):
+    """An empty pair, a pair with lx = 0, one with ly = 0, then b pairs
+    with lx, ly uniform in their ranges, as `_inputs` makes them."""
+    rng = np.random.default_rng(seed)
+    lens = [(0, 0), (0, ly_range[1]), (lx_range[1], 0)] + [
+        (int(rng.integers(lx_range[0], lx_range[1] + 1)),
+         int(rng.integers(ly_range[0], ly_range[1] + 1))) for _ in range(b)]
+    pairs, reps = [], []
+    for lx, ly in lens:
+        x = rng.integers(0, 4, lx).astype(np.uint8)
+        x[rng.random(lx) < 0.05] = 4
+        pairs.append((x, rng.integers(0, 4, ly).astype(np.uint8)))
+        reps.append((rng.integers(1, 60, lx), rng.integers(1, 60, ly)))
+    n = len(pairs)
+    return pairs, dict(strands=rng.integers(0, 2, n),
+                       ragged_left=rng.random(n) < 0.3,
+                       ragged_right=rng.random(n) < 0.3,
+                       rep_pairs=reps if rle else None)
+
+
+# launch shape: (pairs, lx range, ly range, rows a lane R); "warp" is the
+# warp-a-pair shape (Ly <= 31), the others a block a pair
+K1_CUDA_CASES = {"warp": (64, (1, 40), (1, 31), 1),
+                 "R1": (64, (1, 300), (1, 300), 1),
+                 "R2": (8, (1, 200), (1025, 2000), 2),
+                 "R8": (4, (50, 120), (4100, 8191), 8)}
+
+
 @pytest.mark.cuda
-def test_forward_total_kernel_matches_plain():
+@pytest.mark.parametrize("rle", [False, True])
+@pytest.mark.parametrize("case", list(K1_CUDA_CASES))
+def test_forward_total_kernel_matches_plain(case, rle):
+    """K1 against its twin in each launch shape, RLE on and off, with
+    ragged ends and empty pairs: LUT bit for bit, exact within 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for rle in (False, True):
-        tc = _port_tables(rle, device="cuda")
-        pairs, kw = _inputs(5, rle=rle)
-        batch = pairhmm.make_batch(pairs, device="cuda", **kw)
-        for use_lut in (True, False):
-            got = pairhmm.forward_total(tc, batch, use_lut=use_lut)
-            want = pairhmm.forward_total_plain(tc, batch, use_lut=use_lut)
-            torch.cuda.synchronize()
-            if use_lut:
-                assert torch.equal(got, want)
-            else:
-                assert (got - want).abs().max().item() <= 1e-4
+    b, lxr, lyr, rows = K1_CUDA_CASES[case]
+    tc = _port_tables(rle, device="cuda")
+    pairs, kw = _shaped_inputs(5, b, lxr, lyr, rle)
+    batch = pairhmm.make_batch(pairs, device="cuda", **kw)
+    cfg = pairhmm.k1_launch(batch.xs.shape[1], batch.ys.shape[1], rle)
+    assert (cfg.shape == "warp") == (case == "warp") and cfg.rows == rows
+    for use_lut in (True, False):
+        got = pairhmm.forward_total(tc, batch, use_lut=use_lut)
+        want = pairhmm.forward_total_plain(tc, batch, use_lut=use_lut)
+        torch.cuda.synchronize()
+        assert got[0].item() == 0.0 and bool(got.isfinite().all())
+        if use_lut:
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k1_launch_config_matches_kernel():
+    """The kernel's own layout has the wrapper's shared-memory bytes, and
+    the kernel refuses a launch given less, or a configuration it does not
+    take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    lib = pairhmm._k1_lib()
+    for lx in (1, 29, 909, 4097, 90_000):
+        for ly, *_ in K1_LAUNCHES:
+            for rle in (False, True):
+                cfg = pairhmm.k1_launch(lx, ly, rle)
+                assert lib.k1_smem_bytes(lx, rle, int(cfg.shape == "block"),
+                                         cfg.warps) == cfg.smem
+    tc = _port_tables(False, device="cuda")
+    pairs, kw = _inputs(6, b=4)
+    bt = pairhmm.make_batch(pairs, device="cuda", pad_to=(40, 40), **kw)
+    B, Lx = bt.xs.shape
+    Ly = bt.ys.shape[1]
+    cfg = pairhmm.k1_launch(Lx, Ly, False)
+    assert cfg.shape == "block" and cfg.rows == 1
+    out = torch.empty(B, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [t.data_ptr() for t in (bt.xs, bt.ys, bt.lxs, bt.lys, bt.strands,
+                                   bt.ragged_left, bt.ragged_right)]
+    args += [None, None] + [t.data_ptr() for t in (tc.match, tc.gap_x,
+                                                   tc.gap_y, tc.trans)]
+    args += [None, out.data_ptr(), B, Lx, Ly, 1]
+
+    def launch(shape, warps, rows, smem):
+        return lib.k1_forward_total(*args, shape, warps, rows, smem, stream)
+    assert launch(1, cfg.warps, 1, cfg.smem - 1) != 0
+    assert launch(1, cfg.warps - 1, 1, cfg.smem) != 0   # too few lanes
+    assert launch(1, cfg.warps, 3, cfg.smem) != 0       # rows not 1/2/4/8
+    assert launch(0, 8, 1, cfg.smem) != 0               # Ly + 1 > 32
+    assert launch(1, cfg.warps, 1, cfg.smem) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, pairhmm.forward_total_plain(tc, bt, True))
