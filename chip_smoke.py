@@ -81,7 +81,10 @@ Phases (any failure raises and the script exits non-zero):
 Every K1, K2 and K3 timing also prints the deepest pair's or problem's
 diagonal count and the nanoseconds per diagonal; the device time each
 kernel summed over the phase and polish runs' launches is printed after
-phase 9 (the diploid run's on its own line in phase 8).
+phase 9 (the diploid run's on its own line in phase 8). Phases 3, 6 and 8
+log their K1 launches by padded Ly and write each launch's shape and
+pair lengths to chiprun_out/k1_launches.json, which
+scripts/k1_replay.py replays to time one checkout's K1 on them.
 The line before last is {"kernels": [...]} (times from this run, bounds
 from this run's inputs), the one before it the card, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -463,6 +466,20 @@ def phase_build():
             "per_source_s": dict(_ext.BUILD_SECONDS)}
 
 
+# K1's shapes of phase 2: (label, B, lx range, ly range, RLE, seed,
+# (lx, ly) of pair 0, padded to)
+K1_SHAPES = [
+    ("131072 x 29x32", 131072, (29, 29), (32, 32), False, 100, None, None),
+    ("2048 ragged 1..1024", 2048, (1, 1024), (1, 1024), False, 101, None,
+     None),
+    ("2048 ragged 1..1024, RLE", 2048, (1, 1024), (1, 1024), True, 102,
+     None, None),
+    ("630 like the main path, 909x916 + 60..200", 630, (60, 200),
+     (60, 200), False, 103, (909, 916), (909, 916)),
+    ("16 deep, lx 200..400, ly 4000..8191, RLE", 16, (200, 400),
+     (4000, 8191), True, 104, None, (400, 8191))]
+
+
 def phase_k1(device):
     """K1 against its twin, both logAdds, with the time of each: the
     bubble-scoring shape (131072 x 29x32), ragged batches, a batch like
@@ -471,19 +488,7 @@ def phase_k1(device):
     import torch
     from margin_tpu_torch.ops import pairhmm
     rows = []
-    # (label, B, lx range, ly range, RLE, seed, pair 0, padded to)
-    shapes = [
-        ("131072 x 29x32", 131072, (29, 29), (32, 32), False, 100, None,
-         None),
-        ("2048 ragged 1..1024", 2048, (1, 1024), (1, 1024), False, 101,
-         None, None),
-        ("2048 ragged 1..1024, RLE", 2048, (1, 1024), (1, 1024), True, 102,
-         None, None),
-        ("630 like the main path, 909x916 + 60..200", 630, (60, 200),
-         (60, 200), False, 103, (909, 916), (909, 916)),
-        ("16 deep, lx 200..400, ly 4000..8191, RLE", 16, (200, 400),
-         (4000, 8191), True, 104, None, (400, 8191))]
-    for label, B, lxr, lyr, rle, seed, first, pad_to in shapes:
+    for label, B, lxr, lyr, rle, seed, first, pad_to in K1_SHAPES:
         tabs = tables(device, rle)
         batch = k1_batch(device, B, lxr, lyr, seed=seed, rle=rle,
                          first=first, pad_to=pad_to)
@@ -654,11 +659,12 @@ class Recorder:
         from margin_tpu_torch.ops import banded
         self.banded = banded
         self.orig = (pairhmm.forward_total, cuda_banded.fb_forward,
-                     pairhmm._k1, cuda_banded._k2, cuda_banded._k3,
+                     pairhmm._k1_lib, cuda_banded._k2, cuda_banded._k3,
                      cuda_banded.fb_posteriors_seg, banded.extract_packed)
         self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [], "K3-fwd": [],
                        "K3-bwd": []}
         self.k1_max = None    # (cells, tables, batch, use_lut)
+        self.k1_log = []      # (B, Lx, Ly, RLE, use_lut, lxs, lys) a launch
         self.k2_max = None    # (rows*W, pack, use_lut)
         self.k3_max = None    # (rows*W, fb_posteriors_seg arguments)
         self.threshold = {}   # id(pack) -> extraction threshold
@@ -678,7 +684,11 @@ class Recorder:
 
     def install(self):
         ft, ff, k1, k2, k3, fps, ext = self.orig
-        timed_k1 = self._timed("K1", k1())
+        lib1 = k1()
+
+        class TimedK1:
+            k1_forward_total = staticmethod(self._timed(
+                "K1", lib1.k1_forward_total))
         lib = k2()
         lib3 = k3()
 
@@ -706,6 +716,11 @@ class Recorder:
                 (batch.ys.shape[1] + 1)
             if self.k1_max is None or size > self.k1_max[0]:
                 self.k1_max = (size, tables, batch, use_lut)
+            if batch.xs.shape[0]:   # a launch (B = 0 launches nothing)
+                self.k1_log.append((*batch.xs.shape, batch.ys.shape[1],
+                                    tables.repeat is not None
+                                    and batch.rep_x is not None,
+                                    bool(use_lut), batch.lxs, batch.lys))
             return ft(tables, batch, use_lut)
 
         def fb_forward(pack, use_lut):
@@ -719,7 +734,7 @@ class Recorder:
             return ext(post, totals, pack, threshold)
         self.pairhmm.forward_total = forward_total
         self.cuda_banded.fb_forward = fb_forward
-        self.pairhmm._k1 = lambda: timed_k1
+        self.pairhmm._k1_lib = lambda: TimedK1
         self.cuda_banded._k2 = lambda: TimedK2
         self.cuda_banded._k3 = lambda: TimedK3
         self.cuda_banded.fb_posteriors_seg = fb_posteriors_seg
@@ -727,7 +742,7 @@ class Recorder:
 
     def restore(self):
         (self.pairhmm.forward_total, self.cuda_banded.fb_forward,
-         self.pairhmm._k1, self.cuda_banded._k2, self.cuda_banded._k3,
+         self.pairhmm._k1_lib, self.cuda_banded._k2, self.cuda_banded._k3,
          self.cuda_banded.fb_posteriors_seg,
          self.banded.extract_packed) = self.orig
 
@@ -735,6 +750,35 @@ class Recorder:
         torch_sync()
         return {k: sum(s.elapsed_time(e) for s, e in v)
                 for k, v in self.events.items()}
+
+    def k1_launches(self, run):
+        """Keep the run's K1 launches (batch shape, RLE, logAdd, each pair's
+        lx and ly) for chiprun_out/k1_launches.json, log them by padded Ly
+        with their summed device ms and return that summary."""
+        kms = [s.elapsed_time(e) for s, e in self.events["K1"]]
+        if len(kms) != len(self.k1_log):
+            raise AssertionError(f"{run}: {len(kms)} K1 launches, "
+                                 f"{len(self.k1_log)} through forward_total")
+        launches = [{"B": B, "Lx": Lx, "Ly": Ly, "rle": rle, "lut": lut,
+                     "lxs": lxs.tolist(), "lys": lys.tolist()}
+                    for B, Lx, Ly, rle, lut, lxs, lys in self.k1_log]
+        K1_LAUNCH_LOG[run] = launches
+        summary = {}
+        for lo, hi in K1_LY_BUCKETS:
+            sel = [(l, ms) for l, ms in zip(launches, kms)
+                   if lo <= l["Ly"] <= hi]
+            summary[f"Ly {lo}..{hi}"] = {
+                "launches": len(sel), "pairs": sum(l["B"] for l, _ in sel),
+                "max_Lx": max((l["Lx"] for l, _ in sel), default=0),
+                "ms": sum(ms for _, ms in sel)}
+        log(f"{run} K1 launches by padded Ly: {summary}")
+        return summary
+
+
+# padded-Ly ranges K1 launches are counted in: a block of one warp, of
+# R = 1 row a lane (up to 32 warps), R = 2, R = 4 or 8
+K1_LY_BUCKETS = ((0, 31), (32, 1023), (1024, 2047), (2048, 8191))
+K1_LAUNCH_LOG = {}   # run -> its K1 launches (Recorder.k1_launches)
 
 
 def run_cli(argv, log_path):
@@ -820,6 +864,7 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
               "packs": banded.ROUTES.packs}
     scoring = DEVICE_STATS.snapshot()
     kms = rec.kernel_ms()
+    k1l = rec.k1_launches("phase")
     with open(f"{work}/full.profile.json") as fh:
         prof = json.load(fh)
     phased, agree, tagged = accuracy(ds, f"{work}/full")
@@ -871,7 +916,8 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
     log(f"{region}: kernels {kern_s:.1f} s, plain twins {plain_s:.1f} s, "
         "phased VCF and phaseset.bed byte-identical")
     return {"wall_s": wall, "launches": launches, "routes": routes,
-            "kernel_ms": kms, "scoring": scoring, "phased_share": phased,
+            "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
+            "phased_share": phased,
             "haplotag_agreement": agree, "tagged_reads": tagged,
             "profile": prof, "region": region, "region_kernel_s": kern_s,
             "region_plain_s": plain_s, "dataset_s": gen_s}, rec
@@ -1011,6 +1057,7 @@ def phase_polish(device, work, out_dir, span=205_000):
               "k3_packs": banded.ROUTES.seg_packs}
     scoring = DEVICE_STATS.snapshot()
     kms = rec.kernel_ms()
+    k1l = rec.k1_launches("polish")
     with open(f"{work}/pol.profile.json") as fh:
         prof = json.load(fh)
     truth, draft = fasta_seq(ds.truth), fasta_seq(ds.draft)
@@ -1038,8 +1085,8 @@ def phase_polish(device, work, out_dir, span=205_000):
         raise AssertionError(f"polish did not halve the draft's edit "
                              f"distance ({ed_draft} -> {ed_pol})")
     return {"wall_s": wall, "launches": launches, "routes": routes,
-            "kernel_ms": kms, "scoring": scoring, "profile": prof,
-            "edit_distance_draft": ed_draft, "edit_distance_polished": ed_pol,
+            "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
+            "profile": prof, "edit_distance_draft": ed_draft, "edit_distance_polished": ed_pol,
             "lengths": [len(truth), len(draft), len(polished)],
             "dataset_s": gen_s, "span": span}, ds, rec
 
@@ -1170,6 +1217,7 @@ def phase_diploid(device, work, out_dir, span=205_000):
               "k3_packs": banded.ROUTES.seg_packs}
     scoring = DEVICE_STATS.snapshot()
     kms = rec.kernel_ms()
+    k1l = rec.k1_launches("diploid")
     with open(f"{work}/dip.profile.json") as fh:
         prof = json.load(fh)
     agree, tagged = haplotag_agreement(f"{work}/dip.haplotagged.bam",
@@ -1198,8 +1246,8 @@ def phase_diploid(device, work, out_dir, span=205_000):
     if agree < 0.9:
         raise AssertionError(f"diploid haplotag agreement {agree:.4f} < 0.9")
     return {"wall_s": wall, "launches": launches, "routes": routes,
-            "kernel_ms": kms, "scoring": scoring, "profile": prof,
-            "haplotag_agreement": agree, "tagged_reads": tagged,
+            "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
+            "profile": prof, "haplotag_agreement": agree, "tagged_reads": tagged,
             "edit_distances": ed,
             "lengths": {k: len(v) for k, v in {**seqs, **truths}.items()},
             "dataset_s": gen_s, "span": span}, ds
@@ -1416,6 +1464,9 @@ def main(argv=None) -> int:
     report["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)
+    if K1_LAUNCH_LOG:
+        with open(os.path.join(out_dir, "k1_launches.json"), "w") as fh:
+            json.dump(K1_LAUNCH_LOG, fh)
     log(f"total {report['total_s']:.1f} s")
     print(card)
     if only >= set(PHASES):

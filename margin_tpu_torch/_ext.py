@@ -67,6 +67,9 @@ DEFLATE_SYSTEM = "libdeflate"
 DEFLATE_STAND_IN = "zlib stand-in"
 
 KERNEL_SOURCES = ("pairhmm_forward", "banded_fb", "banded_seg")
+# the shared memory a Hopper block may use (set per kernel with
+# cudaFuncSetAttribute); the kernel wrappers size their layouts by it
+MAX_SMEM = 232_448
 NATIVE_ENGINES = tuple(_NATIVE_FLAGS)
 
 _loaded: Dict[str, Optional[ctypes.CDLL]] = {}

@@ -44,11 +44,12 @@ import numpy as np
 import torch
 
 from margin_tpu_torch import _ext
+from margin_tpu_torch._ext import MAX_SMEM
 from margin_tpu_torch.ops import logmath
-from margin_tpu_torch.ops.pairhmm import (LOG_ZERO, MAX_SMEM, T_EXT_X,
-                                          T_EXT_Y, T_MM, T_M_FROM_GX,
-                                          T_M_FROM_GY, T_OPEN_X, T_OPEN_Y,
-                                          T_SW_X, T_SW_Y, _Counter, _check)
+from margin_tpu_torch.ops.pairhmm import (LOG_ZERO, T_EXT_X, T_EXT_Y, T_MM,
+                                          T_M_FROM_GX, T_M_FROM_GY, T_OPEN_X,
+                                          T_OPEN_Y, T_SW_X, T_SW_Y, _Counter,
+                                          _check)
 from margin_tpu_torch.params import MAXIMUM_REPEAT_LENGTH
 
 MATCH, GAPX, GAPY = 0, 1, 2

@@ -7,8 +7,8 @@ the whole rectangle and the dense anti-diagonal recurrence is exactly the
 reference computation.
 
 `forward_total` sends a batch on a CUDA device to the hand-written kernel
-`csrc/pairhmm_forward.cu` (a lane per anti-diagonal row, a warp or a
-block per pair; `k1_launch` mirrors its launch configuration) and a batch
+`csrc/pairhmm_forward.cu` (a lane per anti-diagonal row, a block per
+pair; `k1_launch` mirrors its launch configuration) and a batch
 on the CPU to `forward_total_plain`, the same recurrence in plain PyTorch
 with the JAX function's operation order (`_forward_total`,
 pairhmm.py:194-346).
@@ -206,54 +206,41 @@ def make_batch(seq_pairs, strands=None, ragged_left=None, ragged_right=None,
 # ---------------------------------------------------------------------------
 
 # Launch configuration of K1 (csrc/pairhmm_forward.cu checks it,
-# config_ok, and lays out its shared memory, block_bytes). A lane
-# holds R consecutive rows of an anti-diagonal; a batch whose padded Ly + 1
-# fits one warp runs a warp a pair, WARP_PAIRS pairs a block, any other a
-# block a pair of ceil((Ly + 1) / (32 R)) warps, R in {1, 2, 4, 8} the
-# fewest rows a lane that keep the block at <= 1024 threads. A pair's slot
-# of shared memory holds its 44 table floats and its x symbols and (RLE)
-# x run lengths as bytes, each in round_up(Lx + 4, 16) bytes; a block a
-# pair adds the two exchange slots of warps x 3 floats. A Hopper block may
-# use 232,448 bytes (set per kernel with cudaFuncSetAttribute).
-MAX_SMEM = 232_448
+# config_ok, and lays out its shared memory, block_bytes). A block holds a
+# pair: ceil((Ly + 1) / (32 R)) warps, a lane R consecutive rows of an
+# anti-diagonal, R in {1, 2, 4, 8} the fewest rows a lane that keep the
+# block at <= 1024 threads. Its shared memory holds the 44 table floats,
+# then, when they fit (stage_x), the x symbols and (RLE) x run lengths as
+# bytes, each in round_up(Lx + 4, 16) bytes, then the exchange's two slots
+# of warps x 3 floats. A longer X is read from device memory.
 MAX_LY = 8191
-WARP_PAIRS = 8
 
 
 @dataclass(frozen=True)
 class K1Launch:
-    """shape: "warp" (a warp a pair) or "block" (a block a pair); warps:
-    of a block; rows: R, rows a lane holds; pairs: of a block; smem:
-    shared-memory bytes of a block."""
-    shape: str
+    """warps: of the block; rows: R, rows a lane holds; stage_x: X staged
+    in shared memory (else read from device memory); smem: shared-memory
+    bytes of the block."""
     warps: int
     rows: int
-    pairs: int
+    stage_x: bool
     smem: int
 
 
 def k1_launch(Lx: int, Ly: int, rle: bool) -> K1Launch:
     """K1's launch configuration for a batch padded to (Lx, Ly). Raises
-    ValueError for Ly > MAX_LY or an Lx whose staged bytes exceed the
-    shared memory a block may use."""
+    ValueError for Ly > MAX_LY."""
     if Ly > MAX_LY:
         raise ValueError(f"K1 takes Ly <= {MAX_LY} (a block holds 1024 "
                          f"lanes of at most 8 rows), got {Ly}")
-    slot = 44 * 4 + (2 if rle else 1) * (-(-(Lx + 4) // 16) * 16)
     w = Ly + 1
-    if w <= 32:
-        pairs = min(WARP_PAIRS, MAX_SMEM // slot)
-        cfg, need = K1Launch("warp", pairs, 1, pairs, pairs * slot), slot
-    else:
-        rows = next(r for r in (1, 2, 4, 8) if w <= 1024 * r)
-        warps = -(-w // (32 * rows))
-        need = slot + 2 * warps * 3 * 4
-        cfg = K1Launch("block", warps, rows, 1, need)
-    if need > MAX_SMEM:
-        raise ValueError(f"K1 at Lx={Lx}, RLE {'on' if rle else 'off'} "
-                         f"needs {need} bytes of shared memory a pair, more "
-                         f"than the {MAX_SMEM} a block may use")
-    return cfg
+    rows = next(r for r in (1, 2, 4, 8) if w <= 1024 * r)
+    warps = -(-w // (32 * rows))
+    fixed = 44 * 4 + 2 * warps * 3 * 4
+    staged = fixed + (2 if rle else 1) * (-(-(Lx + 4) // 16) * 16)
+    if staged <= _ext.MAX_SMEM:
+        return K1Launch(warps, rows, True, staged)
+    return K1Launch(warps, rows, False, fixed)
 
 
 class _Counter:
@@ -276,10 +263,6 @@ def _k1_lib():
     lib.k1_smem_bytes.restype = ctypes.c_int
     lib.k1_smem_bytes.argtypes = [ctypes.c_int] * 4
     return lib
-
-
-def _k1():
-    return _k1_lib().k1_forward_total
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -328,16 +311,15 @@ def forward_total(tables: PairHmmTables, batch: PairBatch,
     if B == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k1()(_ptr(batch.xs), _ptr(batch.ys), _ptr(batch.lxs),
-               _ptr(batch.lys), _ptr(batch.strands), _ptr(batch.ragged_left),
-               _ptr(batch.ragged_right),
-               _ptr(batch.rep_x) if use_rle else None,
-               _ptr(batch.rep_y) if use_rle else None,
-               _ptr(tables.match), _ptr(tables.gap_x), _ptr(tables.gap_y),
-               _ptr(tables.trans),
-               _ptr(tables.repeat) if use_rle else None, _ptr(out),
-               B, Lx, Ly, int(bool(use_lut)), int(launch.shape == "block"),
-               launch.warps, launch.rows, launch.smem, stream)
+    rc = _k1_lib().k1_forward_total(
+        _ptr(batch.xs), _ptr(batch.ys), _ptr(batch.lxs), _ptr(batch.lys),
+        _ptr(batch.strands), _ptr(batch.ragged_left),
+        _ptr(batch.ragged_right), _ptr(batch.rep_x) if use_rle else None,
+        _ptr(batch.rep_y) if use_rle else None, _ptr(tables.match),
+        _ptr(tables.gap_x), _ptr(tables.gap_y), _ptr(tables.trans),
+        _ptr(tables.repeat) if use_rle else None, _ptr(out), B, Lx, Ly,
+        int(bool(use_lut)), launch.warps, launch.rows, int(launch.stage_x),
+        launch.smem, stream)
     _ext.check_launch(rc, "pairhmm forward (K1)")
     FORWARD_TOTAL.launches += 1
     return out

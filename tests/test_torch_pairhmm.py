@@ -25,6 +25,7 @@ import torch
 from margin_tpu.ops import logmath as jlogmath
 from margin_tpu.ops import pairhmm as jpairhmm
 from margin_tpu.params import RepeatSubMatrix, StateMachineParams
+from margin_tpu_torch import _ext
 from margin_tpu_torch.ops import logmath, pairhmm
 
 torch.set_num_threads(1)
@@ -166,42 +167,36 @@ def test_cpu_batch_never_counts_a_launch():
     assert pairhmm.FORWARD_TOTAL.launches == before
 
 
-# (Ly, shape, warps, rows a lane, pairs a block) of K1's launch at Lx = 909
-K1_LAUNCHES = [(0, "warp", 8, 1, 8), (31, "warp", 8, 1, 8),
-               (32, "block", 2, 1, 1), (916, "block", 29, 1, 1),
-               (1023, "block", 32, 1, 1), (1024, "block", 17, 2, 1),
-               (8191, "block", 32, 8, 1)]
+# (Ly, warps, rows a lane) of K1's launch
+K1_LAUNCHES = [(0, 1, 1), (31, 1, 1), (32, 2, 1), (916, 29, 1),
+               (1023, 32, 1), (1024, 17, 2), (8191, 32, 8)]
 
 
-@pytest.mark.parametrize("ly,shape,warps,rows,pairs", K1_LAUNCHES)
-def test_k1_launch_config(ly, shape, warps, rows, pairs):
-    """The warp-a-pair shape up to Ly + 1 = 32 lanes, then a block a pair
-    with the fewest rows a lane (1, 2, 4, 8) that keep it at <= 1024
-    threads; shared memory: 44 table floats and 928 bytes each of x
-    symbols and run lengths a pair, plus (block) 2 x warps x 3 floats."""
-    for rle, slot in ((True, 176 + 2 * 928), (False, 176 + 928)):
+@pytest.mark.parametrize("ly,warps,rows", K1_LAUNCHES)
+def test_k1_launch_config(ly, warps, rows):
+    """A block a pair with the fewest rows a lane (1, 2, 4, 8) that keep
+    it at <= 1024 threads; shared memory at Lx = 909: 44 table floats, 928
+    bytes each of x symbols and run lengths, 2 x warps x 3 floats."""
+    for rle, staged in ((True, 176 + 2 * 928), (False, 176 + 928)):
         cfg = pairhmm.k1_launch(909, ly, rle)
-        assert (cfg.shape, cfg.warps, cfg.rows, cfg.pairs) == \
-            (shape, warps, rows, pairs)
-        assert cfg.smem == (pairs * slot if shape == "warp"
-                            else slot + 24 * warps)
-        assert cfg.smem <= pairhmm.MAX_SMEM
-        if shape == "block":
-            assert 32 * warps * rows >= ly + 1 > 32 * (warps - 1) * rows
-            assert 32 * warps <= 1024
+        assert (cfg.warps, cfg.rows, cfg.stage_x) == (warps, rows, True)
+        assert cfg.smem == staged + 24 * warps <= _ext.MAX_SMEM
+        assert 32 * warps * rows >= ly + 1 > 32 * (warps - 1) * rows
+        assert 32 * warps <= 1024
 
 
 def test_k1_launch_config_raises():
-    """Beyond Ly = 8191, and at an Lx whose staged symbols and run lengths
-    exceed the 232,448 bytes a block may use (the same Lx fits without
-    run lengths)."""
+    """Beyond Ly = 8191; an Lx whose staged symbols and run lengths would
+    exceed the 232,448 bytes a block may use still launches, with X read
+    from device memory (the same Lx is staged without run lengths)."""
     with pytest.raises(ValueError):
         pairhmm.k1_launch(909, 8192, False)
-    for ly in (31, 916):
-        with pytest.raises(ValueError):
-            pairhmm.k1_launch(150_000, ly, True)
-        assert pairhmm.k1_launch(150_000, ly, False).smem <= pairhmm.MAX_SMEM
-    assert pairhmm.k1_launch(150_000, 31, False).pairs == 1
+    for ly, warps in ((31, 1), (916, 29)):
+        cfg = pairhmm.k1_launch(150_000, ly, True)
+        assert not cfg.stage_x and cfg.smem == 176 + 24 * warps
+        cfg = pairhmm.k1_launch(150_000, ly, False)
+        assert cfg.stage_x and cfg.smem == 176 + 150_016 + 24 * warps
+        assert not pairhmm.k1_launch(240_000, ly, False).stage_x
 
 
 def _shaped_inputs(seed, b, lx_range, ly_range, rle):
@@ -224,12 +219,14 @@ def _shaped_inputs(seed, b, lx_range, ly_range, rle):
                        rep_pairs=reps if rle else None)
 
 
-# launch shape: (pairs, lx range, ly range, rows a lane R); "warp" is the
-# warp-a-pair shape (Ly <= 31), the others a block a pair
-K1_CUDA_CASES = {"warp": (64, (1, 40), (1, 31), 1),
-                 "R1": (64, (1, 300), (1, 300), 1),
-                 "R2": (8, (1, 200), (1025, 2000), 2),
-                 "R8": (4, (50, 120), (4100, 8191), 8)}
+# launch: (pairs, lx range, ly range, rows a lane R, padded Lx); "1warp"
+# a block of one warp (Ly <= 31), "Xdev" X read from device memory (the
+# batch padded beyond the Lx whose x symbols fit in shared memory)
+K1_CUDA_CASES = {"1warp": (64, (1, 40), (1, 31), 1, None),
+                 "R1": (64, (1, 300), (1, 300), 1, None),
+                 "R2": (8, (1, 200), (1025, 2000), 2, None),
+                 "R8": (4, (50, 120), (4100, 8191), 8, None),
+                 "Xdev": (16, (1, 2000), (1, 300), 1, 240_000)}
 
 
 @pytest.mark.cuda
@@ -237,17 +234,23 @@ K1_CUDA_CASES = {"warp": (64, (1, 40), (1, 31), 1),
 @pytest.mark.parametrize("case", list(K1_CUDA_CASES))
 def test_forward_total_kernel_matches_plain(case, rle):
     """K1 against its twin in each launch shape, RLE on and off, with
-    ragged ends and empty pairs: LUT bit for bit, exact within 1e-4."""
+    ragged ends and empty pairs: LUT bit for bit, exact within 1e-4. A
+    batch padded to Lx = 240,000 is held against the twin on the same
+    pairs padded only to their longest x, and against the kernel there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    b, lxr, lyr, rows = K1_CUDA_CASES[case]
+    b, lxr, lyr, rows, pad_x = K1_CUDA_CASES[case]
     tc = _port_tables(rle, device="cuda")
     pairs, kw = _shaped_inputs(5, b, lxr, lyr, rle)
     batch = pairhmm.make_batch(pairs, device="cuda", **kw)
-    cfg = pairhmm.k1_launch(batch.xs.shape[1], batch.ys.shape[1], rle)
-    assert (cfg.shape == "warp") == (case == "warp") and cfg.rows == rows
+    long = batch
+    if pad_x is not None:
+        long = pairhmm.make_batch(pairs, device="cuda", pad_to=(pad_x, 0),
+                                  **kw)
+    cfg = pairhmm.k1_launch(long.xs.shape[1], long.ys.shape[1], rle)
+    assert cfg.rows == rows and cfg.stage_x == (pad_x is None)
     for use_lut in (True, False):
-        got = pairhmm.forward_total(tc, batch, use_lut=use_lut)
+        got = pairhmm.forward_total(tc, long, use_lut=use_lut)
         want = pairhmm.forward_total_plain(tc, batch, use_lut=use_lut)
         torch.cuda.synchronize()
         assert got[0].item() == 0.0 and bool(got.isfinite().all())
@@ -255,6 +258,9 @@ def test_forward_total_kernel_matches_plain(case, rle):
             assert torch.equal(got, want)
         else:
             assert (got - want).abs().max().item() <= 1e-4
+        if pad_x is not None:
+            assert torch.equal(got, pairhmm.forward_total(tc, batch,
+                                                          use_lut=use_lut))
 
 
 @pytest.mark.cuda
@@ -265,19 +271,20 @@ def test_k1_launch_config_matches_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     lib = pairhmm._k1_lib()
-    for lx in (1, 29, 909, 4097, 90_000):
+    for lx in (1, 29, 909, 4097, 90_000, 150_000):
         for ly, *_ in K1_LAUNCHES:
             for rle in (False, True):
                 cfg = pairhmm.k1_launch(lx, ly, rle)
-                assert lib.k1_smem_bytes(lx, rle, int(cfg.shape == "block"),
-                                         cfg.warps) == cfg.smem
+                assert lib.k1_smem_bytes(lx, rle, cfg.warps,
+                                         cfg.stage_x) == cfg.smem
     tc = _port_tables(False, device="cuda")
     pairs, kw = _inputs(6, b=4)
     bt = pairhmm.make_batch(pairs, device="cuda", pad_to=(40, 40), **kw)
     B, Lx = bt.xs.shape
     Ly = bt.ys.shape[1]
     cfg = pairhmm.k1_launch(Lx, Ly, False)
-    assert cfg.shape == "block" and cfg.rows == 1
+    assert cfg.stage_x and cfg.rows == 1
+    unstaged = lib.k1_smem_bytes(Lx, 0, cfg.warps, 0)
     out = torch.empty(B, dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     args = [t.data_ptr() for t in (bt.xs, bt.ys, bt.lxs, bt.lys, bt.strands,
@@ -286,12 +293,15 @@ def test_k1_launch_config_matches_kernel():
                                                    tc.gap_y, tc.trans)]
     args += [None, out.data_ptr(), B, Lx, Ly, 1]
 
-    def launch(shape, warps, rows, smem):
-        return lib.k1_forward_total(*args, shape, warps, rows, smem, stream)
-    assert launch(1, cfg.warps, 1, cfg.smem - 1) != 0
-    assert launch(1, cfg.warps - 1, 1, cfg.smem) != 0   # too few lanes
-    assert launch(1, cfg.warps, 3, cfg.smem) != 0       # rows not 1/2/4/8
-    assert launch(0, 8, 1, cfg.smem) != 0               # Ly + 1 > 32
-    assert launch(1, cfg.warps, 1, cfg.smem) == 0
-    torch.cuda.synchronize()
-    assert torch.equal(out, pairhmm.forward_total_plain(tc, bt, True))
+    def launch(warps, rows, stage_x, smem):
+        return lib.k1_forward_total(*args, warps, rows, stage_x, smem, stream)
+    assert launch(cfg.warps, 1, 1, cfg.smem - 1) != 0
+    assert launch(cfg.warps, 1, 1, unstaged) != 0     # X does not fit
+    assert launch(cfg.warps - 1, 1, 1, cfg.smem) != 0  # too few lanes
+    assert launch(cfg.warps, 3, 1, cfg.smem) != 0      # rows not 1/2/4/8
+    want = pairhmm.forward_total_plain(tc, bt, True)
+    for stage_x, smem in ((1, cfg.smem), (0, unstaged)):
+        out.zero_()
+        assert launch(cfg.warps, 1, stage_x, smem) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
