@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase`,
-haploid and diploid `margin polish` on one NVIDIA GPU and check it end to
-end.
+haploid and diploid `margin polish` with HELEN features, Baum-Welch EM and
+the aux tools on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--only kernels,phase,polish,diploid,k1]
+    python3 chip_smoke.py [--only kernels,phase,polish,diploid,em,helen,
+                           tools,k1]
 
 (--only runs a subset after the build, for iterating on one path; k1 runs
-K1's shapes of phase 2 alone, about a minute with the build; a plain run
-takes kernels, phase, polish and diploid and is the one that prints the
+K1's shapes of phase 2 alone, about a minute with the build; tools needs
+phase; a plain run takes all but k1 and is the one that prints the
 kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
-  1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-     and the host C++ engines from the checkout's sources, in parallel;
-     fail unless every host engine loads (marginio against the system's
-     libdeflate or the port's zlib stand-in, printed);
+  1. print the card (nvidia-smi name, power limit) and whether h5py is
+     installed; build the CUDA kernels and the host C++ engines from the
+     checkout's sources, in parallel; fail unless every host engine loads
+     (marginio against the system's libdeflate or the port's zlib
+     stand-in, printed);
   2. hold every kernel against its plain PyTorch twin on the card: K1 on
      131072 pairs of 29x32, on ragged batches with lx, ly in 1..1024 (RLE
      on and off), on 630 pairs like the phase run's largest batch (one
@@ -33,8 +35,8 @@ Phases (any failure raises and the script exits non-zero):
      zeroed right before and read right after. Checks: K1 and K2 launched,
      >= half the true het sites phased, haplotags agree with the simulated
      origin on >= 90% of tagged reads;
-  4. rerun a 200 kb sub-region with the kernels and then with the plain
-     twins bound in their place: byte-identical phased VCF and
+  4. rerun a 200 kb sub-region with the kernels and (at the end) with the
+     plain twins bound in their place: byte-identical phased VCF and
      phaseset.bed;
   2b. hold the segmented kernels K3-fwd / K3-bwd against K2 on packs of 64
      problems with lx, ly ~ 2000-5000 (identical words and totals) and
@@ -46,25 +48,28 @@ Phases (any failure raises and the script exits non-zero):
      W = 32, SEG_D[32]);
   5. hold each kernel against its twin, and time both, on the largest
      batch / pack the phase run gave it (for K2: W=128, RLE off, LUT,
-     with its deepest diagonal count and ns per diagonal);
+     with its deepest diagonal count and ns per diagonal); K4 and the
+     extraction are timed on K2's pack beside it;
   6. run `python -m margin_tpu_torch polish` (cli.main, LUT logAdd) on a
-     seeded synthetic 205 kb draft at 30x (5-30 kb reads, ~8% errors,
-     100 kb chunks with 1 kb boundaries: three chunks, two stitch seams;
-     205 kb, cut from 300 kb to keep the run near four minutes, the last
-     chunk 5 kb);
-     launch counters zeroed right before, read right after. Checks: K1,
-     K2 and K3 launched, items on the segmented route, and the polished
-     contig's edit distance to the truth at most half the draft's;
+     seeded synthetic 150 kb draft at 30x (5-30 kb reads, ~8% errors,
+     100 kb chunks with 1 kb boundaries: two chunks, one stitch seam;
+     cut from 300 kb, then from 205 kb, to keep the whole run within its
+     time limit); launch counters zeroed right before, read right after.
+     Checks: K1, K2 and K3 launched, items on the segmented route, and the
+     polished contig's edit distance to the truth at most half the
+     draft's;
   7. polish a 10 kb sub-region in process (run_polish, the dataset's
-     own POA-consensus iterations and bubble pass) with SEG_MIN_D lowered
-     to 2048, through the kernels and then through the plain twins bound
-     in their place: byte-identical FASTA; then time K3 on the largest K3
-     pack of phase 6 and hold it against K2 there (identical words and
-     totals), and against its twin on that pack's 16 shallowest problems
-     (the twin walks one diagonal at a time, so its time follows the
-     deepest problem it is given); K2-fwd / K2-bwd are timed on the
-     same pack beside it, and K2 / K3 per sweep is printed (a ratio
-     that compares across cards where a time does not);
+     own POA-consensus iterations and bubble pass, channelRleWeight HELEN
+     features labelled by the set's truth.bam) with SEG_MIN_D lowered to
+     2048, through the kernels and (at the end) through the plain twins
+     bound in their place: byte-identical FASTA and feature arrays and
+     labels; then time K3 on the largest K3 pack of phase 6 and hold it
+     against K2 there (identical words and totals), and against its twin
+     on that pack's 16 shallowest problems (the twin walks one diagonal
+     at a time, so its time follows the deepest problem it is given);
+     K2-fwd / K2-bwd are timed on the same pack beside it, and K2 / K3 per
+     sweep is printed (a ratio that compares across cards where a time
+     does not);
   8. run `python -m margin_tpu_torch polish --diploid` (cli.main, LUT
      logAdd) on a seeded synthetic diploid 205 kb draft at 30x (two
      haplotypes with a het SNV or 1-10 bp het indel every 1-1.5 kb, the
@@ -76,12 +81,41 @@ Phases (any failure raises and the script exits non-zero):
      phase set); logs each haplotype FASTA's edit distance to each truth
      haplotype and the draft's, the stages and the device ms;
   9. diploid-polish a 10 kb sub-region in process with SEG_MIN_D lowered
-     to 2048, through the kernels and then through the plain twins bound
-     in their place: identical hap FASTAs and haplotagged BAM records.
-Every K1, K2 and K3 timing also prints the deepest pair's or problem's
-diagonal count and the nanoseconds per diagonal; the device time each
-kernel summed over the phase and polish runs' launches is printed after
-phase 9 (the diploid run's on its own line in phase 8). Phases 3, 6 and 8
+     to 2048 and the truth haplotypes riding along (-u truth.bam; they
+     must land on different haplotypes), through the kernels and (at the
+     end) through the plain twins bound in their place: identical hap
+     FASTAs, haplotagged BAM records and truth-haplotype partition;
+ 10. em: Baum-Welch through the port's entry points, counters zeroed
+     right before and read right after: 1024 read-to-draft pairs of 1-4
+     kb cut from phase 6's set (anchored on their alignments; the band
+     widths kmer anchors would give are counted on 64 of them) through
+     HmmExpectations.add_expectations (K2-fwd, then K4), then
+     em_iteration over 256 pairs of 60-120 bases, LUT and exact; K4 held
+     against its twin (rtol 1e-5, atol 1e-7 x the matrix sum; K2-fwd's
+     totals identical under the LUT) at the shapes the path launches it
+     on: the 16 shallowest read pairs as one pack, the 2 deepest each
+     alone as add_expectations launches them (timed on the deepest), and
+     every pack em_iteration launched;
+ 11. helen: splitRleWeight labelled by truth.bam on phase 6's production
+     chunk (100 kb and its 1 kb boundary), counters zeroed right before
+     and read right after (the truth alignment, ~140k diagonals, takes
+     K3; the consensus rows' labels must be nucleotides);
+     simpleWeight (run-length encoding off) labelled on a 10 kb
+     region through the kernels and (at the end) the twins: identical
+     arrays and labels. The feature groups are held in memory, as the
+     HDF5 file would get them (h5py is not on every card machine);
+ 12. tools: tagFromPhasedVcf on phase 3's phased VCF over phase 4's
+     region through the kernels (K1, counters zeroed right before and
+     read right after) and (at the end) the twins: identical haplotagged
+     BAM records; runLengthMatrix, tagFromIds and
+     calcLocalPhasingCorrectness once each (host only);
+ 13. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
+     a subprocess of its own sharing the card, then each comparison.
+Every K1, K2, K3 and K4 timing also prints the deepest pair's or
+problem's diagonal count and the nanoseconds per diagonal; the device
+time each kernel and the extraction summed over the phase and polish
+runs' launches is printed at the end (the diploid run's on its own line
+in phase 8). Phases 3, 6 and 8
 log their K1 launches by padded Ly and write each launch's shape and
 pair lengths to chiprun_out/k1_launches.json, which
 scripts/k1_replay.py replays to time one checkout's K1 on them.
@@ -662,7 +696,7 @@ class Recorder:
                      pairhmm._k1_lib, cuda_banded._k2, cuda_banded._k3,
                      cuda_banded.fb_posteriors_seg, banded.extract_packed)
         self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [], "K3-fwd": [],
-                       "K3-bwd": []}
+                       "K3-bwd": [], "K4": [], "extraction": []}
         self.k1_max = None    # (cells, tables, batch, use_lut)
         self.k1_log = []      # (B, Lx, Ly, RLE, use_lut, lxs, lys) a launch
         self.k2_max = None    # (rows*W, pack, use_lut)
@@ -696,6 +730,8 @@ class Recorder:
             k2_forward = staticmethod(self._timed("K2-fwd", lib.k2_forward))
             k2_backward = staticmethod(self._timed("K2-bwd",
                                                    lib.k2_backward))
+            k2_expectations = staticmethod(self._timed(
+                "K4", lib.k2_expectations))
 
         class TimedK3:
             k3_forward = staticmethod(self._timed("K3-fwd",
@@ -728,10 +764,12 @@ class Recorder:
                 self.k2_max = (pack.n_rows * pack.W, pack, use_lut)
             return ff(pack, use_lut)
 
+        timed_ext = self._timed("extraction", ext)
+
         def extract_packed(post, totals, pack, threshold):
             if self.k2_max is not None and pack is self.k2_max[1]:
                 self.threshold[id(pack)] = threshold
-            return ext(post, totals, pack, threshold)
+            return timed_ext(post, totals, pack, threshold)
         self.pairhmm.forward_total = forward_total
         self.cuda_banded.fb_forward = fb_forward
         self.pairhmm._k1_lib = lambda: TimedK1
@@ -894,33 +932,22 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
     run_cli(["phase"] + common + ["-o", f"{work}/kern", "-r", region,
                                   "-a", "CRITICAL"], log_path)
     kern_s = time.perf_counter() - t0
-    saved = (pairhmm.forward_total, cuda_banded.fb_forward,
-             cuda_banded.fb_backward)
-    pairhmm.forward_total = pairhmm.forward_total_plain
-    cuda_banded.fb_forward = cuda_banded.fb_forward_plain
-    cuda_banded.fb_backward = cuda_banded.fb_backward_plain
-    try:
-        t0 = time.perf_counter()
-        run_cli(["phase"] + common + ["-o", f"{work}/plain", "-r", region,
-                                      "-a", "CRITICAL"], log_path)
-        plain_s = time.perf_counter() - t0
-    finally:
-        (pairhmm.forward_total, cuda_banded.fb_forward,
-         cuda_banded.fb_backward) = saved
-    for ext in ("phased.vcf", "phaseset.bed"):
-        with open(f"{work}/kern.{ext}", "rb") as a, \
-                open(f"{work}/plain.{ext}", "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"{region}: kernel and plain {ext} "
-                                     "differ")
-    log(f"{region}: kernels {kern_s:.1f} s, plain twins {plain_s:.1f} s, "
-        "phased VCF and phaseset.bed byte-identical")
+
+    def check():
+        same_files(f"{work}/kern", f"{work}/plain",
+                   ("phased.vcf", "phaseset.bed"))
+        return {"region": region, "kernel_s": kern_s,
+                "verdict": "phased VCF and phaseset.bed byte-identical"}
+    queue_twin(f"phase {region}", {"kind": "cli", "argv": [
+        "phase"] + common + ["-o", f"{work}/plain", "-r", region, "-a",
+                             "CRITICAL"]}, check)
+    log(f"{region}: kernels {kern_s:.1f} s (twins queued)")
     return {"wall_s": wall, "launches": launches, "routes": routes,
             "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
             "phased_share": phased,
             "haplotag_agreement": agree, "tagged_reads": tagged,
             "profile": prof, "region": region, "region_kernel_s": kern_s,
-            "region_plain_s": plain_s, "dataset_s": gen_s}, rec
+            "dataset_s": gen_s}, rec, ds
 
 
 def phase_main_path_shapes(rec):
@@ -973,7 +1000,19 @@ def phase_main_path_shapes(rec):
                      "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                      "deepest_diagonals": d_max,
                      "ns_per_diagonal": ms * 1e6 / d_max}
+    # K4 on the same pack, beside K2-bwd (the same walk, expectations in
+    # place of posteriors)
+    ms = cuda_ms(lambda: cuda_banded.fb_expectations(pack, fk, tk, lut))
+    bms, by = bound_ms(*k4_work(pack, lut))
+    out["K4 on K2's pack"] = {
+        "shape": shape, "ms": ms, "bound_ms": bms, "bound_by": by,
+        "deepest_diagonals": d_max, "ns_per_diagonal": ms * 1e6 / d_max}
     for k, v in out.items():
+        if "plain_ms" not in v:
+            log(f"{k} ({v['shape']}): kernel {v['ms']:.3f} ms, bound "
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']}); "
+                f"{v['ns_per_diagonal']:.1f} ns per diagonal")
+            continue
         per_diag = ("" if "ns_per_diagonal" not in v else
                     f"; deepest {v['deepest_diagonals']} diagonals, "
                     f"{v['ns_per_diagonal']:.1f} ns per diagonal")
@@ -1024,18 +1063,24 @@ def fasta_seq(path):
         return "".join(line.strip() for line in fh if not line.startswith(">"))
 
 
-def phase_polish(device, work, out_dir, span=205_000):
-    """`margin polish` end to end on a seeded synthetic draft."""
-    from margin_tpu_torch.ops import banded
-    from margin_tpu_torch.parallel.executor import DEVICE_STATS
+def polish_dataset(work, span=150_000):
+    """The seeded haploid polish set of phases 6, 7 and the em, helen and
+    tools phases (with truth.bam)."""
     from margin_tpu_torch.testing.synth import (PolishSynthConfig,
-                                                banded_edit_distance,
                                                 write_polish_dataset)
-    t0 = time.perf_counter()
-    ds = write_polish_dataset(f"{work}/polish", PolishSynthConfig(
+    return write_polish_dataset(f"{work}/polish", PolishSynthConfig(
         contig_len=span, coverage=30.0, read_len=(5000, 30000), p_sub=0.03,
         p_ins=0.02, p_del=0.03, chunk_size=100_000, chunk_boundary=1000,
         seed=11))
+
+
+def phase_polish(device, work, out_dir, span=150_000):
+    """`margin polish` end to end on a seeded synthetic draft."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.parallel.executor import DEVICE_STATS
+    from margin_tpu_torch.testing.synth import banded_edit_distance
+    t0 = time.perf_counter()
+    ds = polish_dataset(work, span)
     gen_s = time.perf_counter() - t0
     log(f"polish dataset: {span} bp draft with {len(ds.draft_edits)} "
         f"edits, generated in {gen_s:.1f} s")
@@ -1106,59 +1151,189 @@ def twins():
                                            seg_d, threshold)}
 
 
-def phase_polish_region(ds, work, region_len=10_000):
-    """A sub-region in process through the kernels, then through the plain
-    twins bound in their place: byte-identical FASTA. The dataset's own
-    POA-consensus iterations and bubble pass run; the region is cut to
-    10 kb to keep the twins' run near three minutes (they walk one
-    diagonal at a time, ~0.5 ms each, through every pack of every
-    realignment)."""
+# ---------------------------------------------------------------------------
+# kernels against twins: the twins' runs, concurrent subprocesses at the end
+# ---------------------------------------------------------------------------
+
+TWIN_JOBS = []   # (label, spec, check): queued by the phases
+
+
+def queue_twin(label, spec, check):
+    """Queue a run through the plain twins (spec: see twin_job) and the
+    check that compares its outputs with the kernels' run."""
+    TWIN_JOBS.append((label, spec, check))
+
+
+def polish_run(bam, draft, params, out, region=None, diploid=False,
+               truth_bam=None, feature_type=None, seg_min_d=None,
+               device="cuda"):
+    """run_polish in process on the kernels (or on whatever is bound in
+    their place). HELEN features, if asked for, are kept in memory (a
+    helen.HelenArrays bound in HelenHDF5File's place: h5py is not on
+    every card machine) and then pickled to <out>.features.pkl. Returns
+    the seconds it took."""
+    import pickle
     from margin_tpu_torch.ops import banded
     from margin_tpu_torch.params import Params
+    from margin_tpu_torch.polish import helen
     from margin_tpu_torch.polish.driver import run_polish
-    params = Params.load(ds.params)
-    mid = len(fasta_seq(ds.draft)) // 2
-    region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
-    saved_min = banded.SEG_MIN_D
-    banded.SEG_MIN_D = 2048
-    plain = twins()
-    saved = {k: getattr(*k) for k in plain}
+    sinks = []
+
+    def in_memory(filename):
+        sinks.append(helen.HelenArrays())
+        return sinks[-1]
+    saved = banded.SEG_MIN_D, helen.HelenHDF5File
+    if seg_min_d:
+        banded.SEG_MIN_D = seg_min_d
+    helen.HelenHDF5File = in_memory
     try:
-        zero_counters()
         t0 = time.perf_counter()
-        run_polish(ds.bam, ds.draft, params, f"{work}/rk",
-                   region=region, use_lut=True, device="cuda",
+        run_polish(bam, draft, Params.load(params), out, region=region,
+                   diploid=diploid, use_lut=True, device=device,
+                   true_reference_bam=truth_bam, feature_type=feature_type,
                    log=lambda *a: None)
         torch_sync()
-        kern_s = time.perf_counter() - t0
-        launches = read_counters()
-        seg_items = banded.ROUTES.seg_items
-        for (mod, name), fn in plain.items():
-            setattr(mod, name, fn)
-        t0 = time.perf_counter()
-        run_polish(ds.bam, ds.draft, params, f"{work}/rp",
-                   region=region, use_lut=True, device="cuda",
-                   log=lambda *a: None)
-        torch_sync()
-        plain_s = time.perf_counter() - t0
+        secs = time.perf_counter() - t0
     finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
-        banded.SEG_MIN_D = saved_min
+        banded.SEG_MIN_D, helen.HelenHDF5File = saved
+    if feature_type:
+        if len(sinks) != 1:
+            raise AssertionError(f"run_polish opened {len(sinks)} HELEN "
+                                 "files, not one")
+        with open(f"{out}.features.pkl", "wb") as fh:
+            pickle.dump(sinks[0].groups, fh)
+    return secs
+
+
+def twin_job(spec):
+    """One run with the plain twins bound in the kernel wrappers' place,
+    on the card: spec["kind"] "cli" runs cli.main(spec["argv"]), "polish"
+    runs polish_run(**spec["args"]); the seconds go to spec["result"]."""
+    for (mod, name), fn in twins().items():
+        setattr(mod, name, fn)
+    t0 = time.perf_counter()
+    if spec["kind"] == "cli":
+        run_cli(spec["argv"], spec["log"])
+    else:
+        polish_run(**spec["args"])
+    with open(spec["result"], "w") as fh:
+        json.dump({"s": time.perf_counter() - t0}, fh)
+
+
+def run_twin_jobs(work):
+    """Run every queued twin run at once, each in a subprocess of its own
+    (they share the card: each walks one diagonal at a time with small
+    launches), then each phase's check. Returns {label: result}."""
+    procs = []
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for i, (label, spec, check) in enumerate(TWIN_JOBS):
+            spec = dict(spec, result=f"{work}/twin{i}.json",
+                        log=f"{work}/twin{i}.log")
+            with open(spec["log"], "w") as fh:
+                procs.append((label, spec, check, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--twin-job", json.dumps(spec)], stdout=fh,
+                    stderr=subprocess.STDOUT)))
+        for label, spec, check, p in procs:
+            if p.wait() != 0:
+                with open(spec["log"]) as fh:
+                    tail = fh.read()[-3000:]
+                raise RuntimeError(f"twin run {label} exited "
+                                   f"{p.returncode}:\n{tail}")
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for label, spec, check, _ in procs:
+        with open(spec["result"]) as fh:
+            plain_s = json.load(fh)["s"]
+        out[label] = dict(check(), plain_s=plain_s)
+        log(f"{label}: plain twins {plain_s:.1f} s (concurrent); "
+            f"{out[label]['verdict']}")
+    log(f"twin runs: {len(procs)} at once in {wall:.1f} s")
+    out["wall_s"] = wall
+    TWIN_JOBS.clear()
+    return out
+
+
+def same_files(a, b, names):
+    """Raise unless each a.<name> equals b.<name> byte for byte."""
+    for name in names:
+        with open(f"{a}.{name}", "rb") as fa, open(f"{b}.{name}", "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"kernel and plain {name} differ "
+                                     f"({a}, {b})")
+
+
+def same_features(a, b):
+    """Raise unless the HELEN groups of two polish_run outputs are equal
+    byte for byte; returns (groups, rows)."""
+    import pickle
+    import numpy as np
+    with open(f"{a}.features.pkl", "rb") as fa, \
+            open(f"{b}.features.pkl", "rb") as fb:
+        ga, gb = pickle.load(fa), pickle.load(fb)
+    if ga.keys() != gb.keys():
+        raise AssertionError(f"HELEN groups differ: {sorted(ga)[:3]} vs "
+                             f"{sorted(gb)[:3]}")
+    for g in ga:
+        if ga[g].keys() != gb[g].keys() or any(
+                ga[g][k].dtype != gb[g][k].dtype
+                or not np.array_equal(ga[g][k], gb[g][k]) for k in ga[g]):
+            raise AssertionError(f"HELEN group {g} differs")
+    return len(ga), sum(len(v["position"]) for v in ga.values())
+
+
+def mid_region(ds, region_len):
+    """The region of region_len bases at the middle of ds's draft."""
+    mid = len(fasta_seq(ds.draft)) // 2
+    return f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
+
+
+def phase_polish_region(ds, work, region_len=10_000, device="cuda"):
+    """A sub-region in process through the kernels, with channelRleWeight
+    HELEN features labelled by truth.bam (-u), then (queued) through the
+    plain twins bound in their place: byte-identical FASTA and feature
+    arrays and labels. SEG_MIN_D is lowered to 2048 so K3 runs; the
+    dataset's own POA-consensus iterations and bubble pass run."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.params import Params
+    params = Params.load(ds.params)
+    region = mid_region(ds, region_len)
+    args = {"bam": ds.bam, "draft": ds.draft, "params": ds.params,
+            "region": region, "truth_bam": ds.truth_bam,
+            "feature_type": "channelRleWeight", "seg_min_d": 2048,
+            "device": device}
+    zero_counters()
+    kern_s = polish_run(out=f"{work}/rk", **args)
+    launches = read_counters()
+    seg_items = banded.ROUTES.seg_items
     if launches["K3-fwd"] == 0 or seg_items == 0:
         raise AssertionError(f"{region}: K3 did not run ({launches})")
-    with open(f"{work}/rk.fa", "rb") as a, open(f"{work}/rp.fa", "rb") as b:
-        if a.read() != b.read():
-            raise AssertionError(f"{region}: kernel and plain polished "
-                                 "FASTA differ")
+    iters = params.polish.maxPoaConsensusIterations
+
+    def check():
+        same_files(f"{work}/rk", f"{work}/rp", ("fa",))
+        groups, rows = same_features(f"{work}/rk", f"{work}/rp")
+        if groups == 0:
+            raise AssertionError(f"{region}: no HELEN group written")
+        return {"region": region, "kernel_s": kern_s, "launches": launches,
+                "k3_items": seg_items, "poa_consensus_iterations": iters,
+                "helen_groups": groups, "helen_rows": rows,
+                "verdict": f"FASTA byte-identical, {groups} channelRleWeight "
+                           f"groups ({rows} labelled rows) identical"}
+    queue_twin(f"polish {region}", {"kind": "polish", "args": dict(
+        args, out=f"{work}/rp")}, check)
     log(f"polish {region} (SEG_MIN_D 2048, POA-consensus iterations "
-        f"{params.polish.maxPoaConsensusIterations}, {seg_items} items on "
-        f"K3, launches {launches}): kernels {kern_s:.1f} s, plain twins "
-        f"{plain_s:.1f} s, FASTA byte-identical")
-    return {"region": region, "kernel_s": kern_s, "plain_s": plain_s,
-            "launches": launches, "k3_items": seg_items,
-            "poa_consensus_iterations":
-                params.polish.maxPoaConsensusIterations}
+        f"{iters}, {seg_items} items on K3, launches {launches}, "
+        f"channelRleWeight features with -u): kernels {kern_s:.1f} s "
+        "(twins queued)")
+    return {"region": region, "kernel_s": kern_s, "launches": launches,
+            "k3_items": seg_items}
 
 
 def haplotag_agreement(bam, read_hap):
@@ -1259,61 +1434,48 @@ def bam_records(path):
         return [(rec.name, rec.flag, rec.pos, rec.tags_blob()) for rec in r]
 
 
-def phase_diploid_region(ds, work, region_len=10_000):
-    """Diploid polish of a sub-region in process through the kernels, then
+def phase_diploid_region(ds, work, region_len=10_000, device="cuda"):
+    """Diploid polish of a sub-region in process through the kernels with
+    the truth haplotypes riding along (-u truth.bam), then (queued)
     through the plain twins bound in their place (SEG_MIN_D lowered to
-    2048 so K3 runs): identical hap FASTAs and haplotagged BAM records."""
+    2048 so K3 runs): identical hap FASTAs, haplotagged BAM records and
+    truth-haplotype partition."""
     from margin_tpu_torch.ops import banded
-    from margin_tpu_torch.params import Params
-    from margin_tpu_torch.polish.driver import run_polish
-    params = Params.load(ds.params)
-    mid = len(fasta_seq(ds.draft)) // 2
-    region = f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
-    saved_min = banded.SEG_MIN_D
-    banded.SEG_MIN_D = 2048
-    plain = twins()
-    saved = {k: getattr(*k) for k in plain}
-    try:
-        zero_counters()
-        t0 = time.perf_counter()
-        run_polish(ds.bam, ds.draft, params, f"{work}/dk", region=region,
-                   diploid=True, use_lut=True, device="cuda",
-                   log=lambda *a: None)
-        torch_sync()
-        kern_s = time.perf_counter() - t0
-        launches = read_counters()
-        seg_items = banded.ROUTES.seg_items
-        for (mod, name), fn in plain.items():
-            setattr(mod, name, fn)
-        t0 = time.perf_counter()
-        run_polish(ds.bam, ds.draft, params, f"{work}/dp", region=region,
-                   diploid=True, use_lut=True, device="cuda",
-                   log=lambda *a: None)
-        torch_sync()
-        plain_s = time.perf_counter() - t0
-    finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
-        banded.SEG_MIN_D = saved_min
+    region = mid_region(ds, region_len)
+    args = {"bam": ds.bam, "draft": ds.draft, "params": ds.params,
+            "region": region, "diploid": True, "truth_bam": ds.truth_bam,
+            "seg_min_d": 2048, "device": device}
+    zero_counters()
+    kern_s = polish_run(out=f"{work}/dk", **args)
+    launches = read_counters()
+    seg_items = banded.ROUTES.seg_items
     if launches["K1"] == 0 or launches["K3-fwd"] == 0 or seg_items == 0:
         raise AssertionError(f"{region}: K1 or K3 did not run ({launches})")
-    for ext in ("hap1.fa", "hap2.fa"):
-        with open(f"{work}/dk.{ext}", "rb") as a, \
-                open(f"{work}/dp.{ext}", "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"{region}: kernel and plain diploid "
-                                     f"{ext} differ")
-    recs = bam_records(f"{work}/dk.haplotagged.bam")
-    if recs != bam_records(f"{work}/dp.haplotagged.bam"):
-        raise AssertionError(f"{region}: kernel and plain haplotagged BAM "
-                             "records differ")
+    with open(f"{work}/dk.truthHaplotypesPartition.tsv") as fh:
+        rows = [ln.split("\t") for ln in fh if not ln.startswith("#")]
+    if sorted(r[6].strip() for r in rows) != ["truth1", "truth2"] \
+            or rows[0][5] == rows[1][5]:
+        raise AssertionError(f"{region}: truth haplotypes not split "
+                             f"between the haplotypes: {rows}")
+
+    def check():
+        same_files(f"{work}/dk", f"{work}/dp",
+                   ("hap1.fa", "hap2.fa", "truthHaplotypesPartition.tsv"))
+        recs = bam_records(f"{work}/dk.haplotagged.bam")
+        if recs != bam_records(f"{work}/dp.haplotagged.bam"):
+            raise AssertionError(f"{region}: kernel and plain haplotagged "
+                                 "BAM records differ")
+        return {"region": region, "kernel_s": kern_s, "launches": launches,
+                "k3_items": seg_items, "bam_records": len(recs),
+                "verdict": f"hap FASTAs, truth partition and {len(recs)} "
+                           "haplotagged BAM records identical"}
+    queue_twin(f"diploid polish {region}", {"kind": "polish", "args": dict(
+        args, out=f"{work}/dp")}, check)
     log(f"diploid polish {region} (SEG_MIN_D 2048, {seg_items} items on "
-        f"K3, launches {launches}): kernels {kern_s:.1f} s, plain twins "
-        f"{plain_s:.1f} s, hap FASTAs and {len(recs)} haplotagged BAM "
-        "records identical")
-    return {"region": region, "kernel_s": kern_s, "plain_s": plain_s,
-            "launches": launches, "k3_items": seg_items,
-            "bam_records": len(recs)}
+        f"K3, launches {launches}, -u: truth1 on hap {rows[0][5]}, truth2 "
+        f"on hap {rows[1][5]}): kernels {kern_s:.1f} s (twins queued)")
+    return {"region": region, "kernel_s": kern_s, "launches": launches,
+            "k3_items": seg_items}
 
 
 def phase_k3_main_path(rec, max_b=16):
@@ -1376,6 +1538,473 @@ def phase_k3_main_path(rec, max_b=16):
             for k, r in rows.items()}
 
 
+# ---------------------------------------------------------------------------
+# EM: the transition expectations K4
+# ---------------------------------------------------------------------------
+
+def k4_ops_per_cell(lut):
+    """K4's float ops per band cell: the backward's three states (the
+    posteriors' 12 ops left out) plus nine expectations of five ops each
+    (f + to, + transition, - total, exp, the running sum's add)."""
+    return bwd_ops_per_cell(lut) - 12 + 9 * 5
+
+
+def k4_work(pack, lut):
+    """K4 on a pack: its cell operations; the inputs, the forward grid and
+    the totals read once, the (B, 3, 3) expectations written once."""
+    from margin_tpu_torch.ops import banded
+    cells = sum(banded._true_band_cells(g) for g in pack.geoms)
+    nbytes = (pack_input_bytes(pack) + pack.n_rows * 3 * pack.W * 4
+              + 4 * pack.B + 36 * pack.B)
+    return cells * k4_ops_per_cell(lut), nbytes
+
+
+def compare_expectations(name, got, want):
+    """K4 against its twin: rtol 1e-5 with an absolute floor of 1e-7 x
+    each matrix's sum. Returns (max |diff|, the largest |diff| as a share
+    of its entry's tolerance)."""
+    tol = 1e-5 * want.abs() + 1e-7 * want.sum(dim=(1, 2), keepdim=True)
+    diff = (got - want).abs()
+    worst = float((diff / tol.clamp(min=1e-30)).max())
+    if not bool((diff <= tol).all()) or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: expectations beyond rtol 1e-5 / atol "
+                             f"1e-7 x sum (worst at {worst:.2f} x the "
+                             "tolerance)")
+    return float(diff.max()), worst
+
+
+def em_read_pairs(ds, n, expansion, seed=21):
+    """n read-to-draft pairs cut from the polish set: a read segment of
+    1-4 kb against the draft window its true alignment (the BAM's CIGAR)
+    puts it on, with the read's strand, anchored on that alignment's
+    aligned pairs as polish anchors a read's first realignment. Returns
+    [(x_sym, y_sym, strand, anchors)]."""
+    import numpy as np
+    from margin_tpu_torch.alphabet import seq_to_symbols
+    from margin_tpu_torch.io import bam as bamio
+    rng = np.random.default_rng(seed)
+    draft = seq_to_symbols(fasta_seq(ds.draft))
+    with bamio.BamReader(ds.bam) as r:
+        recs = [rec for rec in r if not rec.is_unmapped]
+    pairs = []
+    while len(pairs) < n:
+        rec = recs[int(rng.integers(0, len(recs)))]
+        # the reference and read position of every aligned (M) base
+        rp, qp = [], []
+        ref, qry = rec.pos, 0
+        for op, ln in rec.cigar_ops():
+            if op in (0, 7, 8):
+                rp.append(np.arange(ref, ref + ln))
+                qp.append(np.arange(qry, qry + ln))
+            ref += ln if op in (0, 2, 3, 7, 8) else 0
+            qry += ln if op in (0, 1, 4, 7, 8) else 0
+        rp, qp = np.concatenate(rp), np.concatenate(qp)
+        span = int(rng.integers(1000, 4001))
+        if rp[-1] - rp[0] < span:
+            continue
+        r0 = int(rng.integers(rp[0], rp[-1] - span + 1))
+        i0 = int(np.searchsorted(rp, r0))
+        i1 = int(np.searchsorted(rp, r0 + span)) - 1
+        x = draft[rp[i0]:rp[i1] + 1]
+        y = seq_to_symbols(rec.seq()[qp[i0]:qp[i1] + 1])
+        anchors = [(int(a), int(b), expansion) for a, b in
+                   zip(rp[i0:i1 + 1] - rp[i0], qp[i0:i1 + 1] - qp[i0])]
+        pairs.append((x, y, int(rec.is_reverse), anchors))
+    return pairs
+
+
+def kmer_band_widths(pairs, expansion):
+    """The band widths the pairs would have on kmer anchors
+    (get_kmer_alignment_anchors) in place of their alignments'."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
+    return sorted(banded.BandGeometry.build(
+        get_kmer_alignment_anchors(x, y, expansion), len(x), len(y),
+        expansion, smooth=True).w_pad for x, y, _, _ in pairs)
+
+
+def em_short_pairs(n, seed=22):
+    """n anchorless pairs of 60-120 bases: x random, y an erroneous copy
+    (test_em's structure at more pairs)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lx = int(rng.integers(60, 121))
+        x = rng.integers(0, 4, lx).astype(np.uint8)
+        y = x.copy()
+        flip = rng.random(lx) < 0.1
+        y[flip] = (y[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
+        out.append((x, y[rng.random(lx) > 0.05]))
+    return out
+
+
+def k4_against(tabs, groups, expansion, lut, label):
+    """K4 on the packs banded.expectation_packs makes of each group of
+    items (the packs the main path launches it on, where it solves the
+    group in one call), each held against its twin, and K2-fwd's totals
+    against theirs; K4 timed on the deepest of those packs, beside its
+    twin's time on that pack, its bound and its ns per diagonal."""
+    from margin_tpu_torch.ops import banded, cuda_banded
+    checked = []
+    for group in groups:
+        for _, pack in banded.expectation_packs(tabs, group, expansion):
+            fk, tk = cuda_banded.fb_forward(pack, lut)
+            ek = cuda_banded.fb_expectations(pack, fk, tk, lut)
+            fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+            torch_sync()
+            t0 = time.perf_counter()
+            ep = cuda_banded.fb_expectations_plain(pack, fk, tk, lut)
+            torch_sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            shape = (f"B={pack.B} rows={pack.n_rows} W={pack.W}, deepest "
+                     f"{deepest(pack)} diagonals")
+            compare(f"K2-fwd totals, {label} {shape}", tk, tp, lut)
+            diff, share = compare_expectations(f"K4 {label} {shape}", ek,
+                                               ep)
+            checked.append({"pack": pack, "fwd": fk, "totals": tk,
+                            "shape": shape, "max_abs_err": diff,
+                            "tolerance_share": share, "plain_ms": plain_ms})
+    top = max(checked, key=lambda c: (deepest(c["pack"]), c["pack"].n_rows))
+    pack = top["pack"]
+    ms = cuda_ms(lambda: cuda_banded.fb_expectations(
+        pack, top["fwd"], top["totals"], lut))
+    bms, by = bound_ms(*k4_work(pack, lut))
+    d_max = deepest(pack)
+    diff = max(c["max_abs_err"] for c in checked)
+    share = max(c["tolerance_share"] for c in checked)
+    log(f"K4 {label} {'LUT' if lut else 'exact'}: kernel {ms:.3f} ms on "
+        f"{top['shape']}, twin {top['plain_ms']:.0f} ms there, bound "
+        f"{bms:.4f} ms ({by}), {ms * 1e6 / d_max:.1f} ns per diagonal; "
+        f"held against the twin on {len(checked)} packs "
+        f"({'; '.join(c['shape'] for c in checked)}), max|diff| {diff:.3g}, "
+        f"at most {share:.3f} of an entry's tolerance")
+    return {"shape": top["shape"], "lut": lut, "max_abs_err": diff,
+            "ms": ms, "plain_ms": top["plain_ms"], "bound_ms": bms,
+            "bound_by": by, "deepest_diagonals": d_max,
+            "ns_per_diagonal": ms * 1e6 / d_max,
+            "tolerance_share": share,
+            "checked": [(c["shape"], c["max_abs_err"], c["tolerance_share"])
+                        for c in checked]}
+
+
+def phase_em(ds, n_reads=1024, n_short=256, n_kmer=64, n_plain=16, n_deep=2,
+             device="cuda"):
+    """Baum-Welch EM through the port's entry points: 1024 read-to-draft
+    pairs of 1-4 kb through HmmExpectations.add_expectations (anchored on
+    their alignments with the polish params' diagonalExpansion, each pair
+    on its strand, RLE off: getExpectationsUsingAnchors; the band widths
+    kmer anchors would give are counted on 64 of them), then em_iteration
+    over 256
+    anchorless pairs of 60-120 bases (expansion 20), LUT and exact. The
+    launch counters are zeroed right before and read right after. Then K4
+    is held against its twin at the main path's shapes: on the 16
+    shallowest read pairs (one pack) and on each of the 2 deepest alone,
+    as add_expectations launches it, timed on the deepest; and on every
+    pack em_iteration launched, timed on the deepest."""
+    import numpy as np
+    from margin_tpu_torch.ops import cuda_banded, em
+    from margin_tpu_torch.params import Params
+    from margin_tpu_torch.ops import pairhmm
+    pp = Params.load(ds.params).polish
+    expansion = pp.p.diagonalExpansion
+    tabs = pairhmm.PairHmmTables.from_params(pp.sm_forward, pp.sm_reverse,
+                                             device=device)
+    t0 = time.perf_counter()
+    reads = em_read_pairs(ds, n_reads, expansion)
+    shorts = em_short_pairs(n_short)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kmer_w = kmer_band_widths(reads[:n_kmer], expansion)
+    log(f"em: on kmer anchors {sum(w <= 128 for w in kmer_w)} of the first "
+        f"{len(kmer_w)} pairs would have bands of <= 128 cells (widths "
+        f"{kmer_w[0]}..{kmer_w[len(kmer_w) // 2]}..{kmer_w[-1]}: min, "
+        f"median, max; {time.perf_counter() - t0:.1f} s); the wider wait "
+        "for K5, so the pairs take their alignments' anchors")
+    rec = Recorder()
+    rec.install()
+    zero_counters()
+    cuda_banded.FB_EXPECT.launches = 0
+    try:
+        t0 = time.perf_counter()
+        hmm = em.HmmExpectations(1e-12)
+        for x, y, strand, a in reads:
+            hmm.add_expectations(tabs, x, y, a, expansion, strand,
+                                 use_lut=True)
+        torch_sync()
+        reads_s = time.perf_counter() - t0
+        sm = pp.sm_forward
+        iters = {}
+        for lut in (True, False):
+            t0 = time.perf_counter()
+            sm1, like = em.em_iteration(sm, shorts, expansion=20,
+                                        use_lut=lut, device=device)
+            torch_sync()
+            iters["LUT" if lut else "exact"] = {
+                "s": time.perf_counter() - t0, "likelihood": like,
+                "transitions": np.exp(sm1.transition_vector()).tolist()}
+    finally:
+        rec.restore()
+    launches = {"K2-fwd": cuda_banded.FB_FORWARD.launches,
+                "K4": cuda_banded.FB_EXPECT.launches}
+    kms = {k: v for k, v in rec.kernel_ms().items() if k in launches}
+    E = hmm.trans
+    if launches["K4"] == 0 or launches["K2-fwd"] == 0:
+        raise AssertionError(f"EM did not launch K2-fwd and K4: {launches}")
+    if not (np.isfinite(E).all() and (E >= 0).all()
+            and np.isfinite(hmm.likelihood) and hmm.likelihood < 0):
+        raise AssertionError("EM: expectations or likelihood out of range")
+    # a read-to-draft pair aligns mostly by matches
+    if not E[0, 0] > 0.5 * E.sum():
+        raise AssertionError(f"EM: match -> match {E[0, 0]} of {E.sum()}")
+    for name, it in iters.items():
+        if not (np.isfinite(it["likelihood"]) and it["likelihood"] < 0):
+            raise AssertionError(f"em_iteration ({name}): likelihood "
+                                 f"{it['likelihood']}")
+    log(f"em: {n_reads} read-to-draft pairs through add_expectations in "
+        f"{reads_s:.1f} s (prep {prep_s:.1f} s), em_iteration over "
+        f"{n_short} pairs: { {k: round(v['s'], 2) for k, v in iters.items()} }"
+        f" s; launches {launches}; device ms "
+        f"{ {k: round(v, 2) for k, v in kms.items()} }; E (from, to) "
+        f"{np.round(E / E.sum(), 5).tolist()}")
+    # add_expectations launches K4 on each read pair alone; em_iteration
+    # on its packs of the short pairs
+    items = [{"x_sym": x, "y_sym": y, "anchors": a, "strand": s}
+             for x, y, s, a in reads]
+    order = sorted(range(len(items)), key=lambda i: len(items[i]["x_sym"])
+                   + len(items[i]["y_sym"]))
+    rows = [k4_against(tabs, [[items[i] for i in order[:n_plain]]]
+                       + [[items[i]] for i in order[-n_deep:]], expansion,
+                       True, "read-to-draft pairs")]
+    for lut in (True, False):
+        rows.append(k4_against(
+            pairhmm.PairHmmTables.from_params(pp.sm_forward, device=device),
+            [[{"x_sym": x, "y_sym": y, "anchors": [], "strand": 0}
+              for x, y in shorts]], 20, lut, "em_iteration's packs"))
+    return {"launches": launches, "kernel_ms": kms, "reads_s": reads_s,
+            "prep_s": prep_s, "em_iterations": iters,
+            "expectations": E.tolist(), "likelihood": hmm.likelihood,
+            "kmer_band_widths": kmer_w, "k4": rows}
+
+
+# ---------------------------------------------------------------------------
+# HELEN features and the aux tools
+# ---------------------------------------------------------------------------
+
+def phase_helen(ds, work, device="cuda", min_rows=100_000):
+    """HELEN features: splitRleWeight labelled by truth.bam (-f -F
+    splitRleWeight -u) on the production chunk of the polish set (100 kb
+    and its 1 kb boundary: the truth alignment is one K3 problem of about
+    140k diagonals), kernels only, counters zeroed right before and read
+    right after; then simpleWeight with -u on the set's params with
+    run-length encoding off, on a 10 kb region through the kernels and
+    (queued) through the twins: identical feature arrays and labels."""
+    import numpy as np
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.polish import helen
+    truth_items = []
+    orig = banded.banded_posteriors
+
+    def banded_posteriors(tables, x_sym, y_sym, *a, **kw):
+        truth_items.append(len(x_sym) + len(y_sym) + 1)
+        return orig(tables, x_sym, y_sym, *a, **kw)
+    region = f"{ds.contig}:1-101000"
+    zero_counters()
+    banded.banded_posteriors = banded_posteriors
+    try:
+        wall = polish_run(ds.bam, ds.draft, ds.params, f"{work}/hc",
+                          region=region, truth_bam=ds.truth_bam,
+                          feature_type="splitRleWeight", device=device)
+    finally:
+        banded.banded_posteriors = orig
+    launches = read_counters()
+    routes = {"k2_items": banded.ROUTES.pack_items,
+              "k3_items": banded.ROUTES.seg_items,
+              "host_items": banded.ROUTES.host_items}
+    import pickle
+    with open(f"{work}/hc.features.pkl", "rb") as fh:
+        groups = pickle.load(fh)
+    rows = sum(len(g["position"]) for g in groups.values())
+    if not groups or rows < min_rows:
+        raise AssertionError(f"HELEN wrote {len(groups)} groups, {rows} rows")
+    position = np.concatenate([g["position"] for g in groups.values()])
+    labels = np.concatenate([g["label_base"].ravel()
+                             for g in groups.values()])
+    consensus = position[:, 1] == 0      # insert position 0
+    cons_nt = float((labels[consensus] > 0).mean())
+    log(f"helen splitRleWeight -u on {region}: wall {wall:.1f} s; launches "
+        f"{launches}; routes {routes}; truth alignments of "
+        f"{truth_items} diagonals; {len(groups)} groups, {rows} rows "
+        f"({consensus.mean():.4f} of them consensus rows); nucleotide "
+        f"labels on {cons_nt:.5f} of the consensus rows and "
+        f"{(labels[~consensus] > 0).mean():.5f} of the insert rows")
+    if not truth_items or max(truth_items) <= banded.SEG_MIN_D \
+            or launches["K3-fwd"] == 0:
+        raise AssertionError("the truth alignment did not take K3")
+    # a consensus row is labelled with its truth base unless the polished
+    # consensus holds a base the truth lacks (well under 1% here)
+    if not cons_nt > 0.99:
+        raise AssertionError(f"HELEN labels: only {cons_nt:.4f} of the "
+                             "consensus rows are nucleotides")
+
+    # simpleWeight needs run-length encoding off
+    with open(ds.params) as fh:
+        p = json.load(fh)
+    p["polish"]["useRunLengthEncoding"] = False
+    norle = f"{work}/params_norle.json"
+    with open(norle, "w") as fh:
+        json.dump(p, fh)
+    sregion = mid_region(ds, 10_000)
+    args = {"bam": ds.bam, "draft": ds.draft, "params": norle,
+            "region": sregion, "truth_bam": ds.truth_bam,
+            "feature_type": "simpleWeight", "seg_min_d": 2048,
+            "device": device}
+    zero_counters()
+    kern_s = polish_run(out=f"{work}/hsk", **args)
+    slaunch = read_counters()
+
+    def check():
+        n, r = same_features(f"{work}/hsk", f"{work}/hsp")
+        if n == 0:
+            raise AssertionError(f"{sregion}: no simpleWeight group written")
+        return {"region": sregion, "kernel_s": kern_s, "launches": slaunch,
+                "helen_groups": n, "helen_rows": r,
+                "verdict": f"{n} simpleWeight groups ({r} labelled rows) "
+                           "identical"}
+    queue_twin(f"helen simpleWeight {sregion}", {"kind": "polish",
+               "args": dict(args, out=f"{work}/hsp")}, check)
+    log(f"helen simpleWeight -u on {sregion} (RLE off, SEG_MIN_D 2048, "
+        f"launches {slaunch}): kernels {kern_s:.1f} s (twins queued)")
+    return {"wall_s": wall, "region": region, "launches": launches,
+            "routes": routes, "truth_alignment_diagonals": truth_items,
+            "groups": len(groups), "rows": rows,
+            "simple_region": sregion, "simple_kernel_s": kern_s}
+
+
+def phased_truth_vcf(ds, path):
+    """ds's variants phased by their true haplotypes, one phase set."""
+    with open(ds.vcf) as fh:
+        lines = fh.read().splitlines()
+    out, i = [], 0
+    for line in lines:
+        if line.startswith("##FORMAT"):
+            out += [line, '##FORMAT=<ID=PS,Number=1,Type=Integer,'
+                          'Description="Phase set">']
+        elif line.startswith("#"):
+            out.append(line)
+        else:
+            f = line.split("\t")
+            f[8:10] = ["GT:PS", ("1|0" if ds.variants[i].hap == 1
+                                 else "0|1") + ":1"]
+            out.append("\t".join(f))
+            i += 1
+    with open(path, "w") as fh:
+        fh.write("\n".join(out) + "\n")
+    return path
+
+
+def phase_tools(phase_ds, phase_out, region, polish_ds, work, out_dir,
+                device="cuda"):
+    """The aux tools: tagFromPhasedVcf on the phase run's phased VCF over
+    the 200 kb sub-region, through the kernels (K1, counters zeroed right
+    before and read right after) and (queued) through the twins:
+    identical haplotagged BAM records; runLengthMatrix (10 kb of the
+    polish set), tagFromIds (the polish set's reads) and
+    calcLocalPhasingCorrectness (the phase run's VCF against the true
+    phasing) once each, on the host."""
+    import math
+    import numpy as np
+    log_path = os.path.join(out_dir, "chip_smoke_tools.log")
+    argv = ["tagFromPhasedVcf", phase_ds.bam, phase_ds.fasta,
+            f"{phase_out}.phased.vcf", phase_ds.params, "-r", region,
+            "--device", device]
+    zero_counters()
+    kern_s = run_cli(argv + ["-o", f"{work}/tk"], log_path)
+    launches = read_counters()
+    if launches["K1"] == 0:
+        raise AssertionError(f"tagFromPhasedVcf did not launch K1: "
+                             f"{launches}")
+    agree, tagged = haplotag_agreement(f"{work}/tk.haplotagged.bam",
+                                       phase_ds.read_hap)
+
+    def check():
+        recs = bam_records(f"{work}/tk.haplotagged.bam")
+        if recs != bam_records(f"{work}/tp.haplotagged.bam"):
+            raise AssertionError(f"tagFromPhasedVcf {region}: kernel and "
+                                 "plain haplotagged BAM records differ")
+        return {"region": region, "kernel_s": kern_s, "launches": launches,
+                "bam_records": len(recs),
+                "verdict": f"{len(recs)} haplotagged BAM records identical"}
+    queue_twin(f"tagFromPhasedVcf {region}", {"kind": "cli", "argv":
+               argv + ["-o", f"{work}/tp"]}, check)
+    log(f"tagFromPhasedVcf {region}: kernels {kern_s:.1f} s, launches "
+        f"{launches}, haplotag agreement {agree:.4f} on {tagged} reads "
+        "(twins queued)")
+    out = {"tag_from_phased_vcf": {"kernel_s": kern_s, "launches": launches,
+                                   "haplotag_agreement": agree,
+                                   "tagged_reads": tagged}}
+    if agree < 0.9:
+        raise AssertionError(f"tagFromPhasedVcf agreement {agree:.4f}")
+
+    rregion = mid_region(polish_ds, 10_000)
+    t0 = time.perf_counter()
+    run_cli(["runLengthMatrix", polish_ds.bam, polish_ds.draft,
+             polish_ds.params, "-r", rregion, "-o", f"{work}/rlm"], log_path)
+    secs = time.perf_counter() - t0
+    m = np.loadtxt(f"{work}/rlm.run_lengths.A.tsv", skiprows=1)[:, 1:]
+    diag = sum(m[i, i] for i in range(min(m.shape)))
+    log(f"runLengthMatrix {rregion}: {secs:.1f} s, A matrix {m.shape}, "
+        f"{int(m.sum())} runs, {diag / m.sum():.3f} on the diagonal")
+    if not m.sum() > 1000 or not diag > 0.5 * m.sum():
+        raise AssertionError("runLengthMatrix: too few runs, or off the "
+                             "diagonal")
+    out["run_length_matrix"] = {"s": secs, "runs": int(m.sum())}
+
+    rng = np.random.default_rng(23)
+    from margin_tpu_torch.io import bam as bamio
+    with bamio.BamReader(polish_ds.bam) as r:
+        names = sorted({rec.name for rec in r})
+    want = {n: int(rng.integers(1, 3)) for n in names[::2]}
+    with open(f"{work}/ids.tsv", "w") as fh:
+        fh.writelines(f"{n}\tH{h}\n" for n, h in want.items())
+    t0 = time.perf_counter()
+    run_cli(["tagFromIds", polish_ds.bam, f"{work}/ids.tsv", "-o",
+             f"{work}/ids"], log_path)
+    secs = time.perf_counter() - t0
+    import struct
+    got = {}
+    for name, _, _, blob in bam_records(f"{work}/ids.haplotagged.bam"):
+        i = blob.find(b"HPi")
+        if i >= 0:
+            got[name] = struct.unpack_from("<i", blob, i + 3)[0]
+    if got != want:
+        raise AssertionError("tagFromIds: HP tags differ from the TSV")
+    log(f"tagFromIds: {secs:.1f} s, {len(got)} reads tagged as asked")
+    out["tag_from_ids"] = {"s": secs, "tagged": len(got)}
+
+    truth = phased_truth_vcf(phase_ds, f"{work}/truth_phased.vcf")
+    from margin_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["calcLocalPhasingCorrectness", "-q", truth,
+                       f"{phase_out}.phased.vcf"])
+    secs = time.perf_counter() - t0
+    rows = [ln.split("\t") for ln in buf.getvalue().splitlines()]
+    lpc = {float(r[0]): float(r[-1]) for r in rows[1:]}
+    log(f"calcLocalPhasingCorrectness (the phase run against the true "
+        f"phasing): {secs:.1f} s, {len(lpc)} length scales, weighted mean "
+        f"at decay 0: {lpc.get(0.0)}, at decay 1: {lpc.get(1.0)}")
+    if rc not in (0, None) or not all(math.isfinite(v) or math.isnan(v)
+                                      for v in lpc.values()) \
+            or not 0.5 <= lpc.get(0.0, 0) <= 1.0:
+        raise AssertionError(f"calcLocalPhasingCorrectness: rc {rc}, "
+                             f"{rows[:2]}")
+    out["lpc"] = {"s": secs, "decay0": lpc.get(0.0),
+                  "decay1": lpc.get(1.0)}
+    return out
+
+
 SOURCES = {
     "K1": ("margin_tpu_torch/csrc/pairhmm_forward.cu",
            "margin_tpu/ops/pairhmm.py:194"),
@@ -1387,10 +2016,12 @@ SOURCES = {
                "margin_tpu/ops/pallas_banded.py:873"),
     "K3-bwd": ("margin_tpu_torch/csrc/banded_seg.cu",
                "margin_tpu/ops/pallas_banded.py:964"),
+    "K4": ("margin_tpu_torch/csrc/banded_fb.cu",
+           "margin_tpu/ops/banded.py:267"),
 }
 
 
-PHASES = ("kernels", "phase", "polish", "diploid")
+PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools")
 CHOICES = PHASES + ("k1",)
 
 
@@ -1400,9 +2031,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
                          "build, for iterating on one path (k1: K1's "
-                         "shapes of the kernels phase alone); the kernels "
-                         "line is printed only when all of %s run"
-                         % (CHOICES, PHASES))
+                         "shapes of the kernels phase alone; tools needs "
+                         "phase); the kernels line is printed only when "
+                         "all of %s run" % (CHOICES, PHASES))
+    ap.add_argument("--twin-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     if not only <= set(CHOICES):
@@ -1424,12 +2056,21 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.twin_job is not None:   # a twin run of run_twin_jobs
+        twin_job(json.loads(args.twin_job))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     card = card_line()
     log(f"card: {card}")
+    try:
+        import h5py  # noqa: F401
+        log("h5py: present (HELEN arrays are still held in memory here)")
+    except ImportError:
+        log("h5py: absent (-f would stop naming it; the HELEN phases hold "
+            "the arrays the HDF5 file would get)")
     t_start = time.perf_counter()
     report = {"card": card, "device": torch.cuda.get_device_name(0)}
     report["build"] = phase_build()
@@ -1442,8 +2083,9 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if "phase" in only:
-            report["phase"], rec = phase_e2e("cuda", work, out_dir)
+            report["phase"], rec, phase_ds = phase_e2e("cuda", work, out_dir)
             report["main_path_shapes"] = phase_main_path_shapes(rec)
+        ds = None
         if "polish" in only:
             report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
             report["polish_region"] = phase_polish_region(ds, work)
@@ -1452,12 +2094,26 @@ def main(argv=None) -> int:
         if "diploid" in only:
             report["diploid"], dds = phase_diploid("cuda", work, out_dir)
             report["diploid_region"] = phase_diploid_region(dds, work)
+        if ds is None and only & {"em", "helen", "tools"}:
+            ds = polish_dataset(work)
+        if "em" in only:
+            report["em"] = phase_em(ds)
+        if "helen" in only:
+            report["helen"] = phase_helen(ds, work)
+        if "tools" in only:
+            if "phase" not in only:
+                ap.error("tools needs the phase run's phased VCF: add phase")
+            report["tools"] = phase_tools(phase_ds, f"{work}/full",
+                                          report["phase"]["region"], ds,
+                                          work, out_dir)
+        report["twins"] = run_twin_jobs(work)
         if "phase" in only and "polish" in only:
             summed = {k: report["phase"]["kernel_ms"][k]
                       + report["polish"]["kernel_ms"][k]
-                      for k in report["polish"]["kernel_ms"]}
+                      for k in report["polish"]["kernel_ms"] if k != "K4"}
             report["main_path_device_ms"] = summed
-            log("device ms summed over the phase and polish runs' launches: "
+            log("device ms summed over the phase and polish runs' launches "
+                "(the extraction's torch ops included): "
                 f"{ {k: round(v, 1) for k, v in summed.items()} }")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1472,8 +2128,11 @@ def main(argv=None) -> int:
     if only >= set(PHASES):
         kernels = []
         for name, (src, rep) in SOURCES.items():
-            m = report["main_path_shapes"][name]
-            path = "polish" if name.startswith("K3") else "phase"
+            if name == "K4":   # K4's path is EM's
+                m, path = report["em"]["k4"][0], "em"
+            else:
+                m = report["main_path_shapes"][name]
+                path = "polish" if name.startswith("K3") else "phase"
             kernels.append({"name": name, "route": "cuda", "source": src,
                             "replaces": rep,
                             "launches": report[path]["launches"][name],

@@ -2,12 +2,13 @@
 
 Counterpart of `margin_tpu/cli.py` (margin.c dispatch + phase.c/polish.c
 argument handling): the common flags, the `phase` subcommand, the
-`polish` subcommand (haploid and `--diploid`, with VCF-guided polish and
-the supplementary outputs) and `--device {cuda,cpu}`, which takes the
-place of JAX_PLATFORMS. The aux tools, `--workers process`,
-`--hosts`/`--host-id`/`--coordinator`, `--jaxTrace` and the HELEN feature
-flags are not ported yet and stop with an error naming their ROADMAP
-item.
+`polish` subcommand (haploid and `--diploid`, with VCF-guided polish,
+the supplementary outputs and the HELEN features), the aux tools
+(`calcLocalPhasingCorrectness`, `tagFromIds`, `tagFromPhasedVcf`,
+`runLengthMatrix`) and `--device {cuda,cpu}`, which takes the place of
+JAX_PLATFORMS. `--workers process`, `--hosts`/`--host-id`/`--coordinator`
+and `--jaxTrace` are not ported yet and stop with an error naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,27 +17,7 @@ import argparse
 import os
 import sys
 
-_AUX_TOOLS = ("calcLocalPhasingCorrectness", "tagFromIds",
-              "tagFromPhasedVcf", "runLengthMatrix")
-
-_HELEN = "HELEN, EM with K4, and the aux tools"
 _SCALE = "IPC workers, multi-GPU and multi-host"
-# polish flags of margin_tpu/cli.py:126-138 this package does not run yet:
-# (flags, dest, what, ROADMAP queue 1 item)
-_UNPORTED_POLISH = [
-    (("-f", "--produceFeatures"), "produceFeatures", "HELEN features",
-     _HELEN),
-    (("-F", "--featureType"), "featureType", "HELEN features", _HELEN),
-    (("-L", "--splitRleWeightMaxRL"), "splitRleWeightMaxRL",
-     "HELEN features", _HELEN),
-    (("-u", "--trueReferenceBam"), "trueReferenceBam",
-     "HELEN feature labels and the truth-haplotype partition", _HELEN),
-    (("--fullFeatureOutput",), "fullFeatureOutput", "HELEN features",
-     _HELEN),
-]
-# flags that take a value
-_UNPORTED_WITH_VALUE = {"featureType", "splitRleWeightMaxRL",
-                        "trueReferenceBam"}
 
 
 def _add_polish(po):
@@ -70,6 +51,19 @@ def _add_polish(po):
                          "(--diploid only)")
     po.add_argument("-s", "--outputPhasingState", action="store_true",
                     help="write phasing likelihoods as JSON (--diploid only)")
+    # HELEN feature export (polish.c:148-151, 195-219)
+    po.add_argument("-f", "--produceFeatures", action="store_true",
+                    help="output HELEN features (default type splitRleWeight)")
+    po.add_argument("-F", "--featureType", default=None,
+                    help="simpleWeight | splitRleWeight | channelRleWeight")
+    po.add_argument("-L", "--splitRleWeightMaxRL", type=int, default=0,
+                    help="max run length for RLE feature types [default 10]")
+    po.add_argument("-u", "--trueReferenceBam", default=None,
+                    help="truth assembly aligned to the reference, for "
+                         "HELEN feature labels (and, --diploid, the truth "
+                         "haplotypes' partition)")
+    po.add_argument("--fullFeatureOutput", action="store_true",
+                    help="also write per-chunk consensus FASTAs")
 
 
 def _add_common(p):
@@ -134,9 +128,22 @@ def _add_common(p):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in _AUX_TOOLS:
-        sys.exit(f"margin_tpu_torch: {argv[0]} is not ported yet (ROADMAP "
-                 "queue 1, \"HELEN, EM with K4, and the aux tools\")")
+
+    # aux tool dispatch (tools/ executables in the reference)
+    if argv and argv[0] == "calcLocalPhasingCorrectness":
+        from margin_tpu_torch.tools.lpc import main as lpc_main
+        return lpc_main(argv[1:])
+    if argv and argv[0] == "tagFromIds":
+        from margin_tpu_torch.tools.tag_from_ids import main as tfi_main
+        return tfi_main(argv[1:])
+    if argv and argv[0] == "tagFromPhasedVcf":
+        from margin_tpu_torch.tools.tag_from_phased_vcf import \
+            main as tfpv_main
+        return tfpv_main(argv[1:])
+    if argv and argv[0] == "runLengthMatrix":
+        from margin_tpu_torch.tools.run_length_matrix import main as rlm_main
+        return rlm_main(argv[1:])
+
 
     top = argparse.ArgumentParser(prog="margin_tpu_torch",
                                   description="margin phase on PyTorch/CUDA")
@@ -149,13 +156,6 @@ def main(argv=None):
     po = sub.add_parser("polish", help="polish an assembly")
     _add_common(po)
     _add_polish(po)
-    for flags, dest, _what, _item in _UNPORTED_POLISH:
-        if dest in _UNPORTED_WITH_VALUE:
-            po.add_argument(*flags, dest=dest, default=None,
-                            help=argparse.SUPPRESS)
-        else:
-            po.add_argument(*flags, dest=dest, action="store_true",
-                            help=argparse.SUPPRESS)
 
     args = top.parse_args(argv)
 
@@ -166,10 +166,6 @@ def main(argv=None):
         top.error("With --skipHaplotypeBAM and --skipPhasedVCF there "
                   "will be no output.")
     if args.command == "polish":
-        for flags, dest, what, item in _UNPORTED_POLISH:
-            if getattr(args, dest) not in (None, False):
-                top.error(f"{flags[-1]}: {what} is not ported yet (ROADMAP "
-                          f"queue 1, \"{item}\")")
         if args.diploid and (args.checkpoint or args.shard is not None
                              or args.threads > 1):
             top.error("--checkpoint, --shard and -t of --diploid are not "
@@ -200,6 +196,17 @@ def main(argv=None):
             # polish.c:313-314
             top.error("Cannot --outputPoaCsv, --outputRepeatCounts, or "
                       "--outputPoaDot with --skipOutputFasta")
+        # polish.c:216-219, 301-307: validate feature flags up front
+        if args.splitRleWeightMaxRL < 0:
+            top.error(f"Invalid splitRleWeightMaxRL: "
+                      f"{args.splitRleWeightMaxRL}")
+        if args.trueReferenceBam is not None:
+            if not os.path.exists(args.trueReferenceBam):
+                top.error("Could not read from truth file: "
+                          f"{args.trueReferenceBam}")
+            if not os.path.exists(args.trueReferenceBam + ".bai"):
+                top.error("BAM does not appear to be indexed: "
+                          f"{args.trueReferenceBam}")
 
     from margin_tpu_torch.params import Params
     params = Params.load(args.params)
@@ -235,9 +242,15 @@ def main(argv=None):
                   threads=args.threads, device=args.device, log=log)
     else:
         from margin_tpu_torch.polish.driver import run_polish
+        feature_type = args.featureType
+        if feature_type is None and args.produceFeatures:
+            feature_type = "splitRleWeight"  # polish.c:333-335
         run_polish(args.bam, args.reference, params, args.outputBase,
                    region=args.region, diploid=args.diploid, seed=args.seed,
-                   use_lut=args.lut_logadd,
+                   use_lut=args.lut_logadd, feature_type=feature_type,
+                   feature_max_rl=args.splitRleWeightMaxRL,
+                   true_reference_bam=args.trueReferenceBam,
+                   full_feature_output=args.fullFeatureOutput,
                    output_poa_csv=args.outputPoaCsv,
                    output_poa_dot=args.outputPoaDot,
                    output_repeat_counts=args.outputRepeatCounts,

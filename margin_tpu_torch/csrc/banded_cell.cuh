@@ -171,24 +171,46 @@ __device__ __forceinline__ void forward_recurrence(const float* tr,
 }
 
 // Backward: gx_n = gapX of (x+1, y), m_n = match of (x+1, y+1), gy_n =
-// gapY of (x, y+1); e = the emissions of (x+1, y+1)'s characters.
+// gapY of (x, y+1); e = the emissions of (x+1, y+1)'s characters. to =
+// the "to" terms of the cell's transitions, by target state (match,
+// gapX, gapY): each successor's backward value plus the emission consumed
+// leaving the cell (the transition expectations reuse them).
 template <bool LUT>
 __device__ __forceinline__ void backward_recurrence(const float* tr,
                                                     const Emis& e,
                                                     float gx_n, float m_n,
-                                                    float gy_n, float out[3]) {
-  const float bm = log_add3<LUT>(gx_n + e.gx + tr[T_OPEN_X],
-                                 m_n + e.m + tr[T_MM],
-                                 gy_n + e.gy + tr[T_OPEN_Y]);
-  const float bgx = log_add3<LUT>(gx_n + e.gx + tr[T_EXT_X],
-                                  m_n + e.m + tr[T_M_FROM_GX],
-                                  gy_n + e.gy + tr[T_SW_Y]);
-  const float bgy = log_add3<LUT>(gx_n + e.gx + tr[T_SW_X],
-                                  m_n + e.m + tr[T_M_FROM_GY],
-                                  gy_n + e.gy + tr[T_EXT_Y]);
+                                                    float gy_n, float out[3],
+                                                    float to[3]) {
+  to[0] = m_n + e.m;
+  to[1] = gx_n + e.gx;
+  to[2] = gy_n + e.gy;
+  const float bm = log_add3<LUT>(to[1] + tr[T_OPEN_X], to[0] + tr[T_MM],
+                                 to[2] + tr[T_OPEN_Y]);
+  const float bgx = log_add3<LUT>(to[1] + tr[T_EXT_X],
+                                  to[0] + tr[T_M_FROM_GX],
+                                  to[2] + tr[T_SW_Y]);
+  const float bgy = log_add3<LUT>(to[1] + tr[T_SW_X],
+                                  to[0] + tr[T_M_FROM_GY],
+                                  to[2] + tr[T_EXT_Y]);
   out[0] = fmaxf(bm, LOG_ZERO_F);
   out[1] = fmaxf(bgx, LOG_ZERO_F);
   out[2] = fmaxf(bgy, LOG_ZERO_F);
+}
+
+// The transition expectations of a band cell (updateExpectations,
+// pairwiseAligner.c:349-366): add exp(f[from] + to[to] + t[from, to] -
+// total) into acc[3 * from + to]; tm = the (3, 3) [from, to] transition
+// log-probabilities. The order of the adds is margin_tpu's
+// (ops/banded.py:478-486).
+__device__ __forceinline__ void add_expectations(const float f[3],
+                                                 const float to[3],
+                                                 const float tm[9],
+                                                 float total, float acc[9]) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      acc[3 * s + t] += expf(f[s] + to[t] + tm[3 * s + t] - total);
 }
 
 // posterior exp(min(f + b - total, 0)) of a band cell, 0 outside the band

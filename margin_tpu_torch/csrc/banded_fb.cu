@@ -1,10 +1,13 @@
 // Kernels K2-fwd and K2-bwd: banded 3-state pair-HMM forward, then
 // backward + posterior, over a pack of problems, with the full grids in
-// device memory.
+// device memory; and K4, K2-bwd's walk summing the Baum-Welch transition
+// expectations of every band cell into a (3, 3) matrix a problem.
 //
 // Replaces: margin_tpu/ops/pallas_banded.py:_fwd_kernel (:174) and
 // _bwd_kernel (:253), launched by _fb_pallas (:390, :426), plus the total
-// at (lx+ly, k_final) with the end weights (:401-411).
+// at (lx+ly, k_final) with the end weights (:401-411); K4 the expectations
+// pass of margin_tpu/ops/banded.py:_banded_fb_core (:267,
+// compute_expectations :478-486, an XLA scan).
 //
 // What bounds them on this card: the latency of each problem's serial
 // walk over its anti-diagonals. The work is ~100 float operations a band
@@ -136,10 +139,17 @@ __global__ void __launch_bounds__(32 * NW)
     totals[b] = corner_value<LUT>(a.end_w + b * 3, p1.v[0], p1.v[1], p1.v[2]);
 }
 
-template <bool LUT, bool RLE, int NW>
+// K2-bwd (POST) and K4 (EXP): the same backward walk. POST stores each
+// diagonal's posteriors; EXP sums each band cell's nine transition
+// expectations (updateExpectations, pairwiseAligner.c:349-366) into the
+// lane's own nine running sums, from the "to" terms the step hands out and
+// the staged forward row, and the block reduces them once at the end
+// (warp shuffles, then the warps in order) into exp_all[b] (3 x 3, [from,
+// to]). No barrier is added to the walk.
+template <bool LUT, bool RLE, int NW, bool POST, bool EXP>
 __global__ void __launch_bounds__(32 * NW)
     k2_bwd_kernel(BandArgs a, const float* fwd_all, const float* totals,
-                  float* post_all, int W, int C) {
+                  float* post_all, float* exp_all, int W, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = k2_layout(W, C, RLE);
   const int b = blockIdx.x;
@@ -152,9 +162,16 @@ __global__ void __launch_bounds__(32 * NW)
   float end_w[3];
 #pragma unroll
   for (int s = 0; s < 3; ++s) end_w[s] = a.end_w[b * 3 + s];
+  // [from, to] transition log-probabilities, states (match, gapX, gapY)
+  const float tm[9] = {tr[T_MM],        tr[T_OPEN_X], tr[T_OPEN_Y],
+                       tr[T_M_FROM_GX], tr[T_EXT_X],  tr[T_SW_Y],
+                       tr[T_M_FROM_GY], tr[T_SW_X],   tr[T_EXT_Y]};
+  float acc[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) acc[i] = 0.0f;
   const float total = totals[b];
   const float* fwd = fwd_all + a.geo_off[b] * 3 * W;
-  float* post = post_all + a.geo_off[b] * 3 * W;
+  float* post = POST ? post_all + a.geo_off[b] * 3 * W : nullptr;
   const int n_chunk = c.D / C + 1;
   unsigned char* const buf0 = smem + L.stage0;  // staging buffers i & 1
   const int last0 = (n_chunk - 1) * C;
@@ -180,18 +197,39 @@ __global__ void __launch_bounds__(32 * NW)
       const Inputs in = nx;
       nx = bwd_inputs<RLE>(sm, st, cur, c, max(g - 1, d0), k);
       Diag nd;
+      float to[3];
       bwd_step<LUT, NW>(sm, tr, in, g == c.D, end_w, k == c.kf, n1, n2, nd,
-                        step);
+                        step, to);
       Diag f;
       load_row(st.rows + (g - d0) * 3 * W, W, k, f);
+      if (EXP && in.vm) add_expectations(f.v, to, tm, total, acc);
+      if (POST) {
 #pragma unroll
-      for (int s = 0; s < 3; ++s)
-        f.v[s] = posterior(in.vm, f.v[s], nd.v[s], total);
-      store_row(post + (size_t)g * 3 * W, W, k, f);
+        for (int s = 0; s < 3; ++s)
+          f.v[s] = posterior(in.vm, f.v[s], nd.v[s], total);
+        store_row(post + (size_t)g * 3 * W, W, k, f);
+      }
       n2 = n1;
       n1 = nd;
     }
     cur = nxt;
+  }
+  if (EXP) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[i] += __shfl_xor_sync(FULL, acc[i], o);
+    // the warps' sums through the exchange slots, once the walk is done
+    __syncthreads();
+    if ((k & 31) == 0)
+#pragma unroll
+      for (int i = 0; i < 9; ++i) sm.xch[(k >> 5) * 9 + i] = acc[i];
+    __syncthreads();
+    if (k < 9) {
+      float v = 0.0f;
+      for (int w = 0; w < NW; ++w) v += sm.xch[w * 9 + k];
+      exp_all[b * 9 + k] = v;
+    }
   }
 }
 
@@ -210,17 +248,22 @@ int launch_fwd(const BandArgs& a, void** q, int B, int W, int C, int smem,
   return (int)cudaGetLastError();
 }
 
-template <bool LUT, bool RLE, int NW>
-int launch_bwd(const BandArgs& a, void** q, int B, int W, int C, int smem,
-               cudaStream_t st) {
-  auto kern = k2_bwd_kernel<LUT, RLE, NW>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<B, 32 * NW, smem, st>>>(a, (const float*)q[0], (const float*)q[1],
-                                 (float*)q[2], W, C);
-  return (int)cudaGetLastError();
-}
+template <bool POST, bool EXP>
+struct Bwd {
+  template <bool LUT, bool RLE, int NW>
+  static int launch(const BandArgs& a, void** q, int B, int W, int C,
+                    int smem, cudaStream_t st) {
+    auto kern = k2_bwd_kernel<LUT, RLE, NW, POST, EXP>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    // q: fwd, totals, then the posterior grid (POST) or the expectations
+    kern<<<B, 32 * NW, smem, st>>>(a, (const float*)q[0], (const float*)q[1],
+                                   POST ? (float*)q[2] : nullptr,
+                                   EXP ? (float*)q[2] : nullptr, W, C);
+    return (int)cudaGetLastError();
+  }
+};
 
 template <bool LUT, bool RLE>
 int forward_block(const BandArgs& a, void** q, int B, int W, int C, int smem,
@@ -228,10 +271,27 @@ int forward_block(const BandArgs& a, void** q, int B, int W, int C, int smem,
   BLOCK_OF_WIDTH(launch_fwd, a, q, B, W, C, smem, st)
 }
 
-template <bool LUT, bool RLE>
+template <bool LUT, bool RLE, class K>
 int backward_block(const BandArgs& a, void** q, int B, int W, int C,
                    int smem, cudaStream_t st) {
-  BLOCK_OF_WIDTH(launch_bwd, a, q, B, W, C, smem, st)
+  BLOCK_OF_WIDTH(K::template launch, a, q, B, W, C, smem, st)
+}
+
+template <class K>
+int backward_entry(void** ptrs, int B, int W, int C, int use_lut, int smem,
+                   void* stream) {
+  if (B == 0) return 0;
+  const BandArgs a = band_args(ptrs);
+  const bool rle = a.rep_x != nullptr;
+  if (C < 1 || smem < k2_layout(W, C, rle).total)
+    return (int)cudaErrorInvalidValue;
+  void** q = ptrs + BAND_ARGS_N;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (use_lut)
+    return rle ? backward_block<true, true, K>(a, q, B, W, C, smem, st)
+               : backward_block<true, false, K>(a, q, B, W, C, smem, st);
+  return rle ? backward_block<false, true, K>(a, q, B, W, C, smem, st)
+             : backward_block<false, false, K>(a, q, B, W, C, smem, st);
 }
 
 }  // namespace
@@ -264,16 +324,14 @@ extern "C" int k2_forward(void** ptrs, int B, int W, int C, int use_lut,
 // k2_smem_bytes(W, C, rle).
 extern "C" int k2_backward(void** ptrs, int B, int W, int C, int use_lut,
                            int smem, void* stream) {
-  if (B == 0) return 0;
-  const BandArgs a = band_args(ptrs);
-  const bool rle = a.rep_x != nullptr;
-  if (C < 1 || smem < k2_layout(W, C, rle).total)
-    return (int)cudaErrorInvalidValue;
-  void** q = ptrs + BAND_ARGS_N;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (use_lut)
-    return rle ? backward_block<true, true>(a, q, B, W, C, smem, st)
-               : backward_block<true, false>(a, q, B, W, C, smem, st);
-  return rle ? backward_block<false, true>(a, q, B, W, C, smem, st)
-             : backward_block<false, false>(a, q, B, W, C, smem, st);
+  return backward_entry<Bwd<true, false>>(ptrs, B, W, C, use_lut, smem,
+                                          stream);
+}
+
+// K4, the transition expectations: ptrs: the 18 BandArgs pointers, then
+// fwd, totals, exp (B, 3, 3); smem at least k2_smem_bytes(W, C, rle).
+extern "C" int k2_expectations(void** ptrs, int B, int W, int C,
+                               int use_lut, int smem, void* stream) {
+  return backward_entry<Bwd<false, true>>(ptrs, B, W, C, use_lut, smem,
+                                          stream);
 }

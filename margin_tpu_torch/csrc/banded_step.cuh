@@ -459,21 +459,33 @@ __device__ __forceinline__ void fwd_step(const Smem& sm, const float* tr,
 }
 
 // Backward diagonal g from n1 (g+1) and n2 (g+2); the final diagonal
-// carries the end weights at k_final.
+// carries the end weights at k_final. to: the cell's "to" terms
+// (backward_recurrence), handed out for the transition expectations.
+template <bool LUT, int NW>
+__device__ __forceinline__ void bwd_step(const Smem& sm, const float* tr,
+                                         const Inputs& in, bool final_diag,
+                                         const float* end_w, bool at_kf,
+                                         const Diag& n1, const Diag& n2,
+                                         Diag& out, int& step, float to[3]) {
+  float o[3];
+  backward_recurrence<LUT>(tr, in.e, nb(n1, 1, in.sa), nb(n2, 0, in.sb),
+                           nb(n1, 2, in.sa - 1), o, to);
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+    out.v[s] = final_diag ? (at_kf ? end_w[s] : LOG_ZERO_F)
+                          : (in.vm ? o[s] : LOG_ZERO_F);
+  link<NW>(out, sm.xch, step);
+}
+
 template <bool LUT, int NW>
 __device__ __forceinline__ void bwd_step(const Smem& sm, const float* tr,
                                          const Inputs& in, bool final_diag,
                                          const float* end_w, bool at_kf,
                                          const Diag& n1, const Diag& n2,
                                          Diag& out, int& step) {
-  float o[3];
-  backward_recurrence<LUT>(tr, in.e, nb(n1, 1, in.sa), nb(n2, 0, in.sb),
-                           nb(n1, 2, in.sa - 1), o);
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-    out.v[s] = final_diag ? (at_kf ? end_w[s] : LOG_ZERO_F)
-                          : (in.vm ? o[s] : LOG_ZERO_F);
-  link<NW>(out, sm.xch, step);
+  float to[3];
+  bwd_step<LUT, NW>(sm, tr, in, final_diag, end_w, at_kf, n1, n2, out, step,
+                    to);
 }
 
 }  // namespace margin

@@ -1,8 +1,9 @@
 """Batched banded pair-HMM forward-backward with posterior extraction.
 
-Counterpart of the part of `margin_tpu/ops/banded.py` that `margin phase`
-and haploid `margin polish` reach: `BandGeometry` (:40-125), `_bucket_w`
-(:126), `get_split_points` (:534), `banded_posteriors` (:776),
+Counterpart of the part of `margin_tpu/ops/banded.py` that the port's
+paths reach: `BandGeometry` (:40-125), `_bucket_w`
+(:126), `get_split_points` (:534), `banded_posteriors_split` (:567),
+`banded_posteriors` (:776), `banded_expectations` (:1910),
 `split_sub_items` (:1404), `_true_band_cells`
 (:1465), `_item_geom` (:1473), the flat posterior extraction
 (`_device_extract_flat` / `_unpack_extract` / `_store_pack_results`,
@@ -25,9 +26,15 @@ are not carried over: the launch-latency threshold `_device_min_cells`,
 the 6144-diagonal floor and the diagonal bucketing `_bucket_dpad` — a
 CUDA block walks each problem's own depth. The single-item
 `banded_posteriors`, which the JAX package runs on its XLA scan (K4),
-takes the same pack route here. The worker-process branch and the
-cross-chunk funnel `_FbFunnel` wait for a later slice; results do not
-depend on them.
+takes the same pack route here. On a CUDA device a wide band with no
+host engine raises (nothing carries on on the CPU twins); on the CPU the
+twins take it. The worker-process branch and the cross-chunk funnel
+`_FbFunnel` wait for a later slice; results do not depend on them.
+
+The transition expectations (`banded_expectations(_many)`, Baum-Welch EM)
+take K2-fwd and then K4 for any band up to 128 cells wide, whatever its
+depth; a wider band raises on a CUDA device (ROADMAP queue 2, K5) and runs
+on the twins on the CPU.
 """
 
 from __future__ import annotations
@@ -331,15 +338,20 @@ def banded_posteriors_many(tables, items, expansion: int,
                           [items[i] for i in host_idx], expansion,
                           threshold, use_lut, dynamic)
     elif host_idx:
-        # no host engine: the plain twins take the wide bands on the CPU,
-        # as the JAX package's pure-XLA scan does
+        if _on_card(tables):
+            raise RuntimeError(
+                f"{len(host_idx)} bands wider than 128 cells need the host "
+                "banded engine (native/marginfb.cc, "
+                "margin_tpu_torch/_build/libmarginfb.so), which did not "
+                "build or load")
+        # on the CPU without the host engine the plain twins take the wide
+        # bands, as the JAX package's pure-XLA scan does there
         for i in host_idx:
             geom = _item_geom(items[i], expansion, dynamic)
-            w = int(np.ceil(geom.w_pad / 8)) * 8
             use_rle = (items[i].get("rep_x") is not None
                        and tables.repeat is not None)
-            _solve_pack(_on_cpu(tables), [items[i]], [geom], w, use_rle,
-                        expansion, use_lut, dynamic, threshold,
+            _solve_pack(tables, [items[i]], [geom], _round8(geom.w_pad),
+                        use_rle, expansion, use_lut, dynamic, threshold,
                         [(results, i)])
     try:
         for (w_pad, use_rle, seg), entries in buckets.items():
@@ -363,11 +375,15 @@ def banded_posteriors_many(tables, items, expansion: int,
     return results
 
 
-def _on_cpu(tables):
-    from margin_tpu_torch.ops import pairhmm
-    h = tables.host
-    return pairhmm.tables_from_numpy(h["match"], h["gap_x"], h["gap_y"],
-                                     h["trans"], h["repeat"], device="cpu")
+def _on_card(tables) -> bool:
+    """Whether the tables (and so the packs) live on a CUDA device."""
+    return tables.device.type == "cuda"
+
+
+def _round8(w: int) -> int:
+    """A wide band's storage width on the plain twins (the JAX package's
+    w_pad rounding, banded.py:1928)."""
+    return -(-w // 8) * 8
 
 
 def _solve_pack(tables, items, geoms, w_pad, use_rle, expansion, use_lut,
@@ -389,6 +405,85 @@ def _solve_seg_pack(tables, items, geoms, w_pad, use_rle, expansion,
         device=tables.device)
     packed = packed.cpu().numpy()
     _store_pack_results(refs, packed, pack, time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# transition expectations (Baum-Welch)
+# ---------------------------------------------------------------------------
+
+K5_ITEM = "ROADMAP queue 2, K5: the wide-band forward-backward"
+
+
+def expectation_packs(tables, items, expansion: int, dynamic: bool = False):
+    """The packs banded_expectations_many launches K2-fwd and K4 on, built
+    one at a time: yields (item indices, BandPack). Every item whose band
+    is at most 128 cells wide goes, packed by width bucket, into a pack
+    whatever its depth; the expectations need no segmented route. On a
+    CUDA device a wider band raises NotImplementedError (K5); on the CPU
+    it gets a pack of its own for the plain twins. Empty items get none."""
+    buckets: dict = {}        # (w_pad, use_rle) -> [(lx+ly, i)]
+    wide = []                 # (w_pad, use_rle, i): one pack each
+    for i, it in enumerate(items):
+        lx, ly = len(it["x_sym"]), len(it["y_sym"])
+        if lx + ly == 0:
+            continue
+        geom = _item_geom(it, expansion, dynamic)
+        use_rle = it.get("rep_x") is not None and tables.repeat is not None
+        if geom.w_pad <= 128:
+            w = _bucket_w(geom.w_pad)
+            if cuda_banded.grid_bytes(lx + ly + 1, w) \
+                    > cuda_banded.FB_GRID_BUDGET_BYTES:
+                raise ValueError(
+                    f"a problem of {lx + ly + 1} diagonals: its forward grid "
+                    "exceeds cuda_banded.FB_GRID_BUDGET_BYTES")
+            buckets.setdefault((w, use_rle), []).append((lx + ly, i))
+        elif _on_card(tables):
+            raise NotImplementedError(
+                f"transition expectations of a band {geom.w_pad} cells "
+                f"wide: bands wider than 128 cells wait for a kernel "
+                f"({K5_ITEM})")
+        else:
+            wide.append((_round8(geom.w_pad), use_rle, i))
+    packs = [(w, rle, idxs) for (w, rle), entries in buckets.items()
+             for idxs in _packs(entries, w, False)]
+    for w, rle, idxs in packs + [(w, rle, [i]) for w, rle, i in wide]:
+        yield idxs, cuda_banded._pack_host(
+            tables, [items[i] for i in idxs], w, expansion, dynamic, rle,
+            [items[i]["_geom"] for i in idxs], device=tables.device)
+
+
+def banded_expectations_many(tables, items, expansion: int,
+                             use_lut: bool = False, dynamic: bool = False):
+    """Transition expectations of many problems (items as in
+    banded_posteriors_many): a list of (E (3, 3) float64 [from, to]
+    expected transition counts, total log prob) in input order, from
+    K2-fwd and then K4 (fb_expectations) on each of expectation_packs."""
+    results = [(np.zeros((3, 3)), 0.0) for _ in items]
+    for idxs, pack in expectation_packs(tables, items, expansion, dynamic):
+        fwd, totals = cuda_banded.fb_forward(pack, use_lut)
+        e = cuda_banded.fb_expectations(pack, fwd, totals, use_lut)
+        e = e.cpu().numpy().astype(np.float64)
+        totals = totals.cpu().numpy()
+        for k, i in enumerate(idxs):
+            results[i] = (e[k], float(totals[k]))
+    return results
+
+
+def banded_expectations(tables, x_sym, y_sym, anchors, expansion: int,
+                        strand: int, ragged_left=False, ragged_right=False,
+                        use_lut: bool = False, pad_shapes: bool = True):
+    """getExpectationsUsingAnchors (pairwiseAligner.c:1193-1209): Baum-Welch
+    transition expectations over the banded forward-backward of one
+    problem. Returns (E (3, 3) float64 [from, to] expected transition
+    counts, total log prob). pad_shapes is the JAX package's shape
+    bucketing for its compiled scans; a CUDA block walks the problem's own
+    depth, so it changes nothing here."""
+    item = {"x_sym": np.asarray(x_sym), "y_sym": np.asarray(y_sym),
+            "anchors": [] if anchors is None else anchors,
+            "strand": int(strand), "ragged_left": bool(ragged_left),
+            "ragged_right": bool(ragged_right)}
+    return banded_expectations_many(tables, [item], expansion,
+                                    use_lut=use_lut)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -485,3 +580,46 @@ def banded_posteriors(tables, x_sym, y_sym, anchors, expansion: int,
     return banded_posteriors_many(tables, [item], expansion,
                                   threshold=threshold, use_lut=use_lut,
                                   dynamic=dynamic)[0]
+
+
+def banded_posteriors_split(tables, x_sym, y_sym, anchors, expansion: int,
+                            strand: int, split_bigger_than: int,
+                            ragged_left=False, ragged_right=False,
+                            threshold: float = 0.01, use_lut: bool = False,
+                            dynamic: bool = False, rep_x=None, rep_y=None):
+    """getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps
+    (pairwiseAligner.c:984-1040): banded posteriors of each sub-rectangle
+    between large anchor gaps (one banded_posteriors_many call for them
+    all), the pair lists merged back into the problem's coordinates.
+    Returns ((matches, gapx, gapy), summed total), as banded_posteriors."""
+    lx, ly = len(x_sym), len(y_sym)
+    anchors = [] if anchors is None else [tuple(int(v) for v in a)
+                                          for a in anchors]
+    splits = get_split_points(anchors, lx, ly, split_bigger_than,
+                              bool(ragged_left), bool(ragged_right))
+    subs, j = [], 0
+    for i, (x1, y1, x2, y2) in enumerate(splits):
+        sub_anchors, j = _sub_anchors(anchors, j, x1, y1, x2, y2)
+        sub = {"x_sym": np.asarray(x_sym[x1:x2]),
+               "y_sym": np.asarray(y_sym[y1:y2]), "anchors": sub_anchors,
+               "strand": int(strand),
+               "ragged_left": bool(ragged_left) or i > 0,
+               "ragged_right": bool(ragged_right) or i < len(splits) - 1}
+        if rep_x is not None:
+            sub["rep_x"], sub["rep_y"] = rep_x[x1:x2], rep_y[y1:y2]
+        subs.append(sub)
+    results = banded_posteriors_many(tables, subs, expansion,
+                                     threshold=threshold, use_lut=use_lut,
+                                     dynamic=dynamic)
+    out = ([], [], [])
+    total = 0.0
+    for (x1, y1, _, _), (pairs, t) in zip(splits, results):
+        for arr, acc in zip(pairs, out):
+            if len(arr):
+                arr = arr.copy()
+                arr[:, 1] += x1
+                arr[:, 2] += y1
+            acc.append(arr)
+        total += t
+    empty = np.zeros((0, 3), dtype=np.int64)
+    return tuple(np.concatenate(a) if a else empty for a in out), total

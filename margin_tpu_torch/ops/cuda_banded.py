@@ -1,6 +1,6 @@
 """Banded pair-HMM forward-backward over a pack of problems: the
-monolithic kernels K2-fwd / K2-bwd and the segmented kernels K3-fwd /
-K3-bwd.
+monolithic kernels K2-fwd / K2-bwd, the transition expectations K4 and the
+segmented kernels K3-fwd / K3-bwd.
 
 Counterpart of `margin_tpu/ops/pallas_banded.py` (the one module of the
 port whose name differs from its JAX counterpart's): host prep
@@ -8,7 +8,11 @@ port whose name differs from its JAX counterpart's): host prep
 `_derive_geom` (:546-575), and `fb_posteriors_group` (:738-825), whose two
 Pallas kernels become the CUDA kernels of `csrc/banded_fb.cu`, and
 `fb_posteriors_group_seg` (:1346-1397), whose segmented Pallas kernels
-become those of `csrc/banded_seg.cu`. Parity: getPosteriorProbsWithBanding
+become those of `csrc/banded_seg.cu`; and the expectations pass of the
+XLA scan `margin_tpu/ops/banded.py:_banded_fb_core` (:267,
+compute_expectations :478-486), which becomes K4: K2-bwd's walk with each
+band cell's nine transition expectations summed in place of its stored
+posteriors (`fb_expectations`). Parity: getPosteriorProbsWithBanding
 (pairwiseAligner.c:706-844).
 
 Layout. A pack holds up to 128 problems, each with its own depth
@@ -24,9 +28,10 @@ backward through it and compacts the posterior cells above the threshold
 into the extraction words of `banded.extract_packed`. Checkpoints are
 (segments, 2, 3, W), problem b's segments from `seg_layout(pack, S)[0][b]`.
 
-On a CUDA device `fb_forward` / `fb_backward` / `seg_forward` /
-`seg_backward` launch the kernels; on the CPU they run the `*_plain`
-twins, the same recurrences in plain PyTorch vectorised over the pack's
+On a CUDA device `fb_forward` / `fb_backward` / `fb_expectations` /
+`seg_forward` / `seg_backward` launch the kernels; on the CPU they run the
+`*_plain` twins, the same recurrences in plain PyTorch vectorised over the
+pack's
 problems (the segmented twins walk the same segments). Both kernel pairs
 walk a problem in chunks of diagonals staged in a block's shared memory,
 so the chunk depth is a property of the launch (`K2_CHUNK`, `SEG_D`) and
@@ -314,6 +319,7 @@ def derive_geom(pack: BandPack):
 
 FB_FORWARD = _Counter()
 FB_BACKWARD = _Counter()
+FB_EXPECT = _Counter()
 SEG_FORWARD = _Counter()
 SEG_BACKWARD = _Counter()
 
@@ -321,7 +327,7 @@ SEG_BACKWARD = _Counter()
 @functools.lru_cache(maxsize=None)
 def _k2():
     lib = _ext.kernel_lib("banded_fb")
-    for name in ("k2_forward", "k2_backward"):
+    for name in ("k2_forward", "k2_backward", "k2_expectations"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
@@ -446,6 +452,29 @@ def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     _ext.check_launch(rc, "banded backward (K2-bwd)")
     FB_BACKWARD.launches += 1
     return post
+
+
+def fb_expectations(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
+                    use_lut: bool, chunk: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Baum-Welch transition expectations of a pack: returns (B, 3, 3) f32
+    [from, to] expected transition counts, states (match, gapX, gapY).
+    CUDA: K4, K2-bwd's walk summing each band cell's expectations in
+    place of storing its posteriors (chunk as in fb_forward); CPU: the
+    plain twin."""
+    if pack.device.type != "cuda":
+        return fb_expectations_plain(pack, fwd, totals, use_lut)
+    chunk, smem = _k2_launch(pack, chunk)
+    dev = pack.device
+    _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
+    _check(totals, "totals", torch.float32, (pack.B,), dev)
+    out = torch.empty((pack.B, 3, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _k2().k2_expectations(_args(pack, fwd, totals, out), pack.B, pack.W,
+                               chunk, int(bool(use_lut)), smem, stream)
+    _ext.check_launch(rc, "banded transition expectations (K4)")
+    FB_EXPECT.launches += 1
+    return out
 
 
 def seg_layout(pack: BandPack, seg_d: int):
@@ -698,19 +727,22 @@ def _fwd_step(sw: _Sweep, g: int, prev1, prev2):
 
 def _bwd_step(sw: _Sweep, g: int, next1, next2, bwd_final):
     """Backward diagonal g of every problem from the _padded next two:
-    returns (grid rows, band mask (B, 1, W), cells (B, 3, W)); the final
+    returns (grid rows, band mask (B, 1, W), cells (B, 3, W), the "to"
+    terms (B, 3, W): each successor's backward value plus the emission
+    consumed leaving the cell, targets (gapX, match, gapY)); the final
     diagonal carries the end weights (pairwiseAligner.c:882-892)."""
     P = sw.P
     # gapX of (x+1, y), match of (x+1, y+1), gapY of (x, y+1)
     src = torch.stack([next1[:, GAPX], next2[:, MATCH], next1[:, GAPY]],
                       dim=1)
     rows, vm, e = P.at(g)
+    to = P.shift(src, g) + e
     # per term, plus its transition out of each state: (B, term, state, W)
-    t = (P.shift(src, g) + e)[:, :, None, :] + sw.tr
+    t = to[:, :, None, :] + sw.tr
     computed = torch.maximum(
         torch.where(vm, sw.la3(t[:, 0], t[:, 1], t[:, 2]), sw.neg), sw.neg)
     at_final = (P.D == g)[:, None, None]
-    return rows, vm, torch.where(at_final, bwd_final, computed)
+    return rows, vm, torch.where(at_final, bwd_final, computed), to
 
 
 def _bwd_final(pack: BandPack, sw: _Sweep) -> torch.Tensor:
@@ -759,21 +791,57 @@ def fb_backward_plain(pack: BandPack, fwd: torch.Tensor,
                       totals: torch.Tensor, use_lut: bool) -> torch.Tensor:
     """Plain PyTorch twin of K2-bwd (the Pallas `_bwd_kernel` recurrence,
     pallas_banded.py:294-340)."""
+    return _bwd_plain(pack, fwd, totals, use_lut, expectations=False)
+
+
+# [from, to] transitions of the expectations, states (match, gapX, gapY)
+_TMAT = ((T_MM, T_OPEN_X, T_OPEN_Y), (T_M_FROM_GX, T_EXT_X, T_SW_Y),
+         (T_M_FROM_GY, T_SW_X, T_EXT_Y))
+_TO_ORDER = (1, 0, 2)   # _bwd_step's (gapX, match, gapY) -> (m, gx, gy)
+
+
+def fb_expectations_plain(pack: BandPack, fwd: torch.Tensor,
+                          totals: torch.Tensor,
+                          use_lut: bool) -> torch.Tensor:
+    """Plain PyTorch twin of K4, in margin_tpu's order
+    (ops/banded.py:_banded_fb_core :478-486 with compute_expectations):
+    per diagonal, last first, every band cell's exp(f[from] + to[to] +
+    t[from, to] - total), summed over the band, then added into a (3, 3)
+    float32 accumulator. Returns (B, 3, 3)."""
+    return _bwd_plain(pack, fwd, totals, use_lut, expectations=True)
+
+
+def _bwd_plain(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
+               use_lut: bool, expectations: bool) -> torch.Tensor:
+    """The backward walk of fb_backward_plain (posterior grid) or of
+    fb_expectations_plain (expectations)."""
     sw = _Sweep(pack, "bwd", use_lut)
     P = sw.P
+    dev = pack.device
     # a spare row, as in fb_forward_plain; beyond a problem's depth the
     # band mask is empty, so the posterior written there is 0
-    post = torch.zeros((pack.n_rows + 1, 3, P.W), dtype=torch.float32,
-                       device=pack.device)
+    post = None if expectations else torch.zeros(
+        (pack.n_rows + 1, 3, P.W), dtype=torch.float32, device=dev)
+    acc = torch.zeros((P.B, 3, 3), dtype=torch.float32, device=dev)
+    tmat = pack.trans[:, torch.tensor(_TMAT, device=dev)][..., None]
+    to_order = torch.tensor(_TO_ORDER, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     f_rows = P.rows.clamp(max=pack.n_rows - 1)
     next1 = next2 = _padded(sw.empty())
     bwd_final = _bwd_final(pack, sw)
     total = totals[:, None, None]
     for g in range(P.Dmax - 1, -1, -1):
-        rows, vm, cur = _bwd_step(sw, g, next1, next2, bwd_final)
-        post[rows] = _posterior(fwd[f_rows[:, g]], cur, total, vm)
+        rows, vm, cur, to = _bwd_step(sw, g, next1, next2, bwd_final)
+        f = fwd[f_rows[:, g]]
+        if expectations:
+            to = to.index_select(1, to_order)
+            contrib = torch.exp(f[:, :, None, :] + to[:, None, :, :] + tmat
+                                - total[..., None])
+            acc = acc + torch.where(vm[:, :, None, :], contrib, zero).sum(-1)
+        else:
+            post[rows] = _posterior(f, cur, total, vm)
         next2, next1 = next1, _padded(cur)
-    return post[:pack.n_rows]
+    return acc if expectations else post[:pack.n_rows]
 
 
 def seg_forward_plain(pack: BandPack, use_lut: bool, seg_d: int):
@@ -839,7 +907,7 @@ def seg_backward_plain(pack: BandPack, ckpt: torch.Tensor,
             prev2, prev1 = prev1, _padded(cur)
         post = torch.empty_like(blk)
         for g in range(d1 - 1, d0 - 1, -1):
-            _, vm, cur = _bwd_step(sw, g, next1, next2, bwd_final)
+            _, vm, cur, _ = _bwd_step(sw, g, next1, next2, bwd_final)
             post[:, g - d0] = _posterior(blk[:, g - d0], cur, total, vm)
             next2, next1 = next1, _padded(cur)
         # extraction (banded.extract_packed's selection and words)

@@ -7,12 +7,14 @@ chunk, realign the reads to the chunk's reference with the banded
 forward-backward (K2, or K3 for reads over SEG_MIN_D diagonals), build the
 POA, call consensus with bubble scoring on the dense forward (K1),
 re-estimate run lengths, then stitch the chunk sequences into the polished
-FASTA. Diploid adds bubble-graph phasing over the POA, per-haplotype
-consensus, phased stitching and the haplotagged BAM.
+FASTA, with HELEN features of each chunk's POA on request. Diploid adds
+bubble-graph phasing over the POA, per-haplotype consensus, phased
+stitching, the haplotagged BAM and, with a truth BAM, the truth
+haplotypes' partition.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue 1 item: HELEN features, multi-host runs, and diploid polish's
-checkpoints, shards and chunk threads. The JAX package's device-mesh
+queue 1 item: multi-host runs, and diploid polish's checkpoints, shards
+and chunk threads. The JAX package's device-mesh
 block has no counterpart (one GPU).
 """
 
@@ -114,13 +116,50 @@ def poa_realign_all(reads: List[PoaRead], alignments, reference: RleString,
     return poa
 
 
-_HELEN = "HELEN, EM with K4, and the aux tools"
 _SCALE = "IPC workers, multi-GPU and multi-host"
 
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
                               f"\"{item}\")")
+
+
+def _truth_reads(true_reference_bam: str, chunk, rle_ref, pp):
+    """The truth contigs over a chunk as reads named
+    CTRID.<chunkIdx>.<name> (misc.c:443-473), with their alignments."""
+    import copy
+    pp_truth = copy.copy(pp)
+    pp_truth.includeSupplementaryAlignments = True
+    truth_reader = bamio.open_alignment(true_reference_bam)
+    try:
+        t_reads, t_alns, _, _ = convert_to_reads_and_alignments(
+            chunk, rle_ref, truth_reader, pp_truth, keep_filtered=False)
+    finally:
+        truth_reader.close()
+    for tr in t_reads:
+        tr.read_name = f"CTRID.{chunk.chunk_idx}.{tr.read_name}"
+    return t_reads, t_alns
+
+
+def _write_truth_partition(path: str, chunks, ids1, ids2) -> None:
+    """chunkTruthHaplotypes_print (misc.c:382-440): each chunk's truth
+    contigs by the haplotype they were partitioned into."""
+    per_chunk = {c.chunk_idx: ([], []) for c in chunks}
+    for hap, ids in ((1, ids1), (2, ids2)):
+        for name in ids:
+            if not name.startswith("CTRID."):
+                continue
+            parts = name.split(".")
+            per_chunk[int(parts[1])][hap - 1].append(".".join(parts[2:]))
+    with open(path, "w") as fh:
+        fh.write("#contig\tstartPos\tendPos\toverlapStart\toverlapEnd"
+                 "\thap\tsequenceName\n")
+        for c in chunks:
+            for hap_no, names in enumerate(per_chunk[c.chunk_idx], 1):
+                for nm in names:
+                    fh.write(f"{c.ref_name}\t{c.chunk_start}\t"
+                             f"{c.chunk_end}\t{c.chunk_overlap_start}\t"
+                             f"{c.chunk_overlap_end}\t{hap_no}\t{nm}\n")
 
 
 def _write_chunks_csv(output_base: str, chunkr) -> None:
@@ -134,7 +173,9 @@ def _write_chunks_csv(output_base: str, chunkr) -> None:
 def run_polish(bam_file: str, reference_fasta: str, params: Params,
                output_base: str, region: Optional[str] = None,
                diploid: bool = False, seed: int = 0, use_lut: bool = False,
-               feature_type: Optional[str] = None,
+               feature_type: Optional[str] = None, feature_max_rl: int = 0,
+               true_reference_bam: Optional[str] = None,
+               full_feature_output: bool = False,
                output_poa_csv: bool = False, output_poa_dot: bool = False,
                output_repeat_counts: bool = False,
                output_haplotype_reads: bool = False,
@@ -162,9 +203,12 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
     on a host thread pool (polish.c:475-478) with per-chunk RNG streams,
     the same streams as shard mode. device: "cuda" (default) runs the
     kernels on the GPU; "cpu" runs their plain PyTorch twins. CUDA asked
-    for and absent raises."""
-    if feature_type is not None:
-        _not_ported("HELEN feature output", _HELEN)
+    for and absent raises.
+
+    feature_type (simpleWeight, splitRleWeight or channelRleWeight, with
+    aliases) writes HELEN features to `<output_base>.T00.h5`;
+    true_reference_bam labels them with the truth (-u) and, in diploid
+    mode, partitions the truth haplotypes (polish.c:423-431)."""
     if hosts is not None:
         _not_ported("multi-host polish", _SCALE)
     if diploid:
@@ -177,7 +221,8 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
             output_phasing_state=output_phasing_state, vcf_file=vcf_file,
             only_use_vcf_alleles=only_use_vcf_alleles,
             skip_output_fasta=skip_output_fasta, checkpoint=checkpoint,
-            shard=shard, skip_filtered_reads=skip_filtered_reads,
+            true_reference_bam=true_reference_bam, shard=shard,
+            skip_filtered_reads=skip_filtered_reads,
             skip_realignment=skip_realignment,
             skip_haplotype_bam=skip_haplotype_bam, profiler=profiler,
             threads=threads, device=device, log=log)
@@ -193,6 +238,20 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
     t0 = time.time()
     pp = params.polish
 
+    helen_h5 = None
+    if feature_type is not None:
+        from margin_tpu_torch.polish import helen
+        feature_type = helen.normalize_feature_type(feature_type)
+        # polish.c:374-383: simpleWeight requires non-RLE params, the RLE
+        # feature types require RLE params
+        if (feature_type == "simpleWeight") == pp.useRunLengthEncoding:
+            raise ValueError("Invalid runLengthEncoding parameter because "
+                             "of HELEN feature type.")
+        if feature_max_rl <= 0:
+            feature_max_rl = helen.SPLIT_MAX_RUN_LENGTH_DEFAULT
+        # openHelenFeatureHDF5FilesByThreadCount (helenFeatures.c:2782-2790)
+        helen_h5 = helen.HelenHDF5File(f"{output_base}.T00.h5")
+
     with profiler.stage("chunker"):
         chunkr = chunkermod.construct_chunker(bam_file, region, None, pp,
                                               record_filtered_reads=False)
@@ -205,6 +264,11 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         device=device)
 
     from margin_tpu_torch.utils.checkpoint import ChunkCheckpointer
+    if checkpoint and helen_h5 is not None:
+        # the HDF5 feature file is rewritten whole each run, so skipped
+        # chunks would lose their features
+        log("> Checkpointing disabled: incompatible with HELEN feature output")
+        checkpoint = False
     threads = max(int(threads), 1)
     per_chunk_rng = shard is not None or threads > 1
     ckpt = ChunkCheckpointer(
@@ -216,7 +280,7 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         log=log)
     my_chunks = [c for c in chunkr.chunks
                  if shard_idx is None or c.chunk_idx % shard_n == shard_idx]
-    ckpt_lock = threading.Lock()
+    io_lock = threading.Lock()  # serializes HELEN output and checkpoints
 
     def process_chunk(chunk, reader, chunk_rng):
         payload = ckpt.load(chunk.chunk_idx)
@@ -250,12 +314,19 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
             with profiler.chunk_stage(chunk.chunk_idx, "repeat_counts"):
                 repeats.estimate_repeat_counts(poa, reads,
                                                pp.repeat_sub_matrix)
+        if helen_h5 is not None:
+            from margin_tpu_torch.polish import helen
+            with profiler.chunk_stage(chunk.chunk_idx, "helen"), io_lock:
+                helen.handle_helen_features(
+                    feature_type, feature_max_rl, helen_h5,
+                    full_feature_output, true_reference_bam, rle_ref, params,
+                    chunk.chunk_idx, chunk, poa, reads, tables, use_lut, log)
         if output_poa_csv or output_poa_dot or output_repeat_counts:
             outputs.write_supplemental_chunk_information(
                 output_base, chunk.chunk_idx, chunk, poa, reads, params,
                 output_poa_dot, output_poa_csv, output_repeat_counts)
         seq_rec = (chunk.ref_name, chunk.chunk_idx, poa.ref_string.expand())
-        with ckpt_lock:
+        with io_lock:
             ckpt.save(chunk.chunk_idx, {
                 "seq": seq_rec,
                 "rng_state": (None if per_chunk_rng
@@ -282,7 +353,7 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
                 reader = getattr(tls, "reader", None)
                 if reader is None:
                     reader = tls.reader = bamio.open_alignment(bam_file)
-                    with ckpt_lock:
+                    with io_lock:
                         open_readers.append(reader)
                 return process_chunk(
                     chunk, reader, random.Random(f"{seed}:{chunk.chunk_idx}"))
@@ -294,6 +365,10 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
     if ckpt.loaded:
         log(f"> Resumed {ckpt.loaded} of {len(chunkr.chunks)} chunks "
             f"from checkpoint")
+    if helen_h5 is not None:
+        helen_h5.close()
+        if helen_h5.filename is not None:
+            log(f"> Wrote HELEN features to {helen_h5.filename}")
     if shard_idx is not None:
         log(f"> Shard {shard_idx}/{shard_n} complete: "
             f"{len(chunk_seqs)} chunks checkpointed; run with --shard merge "
@@ -330,6 +405,7 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
                        only_use_vcf_alleles: bool = False,
                        skip_output_fasta: bool = False,
                        checkpoint: bool = False,
+                       true_reference_bam: Optional[str] = None,
                        shard: Optional[tuple] = None,
                        skip_filtered_reads: bool = False,
                        skip_realignment: bool = False,
@@ -344,8 +420,9 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
     phased FASTAs + haplotagged BAM. With `vcf_file`, candidate variant
     positions come from the VCF; `only_use_vcf_alleles` restricts alleles
     to the VCF's (requires non-RLE params and skip_output_fasta,
-    polish.c:364-371). margin_tpu's truth-haplotype partition
-    (true_reference_bam) comes with HELEN's -u."""
+    polish.c:364-371). true_reference_bam (-u): the truth contigs ride
+    along as filtered reads and their partition between the haplotypes is
+    written to `<output_base>.truthHaplotypesPartition.tsv`."""
     from margin_tpu_torch.phase.driver import write_haplotagged_bam
     from margin_tpu_torch.phase.stitching import (ChunkPhaseResult,
                                                   stitch_next_chunk)
@@ -405,6 +482,15 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
             reads, alignments, f_reads, f_alns = \
                 convert_to_reads_and_alignments(chunk, rle_ref, reader, pp,
                                                 keep_filtered=True)
+            if true_reference_bam is not None:
+                # chunkTruthHaplotypes_addTruthReadsToFilteredReadSet
+                # (misc.c:443-473): truth contigs ride along as filtered
+                # reads with CTRID.<chunkIdx>.<name> names and get
+                # partitioned with the phased haplotypes
+                t_reads, t_alns = _truth_reads(true_reference_bam, chunk,
+                                               rle_ref, pp)
+                f_reads.extend(t_reads)
+                f_alns.extend(t_alns)
         # downsample via full read length (polish.c:544-549)
         if pp.maxDepth > 0 and reads:
             lengths = np.array([r.rle_read.length for r in reads])
@@ -574,6 +660,10 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
                                                region, set(ids1), set(ids2),
                                                params)
         out.hap1_count, out.hap2_count = h1, h2
+    if true_reference_bam is not None:
+        path = f"{output_base}.truthHaplotypesPartition.tsv"
+        _write_truth_partition(path, chunkr.chunks, ids1, ids2)
+        log(f"> Wrote truth haplotype partitioning to {path}")
     bam_note = ("BAM skipped" if skip_haplotype_bam
                 else f"BAM H1 {h1} H2 {h2} H0 {h0}")
     log(f"> Diploid polish done in {time.time() - t0:.1f}s: "

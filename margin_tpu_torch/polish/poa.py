@@ -1,11 +1,12 @@
 """Partial-order alignment graph: construction, augmentation with
 posterior-weighted alignments, consensus calling, and iterative realignment.
 
-Copy of `margin_tpu/polish/poa.py` with the port's imports, less what
-only HELEN and the aux tools call (ROADMAP queue 1): the un-batched
-realign branch with `get_aligned_pairs_cropping_reference`. Parity:
-impl/poa.c. The DP alignment of each read runs on the device
-(ops/banded.py: K2, or K3 for reads over SEG_MIN_D diagonals); the graph
+Copy of `margin_tpu/polish/poa.py` with the port's imports, less
+poa_realign's un-batched branch (`batched=False`), which no caller takes:
+`get_aligned_pairs_cropping_reference` aligns one read for
+`polish/alignment.py`. Parity: impl/poa.c. The DP alignment of each read
+runs on the device (ops/banded.py: K2, or K3 for reads over SEG_MIN_D
+diagonals); the graph
 bookkeeping (left-shift normalized inserts and deletes, base/repeat
 weights, observations) is host-side, in native/marginpoa.cc when it
 builds (polish/native_poa.py) and in the Python `Poa` otherwise.
@@ -588,6 +589,29 @@ def _crop_item(reference: RleString, read: PoaRead, anchors,
         item["rep_x"] = reference.counts[first_ref:end_ref]
         item["rep_y"] = read.rle_read.counts
     return item, first_ref
+
+
+def get_aligned_pairs_cropping_reference(reference: RleString, read: PoaRead,
+                                         anchors: List[Tuple[int, int, int]],
+                                         params: PolishParams,
+                                         tables: pairhmm.PairHmmTables,
+                                         use_lut: bool = False):
+    """getAlignedPairsWithIndelsCroppingReference (poa.c:612-666) for one
+    read. Returns (matches, inserts, deletes) weighted-pair arrays in
+    reference coordinates."""
+    item, first_ref = _crop_item(reference, read, anchors, params)
+    (m, gx, gy), _total = banded.banded_posteriors_split(
+        tables, item["x_sym"], item["y_sym"], item["anchors"],
+        params.p.diagonalExpansion, item["strand"],
+        params.p.splitMatrixBiggerThanThis,
+        threshold=params.p.threshold, use_lut=use_lut,
+        dynamic=params.p.dynamicAnchorExpansion,
+        rep_x=item.get("rep_x"), rep_y=item.get("rep_y"))
+    # matches/gapX(deletes)/gapY(inserts); shift ref coords back
+    for arr in (m, gx, gy):
+        if len(arr):
+            arr[:, 1] += first_ref
+    return m, gy, gx  # (matches, inserts, deletes)
 
 
 def poa_realign_only_anchor_alignments(reads: List[PoaRead], anchor_alignments,

@@ -357,6 +357,55 @@ class PolishDataset:
     params: str
     contig: str
     draft_edits: List[Variant] = field(default_factory=list)
+    truth_bam: str = ""
+
+
+def _exact_cigar(hap_map: np.ndarray):
+    """(pos, cigar) of a haplotype aligned to the sequence it was made
+    from, exactly, by its map (-1 for inserted bases): D for skipped
+    bases of that sequence, I for inserted ones, soft clips for inserted
+    ends."""
+    mapped = np.nonzero(hap_map >= 0)[0]
+    first, last = int(mapped[0]), int(mapped[-1])
+    ops = [(S, first)] if first else []
+    prev = int(hap_map[first]) - 1
+    for p in hap_map[first:last + 1]:
+        p = int(p)
+        if p < 0:
+            ops.append((I, 1))
+            continue
+        if p > prev + 1:
+            ops.append((D, p - prev - 1))
+        ops.append((M, 1))
+        prev = p
+    if last + 1 < len(hap_map):
+        ops.append((S, len(hap_map) - 1 - last))
+    cigar = []
+    for op, n in ops:
+        if cigar and cigar[-1][0] == op:
+            cigar[-1] = (op, cigar[-1][1] + n)
+        else:
+            cigar.append((op, n))
+    return int(hap_map[first]), cigar
+
+
+def write_truth_bam(path: str, header, haps) -> str:
+    """truth.bam(.bai): each truth haplotype, [(name, sequence, map to
+    the draft)], as one record aligned to the draft with the exact CIGAR
+    its map gives (a truth assembly aligned to the draft, as HELEN's -u
+    and the truth-haplotype partition read it)."""
+    records = []
+    for name, seq, hmap in haps:
+        pos, cigar = _exact_cigar(hmap)
+        records.append((pos, name, build_bam_record(
+            name, 0, 0, pos, 60, cigar, seq.tobytes(),
+            bytes([30]) * len(seq))))
+    records.sort(key=lambda r: (r[0], r[1]))
+    with bamio.BamWriter(path, header) as w:
+        for _, _, raw in records:
+            w.write_raw(raw)
+    bamio.build_bai(path)
+    return path
 
 
 def _draft_from_truth(rng, cfg: PolishSynthConfig, truth: np.ndarray):
@@ -476,9 +525,11 @@ def write_polish_dataset(out_dir: str, cfg: PolishSynthConfig
     """Write a seeded `margin polish` input set: truth.fa (a random
     contig), draft.fa (the truth with draft errors), reads.bam(.bai)
     (ONT-like reads from the truth on both strands, aligned to the draft
-    by their true alignments) and params.json (the default nucleotide HMM,
-    run-length encoding with a repeat-count matrix simulated for the read
-    error model, the config's chunk geometry and consensus iterations)."""
+    by their true alignments), truth.bam(.bai) (the truth aligned to the
+    draft by the draft edits, one record named "truth") and params.json
+    (the default nucleotide HMM, run-length encoding with a repeat-count
+    matrix simulated for the read error model, the config's chunk geometry
+    and consensus iterations)."""
     rng = np.random.default_rng(cfg.seed)
     os.makedirs(out_dir, exist_ok=True)
     truth = _BASES[rng.integers(0, 4, cfg.contig_len)]
@@ -528,7 +579,10 @@ def write_polish_dataset(out_dir: str, cfg: PolishSynthConfig
     params = os.path.join(out_dir, "params.json")
     with open(params, "w") as fh:
         json.dump({"polish": _polish_params(rng, cfg)}, fh)
-    return PolishDataset(bam, draft_fa, truth_fa, params, cfg.contig, edits)
+    truth_bam = write_truth_bam(os.path.join(out_dir, "truth.bam"), header,
+                                [("truth", hap_seq, hap_map)])
+    return PolishDataset(bam, draft_fa, truth_fa, params, cfg.contig, edits,
+                         truth_bam)
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +612,7 @@ class DiploidPolishDataset:
     hets: List[Variant] = field(default_factory=list)
     draft_edits: List[Variant] = field(default_factory=list)
     read_hap: Dict[str, int] = field(default_factory=dict)
+    truth_bam: str = ""
 
 
 def _place_hets(rng, cfg: DiploidPolishSynthConfig, draft: np.ndarray,
@@ -598,8 +653,10 @@ def write_diploid_polish_dataset(out_dir: str, cfg: DiploidPolishSynthConfig
     (the het sites as unphased 0/1 calls on the draft), reads.bam(.bai)
     (ONT-like reads drawn alternately from the two haplotypes on both
     strands, aligned to the draft by their true alignments, named
-    "..._h1" / "..._h2" after their haplotype) and params.json (as
-    write_polish_dataset, with polish.skipHaploidPolishingIfDiploid)."""
+    "..._h1" / "..._h2" after their haplotype), truth.bam(.bai) (the two
+    haplotypes aligned to the draft by their edits, records "truth1" and
+    "truth2") and params.json (as write_polish_dataset, with
+    polish.skipHaploidPolishingIfDiploid)."""
     rng = np.random.default_rng(cfg.seed)
     os.makedirs(out_dir, exist_ok=True)
     truth1 = _BASES[rng.integers(0, 4, cfg.contig_len)]
@@ -667,9 +724,12 @@ def write_diploid_polish_dataset(out_dir: str, cfg: DiploidPolishSynthConfig
     with open(params, "w") as fh:
         json.dump({"polish": dict(_polish_params(rng, cfg),
                                   skipHaploidPolishingIfDiploid=True)}, fh)
+    truth_bam = write_truth_bam(
+        os.path.join(out_dir, "truth.bam"), header,
+        [(f"truth{h}", haps[h][0], haps[h][1]) for h in (1, 2)])
     return DiploidPolishDataset(bam, paths["draft"], paths["truth1"],
                                 paths["truth2"], vcf, params, cfg.contig,
-                                hets, edits, read_hap)
+                                hets, edits, read_hap, truth_bam)
 
 
 def banded_edit_distance(a: str, b: str, band: int = 500) -> int:

@@ -1,0 +1,276 @@
+"""Port of Baum-Welch EM (margin_tpu_torch.ops.em) and its transition
+expectations (ops.banded.banded_expectations, kernel K4 on a CUDA device)
+against the JAX package's on the same seeded pairs.
+
+The JAX side runs its XLA scan (`_banded_fb_core` with
+compute_expectations); the CPU runs the port's plain twin
+(cuda_banded.fb_expectations_plain), which keeps the JAX order: a sum over
+the band for each diagonal, then a sequential float32 add. Expectations
+hold rtol 1e-5 with an absolute floor of 1e-7 x the matrix sum. LUT totals
+are checked bit for bit against JAX run in a subprocess with XLA's FMA
+instructions off (as tests/test_torch_banded.py does); exact-logAdd
+totals hold tests/test_native_fb.py's tolerance.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from margin_tpu.ops import banded as jbanded
+from margin_tpu.ops import em as jem
+from margin_tpu.ops import pairhmm as jpairhmm
+from margin_tpu.params import StateMachineParams as JSM
+from margin_tpu_torch.ops import banded, cuda_banded, em, native_fb, pairhmm
+from margin_tpu_torch.params import StateMachineParams
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+RTOL, ATOL_OF_SUM = 1e-5, 1e-7
+
+
+def _pair(rng, lx, sub=0.08, dele=0.04):
+    x = rng.integers(0, 4, lx).astype(np.int32)
+    y = x.copy()
+    flip = rng.random(lx) < sub
+    y[flip] = (y[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
+    keep = rng.random(lx) > dele
+    return x, y[keep], np.cumsum(keep) - 1, keep
+
+
+def _cases():
+    """(x, y, anchors, expansion, strand, ragged_left, ragged_right): short
+    anchorless pairs and anchored pairs of 300-600 bases."""
+    rng = np.random.default_rng(5)
+    out = []
+    for i, lx in enumerate((12, 60, 110)):
+        x, y, _, _ = _pair(rng, lx)
+        out.append((x, y, None, 20, i % 2, False, False))
+    for i, lx in enumerate((300, 450, 600)):
+        x, y, ypos, keep = _pair(rng, lx)
+        xa = np.nonzero(keep)[0][::10][1:-1]
+        anchors = [(int(a), int(ypos[a]), 6) for a in xa]
+        out.append((x, y, anchors, 6, i % 2, i == 1, i == 2))
+    return out
+
+
+def _jax_tables():
+    return jpairhmm.PairHmmTables.from_params(JSM.default_nucleotide())
+
+
+def _port_tables(device="cpu"):
+    return pairhmm.PairHmmTables.from_params(
+        StateMachineParams.default_nucleotide(), device=device)
+
+
+def _jax_expectations(use_lut):
+    tabs = _jax_tables()
+    return [jbanded.banded_expectations(tabs, x, y, a, e, s, rl, rr,
+                                        use_lut=use_lut)
+            for x, y, a, e, s, rl, rr in _cases()]
+
+
+def _port_expectations(use_lut, tables=None):
+    tabs = tables or _port_tables()
+    return [banded.banded_expectations(tabs, x, y, a, e, s, rl, rr,
+                                       use_lut=use_lut)
+            for x, y, a, e, s, rl, rr in _cases()]
+
+
+def _assert_expectations(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape == (3, 3)
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               atol=ATOL_OF_SUM * want.sum())
+
+
+def jax_reference_without_fma(out_path):
+    """Subprocess body: JAX LUT expectations and totals of every case with
+    XLA's FMA contraction off."""
+    res = _jax_expectations(True)
+    np.savez(out_path, e=np.stack([e for e, _ in res]),
+             totals=np.array([t for _, t in res], np.float64))
+
+
+@pytest.fixture(scope="module")
+def no_fma_reference(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("k4") / "ref.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2")
+    code = ("import sys; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
+            "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+            "jax.config.update('jax_enable_x64', True)\n"
+            "import test_torch_em as T\n"
+            "T.jax_reference_without_fma(%r)\n"
+            % (HERE, os.path.dirname(HERE), path))
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=300)
+    return dict(np.load(path))
+
+
+def test_lut_expectations_match_jax(no_fma_reference):
+    """LUT: the totals bit for bit, the expectations within the
+    tolerance."""
+    got = _port_expectations(True)
+    assert np.array_equal(np.array([t for _, t in got]),
+                          no_fma_reference["totals"])
+    for (eg, _), ew in zip(got, no_fma_reference["e"]):
+        assert eg.dtype == np.float64
+        _assert_expectations(eg, ew)
+
+
+def test_exact_expectations_match_jax():
+    for (eg, tg), (ew, tw) in zip(_port_expectations(False),
+                                  _jax_expectations(False)):
+        assert tg == pytest.approx(tw, abs=2e-3)
+        _assert_expectations(eg, ew)
+
+
+def test_expectations_many_equal_single():
+    """Packing problems together changes no problem's result."""
+    tabs = _port_tables()
+    items = [{"x_sym": x, "y_sym": y, "anchors": a or [], "strand": s,
+              "ragged_left": rl, "ragged_right": rr}
+             for x, y, a, _, s, rl, rr in _cases()[3:]]
+    many = banded.banded_expectations_many(tabs, items, 6, use_lut=True)
+    for (e1, t1), (e2, t2) in zip(many, _port_expectations(True)[3:]):
+        assert t1 == t2 and np.array_equal(e1, e2)
+
+
+def _em_pairs(n=5, lx=60):
+    rng = np.random.default_rng(7)
+    return [_pair(rng, lx, sub=0.1, dele=0.05)[:2] for _ in range(n)]
+
+
+def test_em_iterations_match_jax():
+    """Six Baum-Welch iterations (test_em's structure): the likelihood of
+    each step within 1e-5 relative of margin_tpu's, the transitions
+    within 1e-5."""
+    pairs = _em_pairs()
+    sm, jsm = StateMachineParams.default_nucleotide(), JSM.default_nucleotide()
+    likes = []
+    for _ in range(6):
+        sm, like = em.em_iteration(sm, pairs, expansion=20, use_lut=True,
+                                   device="cpu")
+        jsm, jlike = jem.em_iteration(jsm, pairs, expansion=20, use_lut=True)
+        assert like == pytest.approx(jlike, rel=1e-5)
+        np.testing.assert_allclose(np.exp(sm.transition_vector()),
+                                   np.exp(jsm.transition_vector()),
+                                   atol=1e-5)
+        likes.append(like)
+    assert likes[-1] > likes[0]
+
+
+def test_em_iteration_equals_the_loop():
+    """em_iteration's packed solve equals adding each pair's expectations
+    one by one with add_expectations."""
+    pairs = _em_pairs(n=4)
+    sm = StateMachineParams.default_nucleotide()
+    got, like = em.em_iteration(sm, pairs, expansion=20, device="cpu")
+    hmm = em.HmmExpectations(1e-12)
+    tabs = pairhmm.PairHmmTables.from_params(sm, device="cpu")
+    for x, y in pairs:
+        hmm.add_expectations(tabs, x, y, expansion=20)
+    assert hmm.likelihood == like
+    hmm.normalise()
+    assert hmm.to_state_machine_params(sm) == got
+
+
+def test_wide_band_expectations_on_cpu_match_jax():
+    """A band wider than 128 cells takes the plain twin on the CPU (exact
+    logAdd: in process, XLA's FMAs move a LUT total by an ulp, and the
+    expectations with it)."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 4, 200).astype(np.int32)
+    y = rng.integers(0, 4, 190).astype(np.int32)
+    eg, tg = banded.banded_expectations(_port_tables(), x, y, None, 20, 1)
+    ew, tw = jbanded.banded_expectations(_jax_tables(), x, y, None, 20, 1)
+    assert tg == pytest.approx(tw, abs=2e-3)
+    _assert_expectations(eg, ew)
+
+
+def test_wide_band_expectations_raise_on_card(monkeypatch):
+    """On a CUDA device a band wider than 128 cells raises and names K5
+    (checked on the CPU with the device check patched)."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 4, 200).astype(np.int32)
+    monkeypatch.setattr(banded, "_on_card", lambda tables: True)
+    with pytest.raises(NotImplementedError, match="K5"):
+        banded.banded_expectations(_port_tables(), x, x[:190], None, 20, 0)
+
+
+def _wide_item():
+    rng = np.random.default_rng(4)
+    return [{"x_sym": rng.integers(0, 4, 150).astype(np.int32),
+             "y_sym": rng.integers(0, 4, 140).astype(np.int32),
+             "anchors": [], "strand": 1}]
+
+
+def test_wide_band_posteriors_without_host_engine_raise_on_card(monkeypatch):
+    """Without the host engine, wide bands on a CUDA device raise and name
+    the missing engine; nothing carries on on the CPU twins."""
+    monkeypatch.setattr(native_fb, "lib", lambda: None)
+    monkeypatch.setattr(banded, "_on_card", lambda tables: True)
+    with pytest.raises(RuntimeError, match="marginfb"):
+        banded.banded_posteriors_many(_port_tables(), _wide_item(), 6,
+                                      threshold=2.0, use_lut=True)
+
+
+def test_wide_band_posteriors_without_host_engine_on_cpu(monkeypatch):
+    """On the CPU the plain twins take wide bands when the host engine is
+    missing, with the engine's total."""
+    (_, want), = banded.banded_posteriors_many(
+        _port_tables(), _wide_item(), 6, threshold=2.0, use_lut=True)
+    monkeypatch.setattr(native_fb, "lib", lambda: None)
+    banded.ROUTES.reset()
+    (pairs, got), = banded.banded_posteriors_many(
+        _port_tables(), _wide_item(), 6, threshold=2.0, use_lut=True)
+    assert banded.ROUTES.host_items == 0
+    assert got == pytest.approx(want, abs=2e-3)
+
+
+# anchor expansion that puts a problem in each width bucket
+WIDTH_EXPANSION = {16: 4, 32: 20, 64: 50, 128: 110}
+
+
+def _k4_pack(w, device, deep=False):
+    """Five anchored problems of band width bucket w (mixed strands,
+    ragged ends), or one deep pair of ~8000 diagonals at W = 32."""
+    rng = np.random.default_rng(40 + w + deep)
+    exp = 20 if deep else WIDTH_EXPANSION[w]
+    items = []
+    for i, lx in enumerate((4000,) if deep else (90, 140, 180, 120, 200)):
+        x, y, ypos, keep = _pair(rng, lx)
+        xa = np.nonzero(keep)[0][::6][1:-1]
+        items.append({"x_sym": x, "y_sym": y, "strand": i % 2,
+                      "ragged_left": i == 1, "ragged_right": i == 2,
+                      "anchors": [(int(a), int(ypos[a]), exp) for a in xa]})
+    geoms = [banded._item_geom(it, exp, False) for it in items]
+    w_pad = banded._bucket_w(max(g.w_pad for g in geoms))
+    assert w_pad == w
+    return cuda_banded._pack_host(_port_tables(device), items, w_pad, exp,
+                                  False, False, geoms, device=device)
+
+
+@pytest.mark.cuda
+def test_k4_matches_plain():
+    """K4 against its twin at every width bucket and on one deep pair, both
+    logAdds, at the launch's chunk depth and at a chunk of 7 diagonals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    packs = [_k4_pack(w, "cuda") for w in (16, 32, 64, 128)]
+    packs.append(_k4_pack(32, "cuda", deep=True))
+    for pack in packs:
+        for use_lut in (True, False):
+            fwd, tot = cuda_banded.fb_forward(pack, use_lut)
+            want = cuda_banded.fb_expectations_plain(pack, fwd, tot, use_lut)
+            for chunk in (None, 7):
+                got = cuda_banded.fb_expectations(pack, fwd, tot, use_lut,
+                                                  chunk)
+                torch.cuda.synchronize()
+                for g, w in zip(got.cpu().numpy(), want.cpu().numpy()):
+                    _assert_expectations(g, w)

@@ -85,12 +85,17 @@ def test_cuda_requested_without_cuda_raises(tmp_path):
 
 
 def test_cli_rejects_unported_parts(capsys):
+    """What is not ported stops with its ROADMAP item; the HELEN flags and
+    the aux tools parse (here they stop on the missing inputs and
+    arguments)."""
     from margin_tpu_torch import cli
     for flags, item in ((["--diploid", "--checkpoint"], "multi-host"),
-                        (["-u", "truth.bam"], "HELEN, EM with K4"),
-                        (["-f"], "HELEN, EM with K4")):
+                        (["--workers", "process", "-t", "2"], "IPC workers"),
+                        (["-u", "truth.bam"], "Could not read from input"),
+                        (["-f"], "Could not read from input")):
         with pytest.raises(SystemExit):
             cli.main(["polish", "a", "b", "c"] + flags)
         assert item in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["tagFromIds"])
+    assert "the following arguments are required" in capsys.readouterr().err
