@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase`,
 haploid and diploid `margin polish` with HELEN features, Baum-Welch EM and
-the aux tools on one NVIDIA GPU and check it end to end.
+the aux tools, from BAM and from CRAM and BCF inputs, and the
+read-partition HMM's device forward-backward, on one NVIDIA GPU and check
+it end to end.
 
     python3 chip_smoke.py [--only kernels,phase,polish,diploid,em,helen,
-                           tools,k1]
+                           tools,cram,rphmm,k1]
 
 (--only runs a subset after the build, for iterating on one path; k1 runs
-K1's shapes of phase 2 alone, about a minute with the build; tools needs
-phase; a plain run takes all but k1 and is the one that prints the
-kernels line.)
+K1's shapes of phase 2 alone, about a minute with the build; tools and
+rphmm need phase, cram needs phase and polish; a plain run takes all but
+k1 and is the one that prints the kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit) and whether h5py is
@@ -109,7 +111,30 @@ Phases (any failure raises and the script exits non-zero):
      read right after) and (at the end) the twins: identical haplotagged
      BAM records; runLengthMatrix, tagFromIds and
      calcLocalPhasingCorrectness once each (host only);
- 13. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
+ 13. cram: phase 4's region of phase 3's BAM written as a CRAM (the
+     port's CramWriter, 64 records a slice) and phase 3's VCF as a BCF
+     (vcf_to_bcf), then `python -m margin_tpu_torch phase` on them over
+     that region (cli.main, counters zeroed right before and read right
+     after): K1 and K2 launched, phaseset.bed byte-identical to phase 4's
+     BAM + VCF kernel run, the phased VCF too but for the INFO column
+     vcf_to_bcf does not encode, the haplotagged BAM's records identical;
+     then phase 7's region polished from a CRAM of its reads: FASTA and
+     HELEN arrays identical to phase 7's BAM run; CRAM write and decode
+     seconds logged;
+ 14. rphmm: the read-partition HMM's FB on K6. margin_tpu's path without
+     the native engine, through the entry points with
+     MARGIN_TPU_RPHMM=device on the profile sequences of phase 4's
+     region chunk with the most reads (get_rp_hmms ->
+     merge_two_tiling_paths -> fuse_tiling_path -> forward_backward; the
+     K6 counter zeroed right before and read right after): the same
+     traceback and genome fragment as with MARGIN_TPU_RPHMM=host, K6 held
+     against its twin and timed on the largest FB of that run; every
+     fused HMM the native engine returned for phase 4's chunks FB'd again
+     through K6, its twin and the host float64 path (identical fields;
+     timed on the one of most work); a cross product of two seeded random
+     read sets' tiling paths of work >= 10M, which MARGIN_TPU_RPHMM=auto
+     sends to K6 by itself, held and timed the same way (ns a column);
+ 15. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
      a subprocess of its own sharing the card, then each comparison.
 Every K1, K2, K3 and K4 timing also prints the deepest pair's or
 problem's diagonal count and the nanoseconds per diagonal; the device
@@ -929,8 +954,9 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
     region = (f"{ds.contig}:{mid - region_len // 2 + 1}-"
               f"{mid + region_len // 2}")
     t0 = time.perf_counter()
-    run_cli(["phase"] + common + ["-o", f"{work}/kern", "-r", region,
-                                  "-a", "CRITICAL"], log_path)
+    with fused_hmm_capture():
+        run_cli(["phase"] + common + ["-o", f"{work}/kern", "-r", region,
+                                      "-a", "CRITICAL"], log_path)
     kern_s = time.perf_counter() - t0
 
     def check():
@@ -1039,13 +1065,14 @@ def phase_main_path_shapes(rec):
 
 
 def zero_counters():
-    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
+    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm, rphmm_fb
     from margin_tpu_torch.parallel.executor import DEVICE_STATS
     banded.ROUTES.reset()
     DEVICE_STATS.reset()
     for c in (pairhmm.FORWARD_TOTAL, cuda_banded.FB_FORWARD,
               cuda_banded.FB_BACKWARD, cuda_banded.SEG_FORWARD,
-              cuda_banded.SEG_BACKWARD):
+              cuda_banded.SEG_BACKWARD, cuda_banded.FB_EXPECT,
+              rphmm_fb.RPHMM_FB):
         c.launches = 0
 
 
@@ -1333,7 +1360,7 @@ def phase_polish_region(ds, work, region_len=10_000, device="cuda"):
         f"channelRleWeight features with -u): kernels {kern_s:.1f} s "
         "(twins queued)")
     return {"region": region, "kernel_s": kern_s, "launches": launches,
-            "k3_items": seg_items}
+            "k3_items": seg_items, "args": args}
 
 
 def haplotag_agreement(bam, read_hap):
@@ -2005,6 +2032,504 @@ def phase_tools(phase_ds, phase_out, region, polish_ds, work, out_dir,
     return out
 
 
+# ---------------------------------------------------------------------------
+# CRAM and BCF input
+# ---------------------------------------------------------------------------
+
+# records a CRAM slice (and container) holds in the files written here:
+# htslib closes a slice at 500 bases a record on average, about 300 long
+# reads; the reader decodes every container a chunk's window overlaps, so
+# smaller slices cut the repeated decoding of the Python codec
+CRAM_RECORDS_PER_SLICE = 64
+
+
+def parse_region(region):
+    """(contig, 0-based start, end) of a "contig:start-end" region."""
+    contig, span = region.rsplit(":", 1)
+    start, end = span.split("-")
+    return contig, int(start) - 1, int(end)
+
+
+def write_region_cram(bam, fasta, region, path):
+    """The BAM's records that overlap `region` (every record a run on that
+    region reads) written as a CRAM with the port's CramWriter against
+    `fasta`; then decoded once with CramReader. Returns (records, write s,
+    decode s)."""
+    from margin_tpu_torch.io import bam as bamio
+    from margin_tpu_torch.io.cram import CramReader, CramWriter
+    contig, start, end = parse_region(region)
+    t0 = time.perf_counter()
+    n = 0
+    with bamio.BamReader(bam) as r, CramWriter(
+            path, r.header, fasta,
+            records_per_slice=CRAM_RECORDS_PER_SLICE) as w:
+        for rec in r.fetch(contig, start, end):
+            w.write(rec)
+            n += 1
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with CramReader(path, fasta) as r:
+        decoded = sum(1 for _ in r)
+    decode_s = time.perf_counter() - t0
+    if decoded != n:
+        raise AssertionError(f"{path}: {decoded} records decoded of {n}")
+    return n, write_s, decode_s
+
+
+def bam_payloads(path):
+    """Every record's whole BAM payload, in file order."""
+    from margin_tpu_torch.io import bam as bamio
+    with bamio.BamReader(path) as r:
+        return [bytes(rec.raw) for rec in r]
+
+
+def same_but_info(vcf_path, bcf_run_path):
+    """Raise unless the phased VCF of the CRAM + BCF run equals the BAM +
+    VCF run's byte for byte but in the INFO column of data lines, which is
+    "." in the former: vcf_to_bcf (as margin_tpu's) encodes no INFO.
+    Returns the number of data lines whose INFO was dropped."""
+    with open(vcf_path) as a, open(bcf_run_path) as b:
+        la, lb = a.read().split("\n"), b.read().split("\n")
+    if len(la) != len(lb):
+        raise AssertionError(f"{bcf_run_path}: {len(lb)} lines, {len(la)} "
+                             f"in {vcf_path}")
+    dropped = 0
+    for x, y in zip(la, lb):
+        if x.startswith("#") or not x:
+            if x != y:
+                raise AssertionError(f"header lines differ: {x!r} {y!r}")
+            continue
+        fx, fy = x.split("\t"), y.split("\t")
+        if fx[:7] + fx[8:] != fy[:7] + fy[8:] or fy[7] != ".":
+            raise AssertionError(f"phased VCF lines differ: {x[:120]!r} vs "
+                                 f"{y[:120]!r}")
+        dropped += fx[7] != "."
+    return dropped
+
+
+def phase_cram(phase_ds, region, polish_ds, polish_args, work, out_dir,
+               device="cuda"):
+    """margin phase and margin polish from CRAM (and BCF): phase 4's region
+    of phase 3's BAM written as a CRAM and phase 3's VCF as a BCF, then
+    `python -m margin_tpu_torch phase` on them over that region (cli.main,
+    counters zeroed right before and read right after): K1 and K2 launched,
+    phaseset.bed byte-identical to phase 4's BAM + VCF run, the phased VCF
+    too but for the INFO column vcf_to_bcf drops, the haplotagged BAM's
+    records identical (its header gains the @HD line the CRAM writer
+    adds). Then phase 7's region polished from a CRAM of its reads through
+    the kernels: FASTA and HELEN arrays identical to phase 7's BAM run."""
+    from margin_tpu_torch.io import bcf
+    log_path = os.path.join(out_dir, "chip_smoke_cram.log")
+    cram = f"{work}/region.cram"
+    n, write_s, decode_s = write_region_cram(phase_ds.bam, phase_ds.fasta,
+                                             region, cram)
+    t0 = time.perf_counter()
+    with open(phase_ds.vcf) as fh:
+        bcf.vcf_to_bcf(fh.read().splitlines(), f"{work}/calls.bcf")
+    bcf_s = time.perf_counter() - t0
+    log(f"CRAM of {region}: {n} records ({CRAM_RECORDS_PER_SLICE} a slice, "
+        f"{os.path.getsize(cram)} bytes) written in {write_s:.1f} s, decoded "
+        f"in {decode_s:.1f} s; BCF of the VCF in {bcf_s:.2f} s")
+    zero_counters()
+    wall = run_cli(["phase", cram, phase_ds.fasta, phase_ds.params,
+                    f"{work}/calls.bcf", "-o", f"{work}/cram", "-r", region,
+                    "-a", "CRITICAL", "--device", device], log_path)
+    launches = read_counters()
+    if not (launches["K1"] and launches["K2-fwd"] and launches["K2-bwd"]):
+        raise AssertionError(f"phase from CRAM: K1 or K2 did not launch "
+                             f"({launches})")
+    same_files(f"{work}/cram", f"{work}/kern", ("phaseset.bed",))
+    dropped = same_but_info(f"{work}/kern.phased.vcf",
+                            f"{work}/cram.phased.vcf")
+    recs = bam_payloads(f"{work}/cram.haplotagged.bam")
+    if recs != bam_payloads(f"{work}/kern.haplotagged.bam"):
+        raise AssertionError("phase from CRAM: haplotagged BAM records "
+                             "differ from the BAM run's")
+    log(f"phase {region} from CRAM + BCF: {wall:.1f} s, launches "
+        f"{launches}; phaseset.bed byte-identical to the BAM + VCF run, the "
+        f"phased VCF too but for INFO on {dropped} lines (dropped by "
+        f"vcf_to_bcf), {len(recs)} haplotagged records identical")
+    out = {"phase": {"region": region, "records": n, "write_s": write_s,
+                     "decode_s": decode_s, "bcf_s": bcf_s, "wall_s": wall,
+                     "launches": launches, "info_dropped_lines": dropped,
+                     "haplotagged_records": len(recs),
+                     "records_per_slice": CRAM_RECORDS_PER_SLICE}}
+
+    pregion = polish_args["region"]
+    pcram = f"{work}/polish_region.cram"
+    n, write_s, decode_s = write_region_cram(polish_ds.bam, polish_ds.draft,
+                                             pregion, pcram)
+    zero_counters()
+    secs = polish_run(out=f"{work}/rc", **dict(polish_args, bam=pcram))
+    launches = read_counters()
+    same_files(f"{work}/rc", f"{work}/rk", ("fa",))
+    groups, rows = same_features(f"{work}/rc", f"{work}/rk")
+    log(f"polish {pregion} from CRAM ({n} records, written in {write_s:.1f}"
+        f" s, decoded in {decode_s:.1f} s): {secs:.1f} s, launches "
+        f"{launches}; FASTA and {groups} HELEN groups ({rows} rows) "
+        "identical to the BAM run's")
+    out["polish"] = {"region": pregion, "records": n, "write_s": write_s,
+                     "decode_s": decode_s, "wall_s": secs,
+                     "launches": launches, "helen_groups": groups}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the read-partition HMM's device forward-backward, K6
+# ---------------------------------------------------------------------------
+
+FUSED_HMMS = []   # (fwd, rev, ref, phase params, fused HMM) a chunk
+
+
+@contextlib.contextmanager
+def fused_hmm_capture():
+    """Keep the inputs and the fused HMM of every native_rp.phase_fused_hmm
+    call of a run (the native engine's merge tree and final FB)."""
+    from margin_tpu_torch.phase import native_rp
+    real = native_rp.phase_fused_hmm
+
+    def capture(fwd, rev, ref, params, device):
+        hmm = real(fwd, rev, ref, params, device)
+        if hmm is not None:
+            FUSED_HMMS.append((list(fwd), list(rev), ref, params, hmm))
+        return hmm
+    native_rp.phase_fused_hmm = capture
+    try:
+        yield
+    finally:
+        native_rp.phase_fused_hmm = real
+
+
+def rphmm_snapshot(hmm):
+    """Every field an FB fills: each column's emission, forward, backward
+    and total, each merge column's forward and backward, the HMM's two
+    totals."""
+    import numpy as np
+    out = [(np.array(c.emission), np.array(c.forward), np.array(c.backward),
+            np.array(c.total_log_prob)) for c in hmm.columns]
+    out += [(np.array(m.forward), np.array(m.backward)) for m in hmm.merges]
+    out.append((np.array(hmm.forward_log_prob),
+                np.array(hmm.backward_log_prob)))
+    return out
+
+
+def same_snapshot(label, got, want):
+    import numpy as np
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} parts, {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g, w):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"{label}: part {i} differs")
+
+
+def rphmm_stats(hmm):
+    from margin_tpu_torch.phase import rphmm_device
+    return {"columns": len(hmm.columns),
+            "widest_cells": max(len(c.partitions) for c in hmm.columns),
+            "deepest_reads": max(c.depth for c in hmm.columns),
+            "work": rphmm_device.work(hmm)}
+
+
+def k6_work(hmm, include_ancestor):
+    """K6's integer operations and bytes on this HMM's data, counted from
+    each column's own cells, reads, sites and alleles (the pack's padding
+    to the HMM's maxima is the layout's, not the function's). A column of
+    C cells, D reads and sites of a alleles: the two sums of each cell and
+    allele over the reads, 2 x C x D x sum(a) multiply-adds (4 operations
+    each pair); with the ancestor a min-plus of the a x a substitutions a
+    haplotype and site (4 x C x a^2 operations), without it 2 x C x a
+    mins; the chains an add and a max a cell each way. Bytes, in the
+    pack's types, read once: a cell's partition (8) and two merge indices
+    (4 each), a column's D x sum(a) profile bytes and three counts, a
+    site's offset and allele count, and with the ancestor its a^2
+    substitutions and a priors (4 each); written once: a cell's emission,
+    forward and backward, and each merge slot's two values (4 each)."""
+    ops = nbytes = 0
+    for col in hmm.columns:
+        C = len(col.partitions)
+        alleles = [hmm.ref.sites[s].allele_number
+                   for s in range(col.ref_start, col.ref_start + col.length)]
+        if col.depth and alleles:
+            ops += 4 * C * col.depth * sum(alleles)
+            ops += (4 * C * sum(a * a for a in alleles) if include_ancestor
+                    else 2 * C * sum(alleles))
+        ops += 4 * C
+        nbytes += 16 * C + 12 + col.depth * sum(alleles) + 8 * len(alleles)
+        if include_ancestor:
+            nbytes += 4 * sum(a * a + a for a in alleles)
+        nbytes += 12 * C
+    nbytes += 8 * sum(m.size() for m in hmm.merges)
+    return ops, nbytes
+
+
+def k6_pack_row(pk, include_ancestor, stats, work, label, reps=5):
+    """K6 against its twin on one pack (every output equal: tolerance 0),
+    then K6's device time (the two launches, CUDA events), the twin's, and
+    the bound from `work` = k6_work of the HMM the pack was made from.
+    Returns (the row, the twin's outputs)."""
+    import torch
+    from margin_tpu_torch.ops import rphmm_fb
+    got = rphmm_fb.rphmm_fb(pk, include_ancestor)
+    torch_sync()
+    t0 = time.perf_counter()
+    want = rphmm_fb.rphmm_fb_plain(pk, include_ancestor)
+    torch_sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in
+              zip(got, want))
+    if err:
+        raise AssertionError(f"K6 against its twin, {label}: max|diff| "
+                             f"{err}, tolerance 0")
+    ms = cuda_ms(lambda: rphmm_fb.rphmm_fb(pk, include_ancestor), reps=reps)
+    bms, by = bound_ms(*work)
+    row = dict(stats, shape=label, include_ancestor=include_ancestor,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, ns_per_column=ms * 1e6 / stats["columns"])
+    return row, want
+
+
+def k6_against(hmm, include_ancestor, label, device="cuda", reps=5):
+    """One HMM's FB through K6 (forward_backward_device), its plain twin
+    and the host float64 path: identical fields; then k6_pack_row's times
+    and bound, the host FB's time and K6 end to end (pack, launches, one
+    read back)."""
+    from margin_tpu_torch.phase import rphmm_device
+    os.environ["MARGIN_TPU_RPHMM"] = "host"
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hmm.forward_backward(include_ancestor=include_ancestor)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    host = rphmm_snapshot(hmm)
+    e2e_ms = []
+    for _ in range(3):
+        torch_sync()
+        t0 = time.perf_counter()
+        rphmm_device.forward_backward_device(hmm, include_ancestor, device)
+        e2e_ms.append((time.perf_counter() - t0) * 1e3)
+    same_snapshot(f"K6 against the host FB, {label}", rphmm_snapshot(hmm),
+                  host)
+    st = rphmm_stats(hmm)
+    row, want = k6_pack_row(rphmm_device.pack(hmm, device), include_ancestor,
+                            st, k6_work(hmm, include_ancestor), label, reps)
+    rphmm_device.fill(hmm, *(w.cpu().numpy() for w in want))
+    same_snapshot(f"K6's twin against the host FB, {label}",
+                  rphmm_snapshot(hmm), host)
+    row.update(host_ms=statistics.median(host_ms),
+               e2e_ms=statistics.median(e2e_ms))
+    log(f"K6 {label} ({st['columns']} columns, widest {st['widest_cells']} "
+        f"cells, deepest {st['deepest_reads']} reads, work {st['work']}, "
+        f"ancestor {include_ancestor}): kernel {row['ms']:.3f} ms "
+        f"({row['ns_per_column']:.0f} ns a column), twin "
+        f"{row['plain_ms']:.1f} ms, host float64 FB {row['host_ms']:.1f} ms,"
+        f" K6 with pack and read back {row['e2e_ms']:.1f} ms, bound "
+        f"{row['bound_ms']:.3g} ms ({row['bound_by']}); identical to the "
+        "twin and the host FB")
+    return row
+
+
+def fragment_key(gf):
+    return (gf.ref_start, gf.length, gf.haplotype_string1.tolist(),
+            gf.haplotype_string2.tolist(), gf.genotype_string.tolist(),
+            gf.genotype_probs.tolist(), sorted(gf.reads1), sorted(gf.reads2))
+
+
+def random_profile_seqs(seed, n_sites, n_reads, span):
+    """A seeded reference of n_sites sites (2-3 alleles, random priors and
+    substitutions) and n_reads profile sequences of span[0]..span[1] sites
+    with random allele probabilities, as in tests/test_rphmm_device.py."""
+    import numpy as np
+    from margin_tpu_torch.phase import bubbles
+    rng = np.random.default_rng(seed)
+    sites, off = [], 0
+    for _ in range(n_sites):
+        a = int(rng.integers(2, 4))
+        sites.append(bubbles.Site(
+            a, off, rng.integers(0, 30, a).astype(np.uint16),
+            rng.integers(0, 90, (a, a)).astype(np.uint16)))
+        off += a
+    ref = bubbles.Reference("random", sites, off)
+    offsets = ref.allele_offsets()
+    seqs = []
+    for i in range(n_reads):
+        n = int(rng.integers(span[0], span[1]))
+        s = int(rng.integers(0, n_sites - n))
+        probs = rng.integers(0, 64, int(offsets[s + n] - offsets[s]))
+        seqs.append(bubbles.ProfileSeq(None, f"r{i}", s, n, int(offsets[s]),
+                                       probs.astype(np.uint8)))
+    return ref, seqs
+
+
+def phase_rphmm(device="cuda", big=(31, 600, 220, (60, 150))):
+    """The stRPHmm FB on K6. (1) margin_tpu's path when the native engine
+    is absent, through the port's entry points with MARGIN_TPU_RPHMM=device
+    on the profile sequences of phase 4's region chunk with the most reads:
+    get_rp_hmms -> merge_two_tiling_paths -> fuse_tiling_path ->
+    forward_backward, timed bare, the K6 counter zeroed right before and
+    read right after; the traceback and genome fragment must equal the
+    host run's. A capture pass before it times each FB of the tree on the
+    host and through K6 (pack and read-back included) and keeps the
+    largest FB's pack, on which K6 is held against its twin and timed. (2) Every fused HMM the native engine returned for phase
+    4's chunks, FB'd again through K6, its twin and the host float64 path:
+    identical fields; timed on the one of most work. (3) A cross product
+    of two random read sets' tiling paths (as merge_two_tiling_paths FBs
+    it), of work >= the auto threshold 10,000,000: MARGIN_TPU_RPHMM=auto
+    sends it to K6 by itself; held and timed the same way."""
+    from margin_tpu_torch.ops import rphmm_fb
+    from margin_tpu_torch.params import PhaseParams
+    from margin_tpu_torch.phase import rphmm, rphmm_device
+    from margin_tpu_torch.phase.fragment import construct_genome_fragment
+    if not FUSED_HMMS:
+        raise AssertionError("phase 4's region run gave no fused HMM")
+    saved = os.environ.get("MARGIN_TPU_RPHMM")
+    real_fbd = rphmm_device.forward_backward_device
+    out = {}
+    try:
+        fwd, rev, ref, params, _ = max(FUSED_HMMS,
+                                       key=lambda f: len(f[0]) + len(f[1]))
+        largest, per_fb = {}, []
+
+        def record(hmm, include_ancestor, dev):
+            # the capture pass: each FB on the host, then through K6 with
+            # its pack and read-back (the one the tree goes on with), each
+            # timed; the largest FB's pack kept
+            w = rphmm_device.work(hmm)
+            os.environ["MARGIN_TPU_RPHMM"] = "host"
+            t0 = time.perf_counter()
+            hmm.forward_backward(include_ancestor=include_ancestor)
+            t1 = time.perf_counter()
+            os.environ["MARGIN_TPU_RPHMM"] = "device"
+            real_fbd(hmm, include_ancestor, dev)
+            per_fb.append((w, (t1 - t0) * 1e3,
+                           (time.perf_counter() - t1) * 1e3))
+            if w > largest.get("work", -1):
+                largest.update(work=w, pk=rphmm_device.pack(hmm, dev),
+                               include_ancestor=include_ancestor,
+                               stats=rphmm_stats(hmm),
+                               bound=k6_work(hmm, include_ancestor))
+
+        def merge_tree(mode):
+            os.environ["MARGIN_TPU_RPHMM"] = mode
+            t0 = time.perf_counter()
+            tp_f = rphmm.get_rp_hmms(fwd, ref, params, device)
+            tp_r = rphmm.get_rp_hmms(rev, ref, params, device)
+            merged = rphmm.merge_two_tiling_paths(tp_f, tp_r,
+                                                  include_ancestor=False)
+            hmm = rphmm.fuse_tiling_path(merged)
+            hmm.forward_backward(include_ancestor=True)
+            path = hmm.forward_traceback()
+            gf = construct_genome_fragment(hmm, path)
+            torch_sync()
+            return path, fragment_key(gf), time.perf_counter() - t0
+
+        rphmm_device.forward_backward_device = record
+        try:
+            merge_tree("device")
+        finally:
+            rphmm_device.forward_backward_device = real_fbd
+        rphmm_fb.RPHMM_FB.launches = 0
+        path_d, gf_d, dev_s = merge_tree("device")
+        launches = rphmm_fb.RPHMM_FB.launches
+        path_h, gf_h, host_s = merge_tree("host")
+        if launches == 0:
+            raise AssertionError("the merge tree under MARGIN_TPU_RPHMM="
+                                 "device launched no K6")
+        if path_d != path_h or gf_d != gf_h:
+            raise AssertionError("the merge tree on K6 gave another "
+                                 "traceback or genome fragment than on the "
+                                 "host")
+        log(f"merge tree of {len(fwd)} + {len(rev)} reads on "
+            f"{ref.length} sites: MARGIN_TPU_RPHMM=device {dev_s:.3f} s, "
+            f"{launches} K6 launches; host {host_s:.3f} s; same traceback "
+            f"({len(path_d)} columns) and genome fragment")
+        wins = [f for f in per_fb if f[2] < f[1]]
+        log(f"the merge tree's {len(per_fb)} FBs (work {min(per_fb)[0]}-"
+            f"{max(per_fb)[0]}): K6 with pack and read-back faster than "
+            f"the host float64 FB on {len(wins)}; (work, host ms, K6 ms): "
+            f"{[(w, round(h, 3), round(k, 3)) for w, h, k in sorted(per_fb)]}")
+        st = largest["stats"]
+        row, _ = k6_pack_row(
+            largest["pk"], largest["include_ancestor"], st, largest["bound"],
+            f"the merge tree's largest FB, {st['columns']} columns x "
+            f"{st['widest_cells']} cells")
+        out["main_path"] = row
+        out["merge_tree"] = {"reads": [len(fwd), len(rev)],
+                             "sites": ref.length, "device_s": dev_s,
+                             "host_s": host_s, "launches": launches,
+                             "per_fb": per_fb}
+        out["launches"] = {"K6": launches}
+        log(f"K6 on the merge tree's largest FB ({st}): kernel "
+            f"{row['ms']:.3f} ms, twin {row['plain_ms']:.1f} ms, bound "
+            f"{row['bound_ms']:.3g} ms ({row['bound_by']}); identical to "
+            "the twin")
+
+        # the fused HMMs of phase 4's chunks
+        stats = []
+        for i, (_, _, _, _, hmm) in enumerate(FUSED_HMMS):
+            os.environ["MARGIN_TPU_RPHMM"] = "host"
+            hmm.forward_backward(include_ancestor=True)
+            host = rphmm_snapshot(hmm)
+            rphmm_device.forward_backward_device(hmm, True, device)
+            same_snapshot(f"K6, fused HMM {i}", rphmm_snapshot(hmm), host)
+            pk = rphmm_device.pack(hmm, device)
+            twin = rphmm_fb.rphmm_fb_plain(pk, True)
+            rphmm_device.fill(hmm, *(t.cpu().numpy() for t in twin))
+            same_snapshot(f"K6's twin, fused HMM {i}", rphmm_snapshot(hmm),
+                          host)
+            stats.append(rphmm_stats(hmm))
+        log(f"{len(FUSED_HMMS)} fused HMMs of phase 4's chunks (columns, "
+            f"widest column's cells, deepest column's reads, work): "
+            f"{[tuple(s.values()) for s in stats]}; K6, its twin and the "
+            "host FB identical on each")
+        top = max(range(len(stats)), key=lambda i: stats[i]["work"])
+        out["fused"] = {"hmms": stats, "largest": k6_against(
+            FUSED_HMMS[top][4], True, "the largest fused HMM", device)}
+
+        # an HMM of work >= the auto threshold
+        seed, n_sites, n_reads, span = big
+        bref, seqs = random_profile_seqs(seed, n_sites, n_reads, span)
+        bparams = PhaseParams()
+        os.environ["MARGIN_TPU_RPHMM"] = "host"
+        t0 = time.perf_counter()
+        tp1 = rphmm.get_rp_hmms(seqs[0::2], bref, bparams, device)
+        tp2 = rphmm.get_rp_hmms(seqs[1::2], bref, bparams, device)
+        crosses = []
+        for comp in rphmm.get_overlapping_components(tp1, tp2):
+            sub = rphmm.get_tiling_paths(comp)
+            if len(sub) == 2:
+                h1 = rphmm.fuse_tiling_path(sub[0])
+                h2 = rphmm.fuse_tiling_path(sub[1])
+                rphmm.RPHmm.align_columns(h1, h2)
+                crosses.append(rphmm.RPHmm.cross_product(h1, h2))
+        hmm = max(crosses, key=rphmm_device.work)
+        build_s = time.perf_counter() - t0
+        w = rphmm_device.work(hmm)
+        if w < 10_000_000:
+            raise AssertionError(f"the random cross product's work {w} is "
+                                 "below the auto threshold")
+        os.environ.pop("MARGIN_TPU_RPHMM", None)
+        os.environ.pop("MARGIN_TPU_RPHMM_THRESHOLD", None)
+        n0 = rphmm_fb.RPHMM_FB.launches
+        hmm.forward_backward(include_ancestor=False)
+        if rphmm_fb.RPHMM_FB.launches != n0 + 1:
+            raise AssertionError("MARGIN_TPU_RPHMM=auto did not send the "
+                                 f"HMM of work {w} to K6")
+        log(f"random cross product ({n_reads} reads on {n_sites} sites, "
+            f"built in {build_s:.1f} s): work {w}; MARGIN_TPU_RPHMM=auto "
+            "sent its FB to K6")
+        out["threshold"] = k6_against(hmm, False,
+                                      "a random cross product of work >= "
+                                      "10M", device)
+    finally:
+        rphmm_device.forward_backward_device = real_fbd
+        if saved is None:
+            os.environ.pop("MARGIN_TPU_RPHMM", None)
+        else:
+            os.environ["MARGIN_TPU_RPHMM"] = saved
+    return out
+
+
 SOURCES = {
     "K1": ("margin_tpu_torch/csrc/pairhmm_forward.cu",
            "margin_tpu/ops/pairhmm.py:194"),
@@ -2018,10 +2543,13 @@ SOURCES = {
                "margin_tpu/ops/pallas_banded.py:964"),
     "K4": ("margin_tpu_torch/csrc/banded_fb.cu",
            "margin_tpu/ops/banded.py:267"),
+    "K6": ("margin_tpu_torch/csrc/rphmm_fb.cu",
+           "margin_tpu/phase/rphmm_device.py:80"),
 }
 
 
-PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools")
+PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools",
+          "cram", "rphmm")
 CHOICES = PHASES + ("k1",)
 
 
@@ -2031,14 +2559,19 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
                          "build, for iterating on one path (k1: K1's "
-                         "shapes of the kernels phase alone; tools needs "
-                         "phase); the kernels line is printed only when "
-                         "all of %s run" % (CHOICES, PHASES))
+                         "shapes of the kernels phase alone; tools and "
+                         "rphmm need phase, cram needs phase and polish); "
+                         "the kernels line is printed only when all of %s "
+                         "run" % (CHOICES, PHASES))
     ap.add_argument("--twin-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     if not only <= set(CHOICES):
         ap.error(f"--only takes names from {CHOICES}")
+    for name, needs in (("tools", {"phase"}), ("rphmm", {"phase"}),
+                        ("cram", {"phase", "polish"})):
+        if name in only and not needs <= only:
+            ap.error(f"{name} needs {', '.join(sorted(needs))}")
     try:
         import torch
     except ImportError:
@@ -2101,11 +2634,15 @@ def main(argv=None) -> int:
         if "helen" in only:
             report["helen"] = phase_helen(ds, work)
         if "tools" in only:
-            if "phase" not in only:
-                ap.error("tools needs the phase run's phased VCF: add phase")
             report["tools"] = phase_tools(phase_ds, f"{work}/full",
                                           report["phase"]["region"], ds,
                                           work, out_dir)
+        if "cram" in only:
+            report["cram"] = phase_cram(phase_ds, report["phase"]["region"],
+                                        ds, report["polish_region"]["args"],
+                                        work, out_dir)
+        if "rphmm" in only:
+            report["rphmm"] = phase_rphmm()
         report["twins"] = run_twin_jobs(work)
         if "phase" in only and "polish" in only:
             summed = {k: report["phase"]["kernel_ms"][k]
@@ -2130,6 +2667,8 @@ def main(argv=None) -> int:
         for name, (src, rep) in SOURCES.items():
             if name == "K4":   # K4's path is EM's
                 m, path = report["em"]["k4"][0], "em"
+            elif name == "K6":   # the merge tree's FBs
+                m, path = report["rphmm"]["main_path"], "rphmm"
             else:
                 m = report["main_path_shapes"][name]
                 path = "polish" if name.startswith("K3") else "phase"

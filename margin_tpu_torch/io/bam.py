@@ -485,7 +485,6 @@ def open_alignment(path: str, reference=None):
     registered (or passed) reference FASTA. Both readers yield identical
     BamRecord objects (sam_open parity, htsIntegration.c)."""
     if is_cram(path):
-        raise NotImplementedError(
-            f"{path}: CRAM input is not ported yet (ROADMAP queue 1, "
-            "\"BCF/CRAM input\"); convert it to BAM")
+        from margin_tpu_torch.io.cram import CramReader
+        return CramReader(path, reference or _CRAM_REFERENCE[0])
     return BamReader(path)

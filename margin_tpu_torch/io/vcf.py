@@ -58,19 +58,10 @@ class VcfEntry:
         self.allele_idx_to_read_ids = [set() for _ in self.alleles]
 
 
-def _is_bcf(path: str) -> bool:
-    try:
-        with BgzfReader(path) as rd:
-            return rd.read(5) == b"BCF\x02\x02"
-    except Exception:
-        return False
-
-
 def _open_text(path: str):
-    if _is_bcf(path):  # binary BCF (must test before generic BGZF text)
-        raise NotImplementedError(
-            f"{path}: BCF input is not ported yet (ROADMAP queue 1, "
-            "\"BCF/CRAM input\"); convert it to VCF")
+    from margin_tpu_torch.io.bcf import BcfReader, is_bcf
+    if is_bcf(path):  # binary BCF (must test before generic BGZF text)
+        return BcfReader(path).lines()
     if is_bgzf(path):
         rd = BgzfReader(path)
 

@@ -348,7 +348,8 @@ def phase_one_chunk(chunk, reader, fasta, vcf_entries, chunkr, params, tables,
             reads, primary, params, tables, use_lut=use_lut)
     with profiler.chunk_stage(ci, "rphmm"):
         ref = phasing.get_reference(bg, chunk.ref_name, params)
-        gf, pseqs = phasing.phase_bubble_graph(bg, ref, reads, params)
+        gf, pseqs = phasing.phase_bubble_graph(bg, ref, reads, params,
+                                               tables.device)
         hap1_ids, hap2_ids, phreds = phasing.phase_bam_chunk_reads(
             gf, pseqs, reads, params)
 

@@ -81,12 +81,12 @@ class _Parser:
         return v
 
 
-def phase_fused_hmm(fwd_seqs: List, rev_seqs: List, ref, params):
+def phase_fused_hmm(fwd_seqs: List, rev_seqs: List, ref, params, device):
     """Run the native per-chunk pipeline; returns the fused `RPHmm` after
     the final forward-backward (include_ancestor=True), or None when the
     native library is unavailable. Mirrors:
 
-        tp_f = get_rp_hmms(fwd); tp_r = get_rp_hmms(rev)
+        tp_f = get_rp_hmms(fwd, device); tp_r = get_rp_hmms(rev, device)
         merged = merge_two_tiling_paths(tp_f, tp_r, include_ancestor=False)
         hmm = fuse_tiling_path(merged); hmm.forward_backward(True)
     """
@@ -184,7 +184,7 @@ def phase_fused_hmm(fwd_seqs: List, rev_seqs: List, ref, params):
 
     hmm = rphmm.RPHmm(ref, ref_start, ref_length,
                       [seqs[i] for i in hmm_seq_idx], columns, merges,
-                      params)
+                      params, device)
     hmm.forward_log_prob = fwd_lp
     hmm.backward_log_prob = bwd_lp
     return hmm

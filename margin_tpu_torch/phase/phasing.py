@@ -30,9 +30,11 @@ from margin_tpu_torch.rle import RleString
 
 
 def phase_bubble_graph(bg: BubbleGraph, ref: Reference,
-                       reads: List[ReadVcfSubstrings], params: Params
+                       reads: List[ReadVcfSubstrings], params: Params, device
                        ) -> Tuple[GenomeFragment, Dict[int, ProfileSeq]]:
-    """bubbleGraph_phaseBubbleGraph (bubbleGraph.c:2673-2801)."""
+    """bubbleGraph_phaseBubbleGraph (bubbleGraph.c:2673-2801). The
+    read-partition HMMs' FBs run on `device` where
+    `rphmm_device.use_device_fb` says so (the native engine comes first)."""
     pseqs = get_profile_seqs(bg, ref)
     profile_seqs = list(pseqs.values())
 
@@ -56,10 +58,10 @@ def phase_bubble_graph(bg: BubbleGraph, ref: Reference,
     # oracle below operation-for-operation; safe because the depth filter
     # above already bounds coverage <= maxCoverageDepth <= 64
     from margin_tpu_torch.phase import native_rp
-    hmm = native_rp.phase_fused_hmm(fwd, rev, ref, params.phase)
+    hmm = native_rp.phase_fused_hmm(fwd, rev, ref, params.phase, device)
     if hmm is None:
-        tp_f = rphmm.get_rp_hmms(fwd, ref, params.phase)
-        tp_r = rphmm.get_rp_hmms(rev, ref, params.phase)
+        tp_f = rphmm.get_rp_hmms(fwd, ref, params.phase, device)
+        tp_r = rphmm.get_rp_hmms(rev, ref, params.phase, device)
 
         merged = rphmm.merge_two_tiling_paths(tp_f, tp_r,
                                               include_ancestor=False)

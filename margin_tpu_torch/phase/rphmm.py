@@ -174,11 +174,13 @@ class MergeColumn:
 
 
 class RPHmm:
-    """stRPHmm: alternating columns and merge columns."""
+    """stRPHmm: alternating columns and merge columns. `device` is the
+    device the run phases on; `forward_backward` takes the device path
+    there when `rphmm_device.use_device_fb` says so."""
 
     def __init__(self, ref: Reference, ref_start: int, ref_length: int,
                  profile_seqs: List[ProfileSeq], columns: List[Column],
-                 merges: List[MergeColumn], params: PhaseParams):
+                 merges: List[MergeColumn], params: PhaseParams, device):
         self.ref = ref
         self.ref_start = ref_start
         self.ref_length = ref_length
@@ -186,6 +188,7 @@ class RPHmm:
         self.columns = columns
         self.merges = merges  # len == len(columns) - 1
         self.params = params
+        self.device = device
         self.forward_log_prob = LOG_ZERO
         self.backward_log_prob = LOG_ZERO
         self._uid = next(_counter)
@@ -193,10 +196,12 @@ class RPHmm:
     # -- constructors --------------------------------------------------------
 
     @staticmethod
-    def from_profile_seq(ps: ProfileSeq, ref: Reference, params: PhaseParams) -> "RPHmm":
+    def from_profile_seq(ps: ProfileSeq, ref: Reference, params: PhaseParams,
+                         device) -> "RPHmm":
         """stRPHmm_construct (hmm.c:97-133): single column, cells {1, 0}."""
         col = Column(ps.ref_start, ps.length, [ps], [1, 0])
-        return RPHmm(ref, ps.ref_start, ps.length, [ps], [col], [], params)
+        return RPHmm(ref, ps.ref_start, ps.length, [ps], [col], [], params,
+                     device)
 
     def sort_key(self):
         """stRPHmm_cmpFn (hmm.c:67-95): refStart asc, length desc, first
@@ -232,7 +237,7 @@ class RPHmm:
         return RPHmm(left.ref, left.ref_start,
                      right.ref_start + right.ref_length - left.ref_start,
                      left.profile_seqs + right.profile_seqs, columns, merges,
-                     left.params)
+                     left.params, left.device)
 
     def _pad_prefix(self, new_start: int):
         """Empty prefix column (hmm.c:396-424)."""
@@ -296,7 +301,7 @@ class RPHmm:
         suffix = RPHmm(self.ref, split_point,
                        self.ref_start + self.ref_length - split_point,
                        suffix_seqs, self.columns[idx:], self.merges[idx:],
-                       self.params)
+                       self.params, self.device)
         self.ref_length = split_point - self.ref_start
         self.profile_seqs = prefix_seqs
         self.columns = self.columns[:idx]
@@ -411,7 +416,8 @@ class RPHmm:
                     m.set_cells(fps.tolist(), tps.tolist())
                 merges.append(m)
         return RPHmm(h1.ref, h1.ref_start, h1.ref_length,
-                     h1.profile_seqs + h2.profile_seqs, columns, merges, params)
+                     h1.profile_seqs + h2.profile_seqs, columns, merges, params,
+                     h1.device)
 
     # -- emissions -----------------------------------------------------------
 
@@ -454,9 +460,17 @@ class RPHmm:
     # -- forward-backward ----------------------------------------------------
 
     def forward_backward(self, include_ancestor: bool = True):
-        """stRPHmm_forwardBackward (hmm.c:931-942): the float64 numpy
-        implementation (the host C++ engine in `phase.native_rp` mirrors it
-        and is the default)."""
+        """stRPHmm_forwardBackward (hmm.c:931-942).
+
+        Large HMMs on a CUDA device route to the bit-identical int32
+        kernel K6 through `phase.rphmm_device` (maxNotSum path only); this
+        float64 numpy implementation is the oracle and the small-problem
+        path (the host C++ engine in `phase.native_rp` mirrors it and is
+        the default)."""
+        from margin_tpu_torch.phase import rphmm_device
+        if rphmm_device.use_device_fb(self, include_ancestor, self.device):
+            return rphmm_device.forward_backward_device(
+                self, include_ancestor, self.device)
         max_not_sum = self.params.maxNotSumTransitions
 
         def reduce_into(dst, dst_idx, vals):
@@ -775,9 +789,11 @@ def split_where_phasing_is_uncertain(hmm: RPHmm) -> List[RPHmm]:
 
 
 def get_rp_hmms(profile_seqs: List[ProfileSeq], ref: Reference,
-                params: PhaseParams) -> List[RPHmm]:
-    """getRPHmms (coordination.c:490-516)."""
-    hmms = [RPHmm.from_profile_seq(ps, ref, params) for ps in profile_seqs]
+                params: PhaseParams, device) -> List[RPHmm]:
+    """getRPHmms (coordination.c:490-516); the HMMs run their FBs on
+    `device` where `rphmm_device.use_device_fb` says so."""
+    hmms = [RPHmm.from_profile_seq(ps, ref, params, device)
+            for ps in profile_seqs]
     paths = get_tiling_paths(hmms)
     if len(paths) > MAX_READ_PARTITIONING_DEPTH or len(paths) > params.maxCoverageDepth:
         raise RuntimeError(
@@ -791,7 +807,9 @@ def filter_reads_by_coverage_depth(profile_seqs: List[ProfileSeq], ref: Referenc
     """filterReadsByCoverageDepth (coordination.c:443-488): drop the
     smallest tiling paths until depth <= maxCoverageDepth. Returns
     (kept, discarded)."""
-    hmms = [RPHmm.from_profile_seq(ps, ref, params) for ps in profile_seqs]
+    # these HMMs only order the reads into tiling paths: no FB, no device
+    hmms = [RPHmm.from_profile_seq(ps, ref, params, None)
+            for ps in profile_seqs]
     paths = get_tiling_paths(hmms)
     sizes = [sum(h.profile_seqs[0].length for h in p) for p in paths]
     order = sorted(range(len(paths)), key=lambda i: -sizes[i])

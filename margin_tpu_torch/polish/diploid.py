@@ -155,7 +155,8 @@ def phase_poa(poa: Poa, reads: List[PoaRead], chunk_vcf_entries,
                                                    phasing=True,
                                                    use_lut=use_lut)
         ref = phase_engine.get_reference(bg, ref_name, params)
-        gf, pseqs = phase_engine.phase_bubble_graph(bg, ref, reads, params)
+        gf, pseqs = phase_engine.phase_bubble_graph(bg, ref, reads, params,
+                                                    tables.device)
         hap1_ids, hap2_ids, phreds = phase_engine.phase_bam_chunk_reads(
             gf, pseqs, reads, params)
         iteration += 1

@@ -45,6 +45,9 @@ def main(argv=None):
     p.add_argument("-a", "--logLevel", default="INFO",
                    help="compatibility flag (runLengthMatrix.c:37)")
     args = p.parse_args(argv)
+    # a CRAM decodes against the reference given (the drivers register
+    # theirs the same way; margin_tpu's tool registers none)
+    bamio.set_cram_reference(args.reference)
 
     params = Params.load(args.params)
     pp = params.polish

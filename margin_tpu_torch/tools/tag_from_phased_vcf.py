@@ -43,6 +43,9 @@ def main(argv=None):
                         "(default) launches K1, 'cpu' runs its plain "
                         "PyTorch twin")
     args = p.parse_args(argv)
+    # a CRAM decodes against the reference given (the drivers register
+    # theirs the same way; margin_tpu's tool registers none)
+    bamio.set_cram_reference(args.reference)
 
     params = Params.load(args.params)
     vcf_entries = parse_vcf(args.vcf, args.region,
