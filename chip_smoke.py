@@ -30,13 +30,19 @@ Phases (any failure raises and the script exits non-zero):
      everywhere and the exact logAdd at two of them, each width at its
      launch's chunk depth K2_CHUNK, and timed on packs of lx, ly ~
      2000-5000. LUT logAdd: identical bits; exact logAdd: max |diff| <=
-     1e-4;
+     1e-4; on every pack K2-bwd's WORDS instance against K2-bwd POST's
+     grid through extract_packed (identical words as sorted keys);
   3. run `python -m margin_tpu_torch phase` (its `cli.main`, LUT logAdd)
      on a seeded synthetic 1 Mb contig at 30x (5-30 kb reads, ~8% errors,
      ~1000 het SNVs, 30 het SVs of 50-2000 bp); the launch counters are
-     zeroed right before and read right after. Checks: K1 and K2 launched,
+     zeroed right before and read right after. Checks: K1, K2-fwd and
+     K2-bwd's WORDS instance launched and extract_packed never called,
      >= half the true het sites phased, haplotags agree with the simulated
-     origin on >= 90% of tagged reads;
+     origin on >= 90% of tagged reads; then the same run again under
+     torch.profiler (CPU and CUDA activities): the device's busy share of
+     the run, device time by kernel, and the host and device time of
+     K2-bwd WORDS's wrapper (scripts/phase_trace.py traces one checkout
+     the same way, to set two commits side by side);
   4. rerun a 200 kb sub-region with the kernels and (at the end) with the
      plain twins bound in their place: byte-identical phased VCF and
      phaseset.bed;
@@ -50,16 +56,21 @@ Phases (any failure raises and the script exits non-zero):
      W = 32, SEG_D[32]);
   5. hold each kernel against its twin, and time both, on the largest
      batch / pack the phase run gave it (for K2: W=128, RLE off, LUT,
-     with its deepest diagonal count and ns per diagonal); K4 and the
-     extraction are timed on K2's pack beside it;
+     with its deepest diagonal count and ns per diagonal); K4, K2-bwd
+     WORDS (held against extract_packed on K2-bwd POST's grid and against
+     its twin) and the torch-op extraction it replaced are timed on K2's
+     pack beside it;
   6. run `python -m margin_tpu_torch polish` (cli.main, LUT logAdd) on a
-     seeded synthetic 150 kb draft at 30x (5-30 kb reads, ~8% errors,
+     seeded synthetic 120 kb draft at 30x (5-30 kb reads, ~8% errors,
      100 kb chunks with 1 kb boundaries: two chunks, one stitch seam;
-     cut from 300 kb, then from 205 kb, to keep the whole run within its
-     time limit); launch counters zeroed right before, read right after.
-     Checks: K1, K2 and K3 launched, items on the segmented route, and the
+     cut from 300 kb, then to 205, 150 and 120 kb, to keep the whole run
+     within its time limit); launch counters zeroed right before, read right after.
+     Checks: K1, K2 (K2-bwd as its WORDS instance) and K3 launched,
+     extract_packed never called, items on the segmented route, and the
      polished contig's edit distance to the truth at most half the
-     draft's;
+     draft's; K2-bwd WORDS held against extract_packed on the run's
+     largest K2 pack (also for phase 8's run) and timed there beside
+     K2-bwd POST and the torch-op extraction;
   7. polish a 10 kb sub-region in process (run_polish, the dataset's
      own POA-consensus iterations and bubble pass, channelRleWeight HELEN
      features labelled by the set's truth.bam) with SEG_MIN_D lowered to
@@ -88,16 +99,22 @@ Phases (any failure raises and the script exits non-zero):
      end) through the plain twins bound in their place: identical hap
      FASTAs, haplotagged BAM records and truth-haplotype partition;
  10. em: Baum-Welch through the port's entry points, counters zeroed
-     right before and read right after: 1024 read-to-draft pairs of 1-4
-     kb cut from phase 6's set (anchored on their alignments; the band
-     widths kmer anchors would give are counted on 64 of them) through
-     HmmExpectations.add_expectations (K2-fwd, then K4), then
-     em_iteration over 256 pairs of 60-120 bases, LUT and exact; K4 held
-     against its twin (rtol 1e-5, atol 1e-7 x the matrix sum; K2-fwd's
-     totals identical under the LUT) at the shapes the path launches it
-     on: the 16 shallowest read pairs as one pack, the 2 deepest each
-     alone as add_expectations launches them (timed on the deepest), and
-     every pack em_iteration launched;
+     right before and read right after each pass: 1024 read-to-draft
+     pairs of 1-4 kb cut from phase 6's set through
+     HmmExpectations.add_expectations on kmer anchors, as margin's EM
+     anchors them (bands of 100-400 cells: K5-fwd, then K5-exp, on every
+     band wider than 128 cells, K2-fwd and K4 on the rest), then the same
+     pairs anchored on their alignments (K2-fwd, then K4), then
+     em_iteration over 256 pairs of 60-120 bases, LUT and exact; K5 held
+     against its twins on the widest and the deepest kmer-anchored pair
+     (forward grid and totals identical under the LUT, expectations
+     within K4's tolerance, the device-memory ring identical to the
+     shared one), timed on the deeper; K4 held against its twin (rtol
+     1e-5, atol 1e-7 x the matrix sum; K2-fwd's totals identical under
+     the LUT) at the shapes the path launches it on: the 16 shallowest
+     read pairs as one pack, the 2 deepest each alone as add_expectations
+     launches them (timed on the deepest), and every pack em_iteration
+     launched;
  11. helen: splitRleWeight labelled by truth.bam on phase 6's production
      chunk (100 kb and its 1 kb boundary), counters zeroed right before
      and read right after (the truth alignment, ~140k diagonals, takes
@@ -134,6 +151,8 @@ Phases (any failure raises and the script exits non-zero):
      timed on the one of most work); a cross product of two seeded random
      read sets' tiling paths of work >= 10M, which MARGIN_TPU_RPHMM=auto
      sends to K6 by itself, held and timed the same way (ns a column);
+     and K6 on a seeded pack with a 300-allele site and the ancestor
+     (allele sums in device memory) against its twin;
  15. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
      a subprocess of its own sharing the card, then each comparison.
 Every K1, K2, K3 and K4 timing also prints the deepest pair's or
@@ -392,12 +411,23 @@ def compare_words(name, got, want, lut):
     return diff
 
 
+def extracted_words(post, totals, pack, threshold):
+    """word_set of banded.extract_packed (the torch-op extraction) on a
+    posterior grid."""
+    import torch
+    from margin_tpu_torch.ops import banded
+    packed = banded.extract_packed(post, totals, pack, threshold)
+    n, c = pack.B, int(packed[0])
+    return word_set(packed[1:1 + n].view(torch.float32),
+                    packed[1 + n:1 + n + c], packed[1 + n + c:])
+
+
 def k2_words(pack, lut, threshold=0.01):
     """The monolithic kernels' extraction words of a pack, whatever the
     size of its grids (the card holds 80 GB; the routing budget
-    FB_GRID_BUDGET_BYTES is lifted for this comparison only)."""
-    import torch
-    from margin_tpu_torch.ops import banded, cuda_banded
+    FB_GRID_BUDGET_BYTES is lifted for this comparison only): K2-bwd
+    POST's grid through extract_packed."""
+    from margin_tpu_torch.ops import cuda_banded
     budget = cuda_banded.FB_GRID_BUDGET_BYTES
     cuda_banded.FB_GRID_BUDGET_BYTES = max(
         budget, cuda_banded.grid_bytes(pack.n_rows, pack.W))
@@ -407,11 +437,30 @@ def k2_words(pack, lut, threshold=0.01):
         cuda_banded.FB_GRID_BUDGET_BYTES = budget
     pk = cuda_banded.fb_backward(pack, fk, tk, lut)
     del fk
-    packed = banded.extract_packed(pk, tk, pack, threshold)
-    del pk
-    n, c = pack.B, int(packed[0])
-    return word_set(packed[1:1 + n].view(torch.float32),
-                    packed[1 + n:1 + n + c], packed[1 + n + c:])
+    return extracted_words(pk, tk, pack, threshold)
+
+
+def words_work(pack, lut, n_words):
+    """K2-bwd WORDS on a pack: the backward's cell operations; the inputs,
+    the forward grid and the totals read once, the count and the words
+    written once."""
+    from margin_tpu_torch.ops import banded
+    cells = sum(banded._true_band_cells(g) for g in pack.geoms)
+    return (cells * bwd_ops_per_cell(lut),
+            pack_input_bytes(pack) + pack.n_rows * 3 * pack.W * 4
+            + 4 * pack.B + 4 + 8 * n_words)
+
+
+def words_against(pack, fk, tk, pk, lut, threshold, label):
+    """K2-bwd WORDS on a pack against K2-bwd POST's grid pk through
+    extract_packed (the same cells on the card: identical words as sorted
+    keys, whatever the logAdd). Returns (lo, hi)."""
+    from margin_tpu_torch.ops import cuda_banded
+    lo, hi = cuda_banded.fb_backward_words(pack, fk, tk, lut, threshold)
+    compare_words(f"K2-bwd WORDS against extract_packed, {label}",
+                  word_set(tk, lo, hi),
+                  extracted_words(pk, tk, pack, threshold), True)
+    return lo, hi
 
 
 def k3_run(pack, lut, seg_d, threshold=0.01):
@@ -624,6 +673,7 @@ def phase_k2(device, n=128):
                     diffs["bwd"] = compare(f"K2-bwd posteriors {label}", pk,
                                            pp, lut)
                     del fp, pp
+                words_against(pack, fk, tk, pk, lut, 0.01, label)
                 f_ms = cuda_ms(lambda: cuda_banded.fb_forward(pack, lut),
                                reps=5)
                 b_ms = cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk,
@@ -710,7 +760,9 @@ class Recorder:
     events recorded on the launch stream right before and after its C
     launch call (so the wrappers' host-side checks are not counted), and
     keeps the largest input each kernel was given. The launch counters
-    stay the wrappers' own."""
+    stay the wrappers' own. Counts the calls of banded.extract_packed, the
+    torch-op extraction, which the production route no longer makes (K2-bwd
+    WORDS emits the words)."""
 
     def __init__(self):
         from margin_tpu_torch.ops import cuda_banded, pairhmm
@@ -719,9 +771,13 @@ class Recorder:
         self.banded = banded
         self.orig = (pairhmm.forward_total, cuda_banded.fb_forward,
                      pairhmm._k1_lib, cuda_banded._k2, cuda_banded._k3,
-                     cuda_banded.fb_posteriors_seg, banded.extract_packed)
-        self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [], "K3-fwd": [],
-                       "K3-bwd": [], "K4": [], "extraction": []}
+                     cuda_banded._k5, cuda_banded.fb_posteriors_seg,
+                     cuda_banded.fb_backward_words, banded.extract_packed)
+        self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [],
+                       "K2-bwd WORDS": [], "K3-fwd": [], "K3-bwd": [],
+                       "K4": [], "K5-fwd": [], "K5-exp": [],
+                       "extraction": []}
+        self.extract_calls = 0
         self.k1_max = None    # (cells, tables, batch, use_lut)
         self.k1_log = []      # (B, Lx, Ly, RLE, use_lut, lxs, lys) a launch
         self.k2_max = None    # (rows*W, pack, use_lut)
@@ -742,7 +798,7 @@ class Recorder:
         return call
 
     def install(self):
-        ft, ff, k1, k2, k3, fps, ext = self.orig
+        ft, ff, k1, k2, k3, k5, fps, fbw, ext = self.orig
         lib1 = k1()
 
         class TimedK1:
@@ -750,11 +806,14 @@ class Recorder:
                 "K1", lib1.k1_forward_total))
         lib = k2()
         lib3 = k3()
+        lib5 = k5()
 
         class TimedK2:
             k2_forward = staticmethod(self._timed("K2-fwd", lib.k2_forward))
             k2_backward = staticmethod(self._timed("K2-bwd",
                                                    lib.k2_backward))
+            k2_backward_words = staticmethod(self._timed(
+                "K2-bwd WORDS", lib.k2_backward_words))
             k2_expectations = staticmethod(self._timed(
                 "K4", lib.k2_expectations))
 
@@ -763,6 +822,11 @@ class Recorder:
                                                   lib3.k3_forward))
             k3_backward = staticmethod(self._timed("K3-bwd",
                                                    lib3.k3_backward))
+
+        class TimedK5:
+            k5_forward = staticmethod(self._timed("K5-fwd", lib5.k5_forward))
+            k5_expectations = staticmethod(self._timed(
+                "K5-exp", lib5.k5_expectations))
 
         def fb_posteriors_seg(*args, **kw):
             out = fps(*args, **kw)
@@ -789,25 +853,41 @@ class Recorder:
                 self.k2_max = (pack.n_rows * pack.W, pack, use_lut)
             return ff(pack, use_lut)
 
+        def fb_backward_words(pack, fwd, totals, use_lut, threshold, *a,
+                              **kw):
+            if self.k2_max is not None and pack is self.k2_max[1]:
+                self.threshold[id(pack)] = threshold
+            return fbw(pack, fwd, totals, use_lut, threshold, *a, **kw)
+
         timed_ext = self._timed("extraction", ext)
 
         def extract_packed(post, totals, pack, threshold):
-            if self.k2_max is not None and pack is self.k2_max[1]:
-                self.threshold[id(pack)] = threshold
+            self.extract_calls += 1
             return timed_ext(post, totals, pack, threshold)
         self.pairhmm.forward_total = forward_total
         self.cuda_banded.fb_forward = fb_forward
         self.pairhmm._k1_lib = lambda: TimedK1
         self.cuda_banded._k2 = lambda: TimedK2
         self.cuda_banded._k3 = lambda: TimedK3
+        self.cuda_banded._k5 = lambda: TimedK5
         self.cuda_banded.fb_posteriors_seg = fb_posteriors_seg
+        self.cuda_banded.fb_backward_words = fb_backward_words
         self.banded.extract_packed = extract_packed
 
     def restore(self):
         (self.pairhmm.forward_total, self.cuda_banded.fb_forward,
          self.pairhmm._k1_lib, self.cuda_banded._k2, self.cuda_banded._k3,
-         self.cuda_banded.fb_posteriors_seg,
+         self.cuda_banded._k5, self.cuda_banded.fb_posteriors_seg,
+         self.cuda_banded.fb_backward_words,
          self.banded.extract_packed) = self.orig
+
+    def no_extraction(self, run):
+        """Raise if the run called the torch-op extraction: on the card
+        K2-bwd WORDS emits the words of every K2 pack."""
+        if self.extract_calls:
+            raise AssertionError(f"{run}: extract_packed ran "
+                                 f"{self.extract_calls} times on the "
+                                 "production route")
 
     def kernel_ms(self):
         torch_sync()
@@ -886,17 +966,153 @@ def accuracy(ds, base):
     return phased / max(total, 1), max(share, 1 - share), tagged
 
 
-def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
-              n_sv=30, region_len=200_000):
-    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
+def phase_dataset(work, contig_len=1_000_000, n_snv=1000, n_sv=30):
+    """The seeded synthetic phase set of phase 3 (and scripts/
+    phase_trace.py)."""
     from margin_tpu_torch.testing.synth import SynthConfig, write_dataset
-    t0 = time.perf_counter()
-    ds = write_dataset(work, SynthConfig(
+    return write_dataset(work, SynthConfig(
         contig_len=contig_len, coverage=30.0, read_len=(5000, 30000),
         n_snv=n_snv, n_sv=n_sv, sv_len=(50, 2000), sv_short_fraction=2 / 3,
         sv_short_max=500, sv_min_gap=min(27_000, contig_len // (n_sv + 1)),
         p_sub=0.03, p_ins=0.02, p_del=0.03, sv_handling=50,
         sv_expansion=1024, seed=7))
+
+
+# what a trace's spans wrap: (span name, module, function), each where the
+# checkout has it (the extraction's torch ops before K2-bwd WORDS, then
+# the WORDS instance's wrapper with its read of the count)
+TRACE_SPANS = (("extraction", "margin_tpu_torch.ops.banded",
+                "extract_packed"),
+               ("K2-bwd WORDS", "margin_tpu_torch.ops.cuda_banded",
+                "fb_backward_words"))
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def union_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def trace_summary(path, wall_s):
+    """Summary of a torch.profiler chrome trace: device events, the
+    device's busy time (the union of kernel, copy and set intervals) and
+    its share of the traced window and of the run's wall, the device time
+    by kernel name, and each TRACE_SPANS span's host time beside the
+    device time of the work launched inside it (runtime calls matched to
+    device events by correlation id)."""
+    import bisect
+    with open(path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events if e.get("cat") in _DEVICE_CATS]
+    t_lo = min(e["ts"] for e in events)
+    t_hi = max(e["ts"] + e["dur"] for e in events)
+    busy = union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    by_name = {}
+    for e in dev:
+        n = e.get("name", "?")[:60]
+        ms, k = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + e["dur"] / 1e3, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    dev_by_corr = {}
+    for e in dev:
+        c = e.get("args", {}).get("correlation")
+        if c is not None:
+            dev_by_corr[c] = dev_by_corr.get(c, 0.0) + e["dur"]
+    runtime = sorted((e["ts"], e.get("args", {}).get("correlation"))
+                     for e in events
+                     if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+    r_ts = [t for t, _ in runtime]
+    spans = {}
+    for name, _, _ in TRACE_SPANS:
+        wins = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "user_annotation" and e["name"] == name]
+        dev_us = 0.0
+        for a, b in wins:
+            for i in range(bisect.bisect_left(r_ts, a),
+                           bisect.bisect_right(r_ts, b)):
+                dev_us += dev_by_corr.get(runtime[i][1], 0.0)
+        if wins:
+            spans[name] = {"calls": len(wins),
+                           "host_ms": sum(b - a for a, b in wins) / 1e3,
+                           "device_ms": dev_us / 1e3}
+    window = (t_hi - t_lo) / 1e6
+    # no device event: the profiler did not trace the card (busy share not
+    # measured), not a fault of the run
+    seen = bool(dev)
+    return {"device_events": len(dev), "window_s": window, "wall_s": wall_s,
+            "busy_s": busy / 1e6 if seen else None,
+            "busy_share_of_window": busy / 1e6 / window if seen else None,
+            "busy_share_of_wall": busy / 1e6 / wall_s if seen else None,
+            "device_ms_by_kernel": {n: {"ms": ms, "events": k}
+                                    for n, (ms, k) in top},
+            "spans": spans}
+
+
+def traced(fn, path):
+    """Run fn() under torch.profiler (CPU and CUDA activities), each
+    TRACE_SPANS function the checkout has wrapped in a record_function
+    span of its name; write the chrome trace to path and return
+    (fn's seconds, trace_summary)."""
+    import importlib
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = []
+    for name, mod_name, fn_name in TRACE_SPANS:
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, fn_name, None)
+        if real is None:
+            continue
+
+        def span(*a, _real=real, _name=name, **kw):
+            with record_function(_name):
+                return _real(*a, **kw)
+        saved.append((mod, fn_name, real))
+        setattr(mod, fn_name, span)
+    try:
+        torch_sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch_sync()
+            secs = time.perf_counter() - t0
+        prof.export_chrome_trace(path)
+    finally:
+        for mod, fn_name, real in saved:
+            setattr(mod, fn_name, real)
+    return secs, trace_summary(path, secs)
+
+
+def log_trace(label, tr):
+    spans = "; ".join(f"{n}: {v['calls']} calls, host {v['host_ms']:.1f} "
+                      f"ms, device {v['device_ms']:.2f} ms"
+                      for n, v in tr["spans"].items())
+    if not tr["device_events"]:
+        log(f"{label} under torch.profiler: wall {tr['wall_s']:.1f} s; no "
+            "device event traced (busy share not measured)")
+        return
+    top = list(tr["device_ms_by_kernel"].items())[:6]
+    log(f"{label} under torch.profiler: wall {tr['wall_s']:.1f} s, "
+        f"{tr['device_events']} device events, device busy "
+        f"{tr['busy_s']:.3f} s = {tr['busy_share_of_wall']:.4f} of the "
+        f"wall ({tr['busy_share_of_window']:.4f} of the traced window "
+        f"{tr['window_s']:.1f} s); {spans or 'no span'}; top device ms "
+        f"{ {k: round(v['ms'], 1) for k, v in top} }")
+
+
+def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
+              n_sv=30, region_len=200_000):
+    from margin_tpu_torch.ops import banded, cuda_banded, pairhmm
+    t0 = time.perf_counter()
+    ds = phase_dataset(work, contig_len, n_snv, n_sv)
     gen_s = time.perf_counter() - t0
     n_sv_true = sum(v.kind != "snv" for v in ds.variants)
     log(f"dataset: {contig_len} bp, {len(ds.read_hap)} reads, "
@@ -909,11 +1125,7 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
     from margin_tpu_torch.parallel.executor import DEVICE_STATS
     rec = Recorder()
     rec.install()
-    banded.ROUTES.reset()
-    DEVICE_STATS.reset()
-    pairhmm.FORWARD_TOTAL.launches = 0
-    cuda_banded.FB_FORWARD.launches = 0
-    cuda_banded.FB_BACKWARD.launches = 0
+    zero_counters()
     try:
         wall = run_cli(["phase"] + common + ["-o", f"{work}/full",
                                             "--profile"], log_path)
@@ -921,7 +1133,8 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
         rec.restore()
     launches = {"K1": pairhmm.FORWARD_TOTAL.launches,
                 "K2-fwd": cuda_banded.FB_FORWARD.launches,
-                "K2-bwd": cuda_banded.FB_BACKWARD.launches}
+                "K2-bwd": cuda_banded.FB_BACKWARD.launches,
+                "K2-bwd WORDS": cuda_banded.FB_WORDS.launches}
     routes = {"k2_items": banded.ROUTES.pack_items,
               "host_items": banded.ROUTES.host_items,
               "packs": banded.ROUTES.packs}
@@ -940,14 +1153,21 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
     log(f"scoring calls (dense batches + banded packs): {scoring}")
     log(f"stages: {prof.get('stages_s')}; chunk stages: "
         f"{prof.get('chunk_stage_totals_s')}")
-    if launches["K1"] == 0 or launches["K2-fwd"] == 0 \
-            or launches["K2-bwd"] == 0:
+    if not all(launches.values()):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    rec.no_extraction("phase 1 Mb")
     if phased < 0.5:
         raise AssertionError(f"only {phased:.3f} of the het sites phased")
     if agree < 0.9:
         raise AssertionError(f"haplotag agreement {agree:.4f} < 0.9")
+
+    # --- the same run again under torch.profiler: the device's busy share
+    # and the pack read-back's host wait (not the measured wall)
+    _, trace = traced(lambda: run_cli(["phase"] + common + [
+        "-o", f"{work}/traced", "-a", "CRITICAL"], log_path),
+        os.path.join(work, "phase_trace.json"))
+    log_trace("phase 1 Mb", trace)
 
     # --- a sub-region through the kernels, then through the plain twins
     mid = contig_len // 2
@@ -970,7 +1190,7 @@ def phase_e2e(device, work, out_dir, contig_len=1_000_000, n_snv=1000,
     log(f"{region}: kernels {kern_s:.1f} s (twins queued)")
     return {"wall_s": wall, "launches": launches, "routes": routes,
             "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
-            "phased_share": phased,
+            "trace": trace, "phased_share": phased,
             "haplotag_agreement": agree, "tagged_reads": tagged,
             "profile": prof, "region": region, "region_kernel_s": kern_s,
             "dataset_s": gen_s}, rec, ds
@@ -1046,20 +1266,44 @@ def phase_main_path_shapes(rec):
             f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), max|diff| "
             f"{v['max_abs_err']}{per_diag}")
-    # the flat extraction (torch ops) on the same pack's posteriors, at the
-    # threshold the run gave it; bound: the grid read once, the count,
-    # totals and words written once
+    # K2-bwd WORDS on the same pack, at the threshold the run gave it:
+    # against extract_packed on K2-bwd POST's grid and against its twin,
+    # timed beside it
     threshold = rec.threshold.get(id(pack), 0.01)
-    packed = banded.extract_packed(pk, tk, pack, threshold)
-    n_words = int(packed[0])
+    lo, hi = words_against(pack, fk, tk, pk, lut, threshold,
+                           f"the phase run's largest pack ({shape})")
+    n_words = lo.numel()
+    t0 = time.perf_counter()
+    lp, hp = cuda_banded.fb_words_plain(pack, fp, tp, lut, threshold)
+    torch_sync()
+    pw = (time.perf_counter() - t0) * 1e3
+    d_w = compare_words("K2-bwd WORDS against its twin, the phase run's "
+                        f"largest pack ({shape})", word_set(tk, lo, hi),
+                        word_set(tp, lp, hp), lut)
+    ms = cuda_ms(lambda: cuda_banded.fb_backward_words(pack, fk, tk, lut,
+                                                       threshold))
+    bms, by = bound_ms(*words_work(pack, lut, n_words))
+    out["K2-bwd WORDS"] = {
+        "shape": shape, "threshold": threshold, "words": n_words,
+        "max_abs_err": d_w, "ms": ms, "plain_ms": pw, "bound_ms": bms,
+        "bound_by": by, "deepest_diagonals": d_max,
+        "ns_per_diagonal": ms * 1e6 / d_max}
+    log(f"K2-bwd WORDS on the same pack, threshold {threshold}: kernel "
+        f"{ms:.3f} ms for {n_words} words (K2-bwd POST "
+        f"{out['K2-bwd']['ms']:.3f} ms), plain {pw:.1f} ms, bound "
+        f"{bms:.4f} ms ({by}), {ms * 1e6 / d_max:.1f} ns per diagonal; "
+        "words equal extract_packed's on K2-bwd POST's grid and the twin's")
+    # the torch-op extraction the WORDS instance replaced (no longer on the
+    # path), on K2-bwd POST's grid; bound: the grid read once, the count,
+    # totals and words written once
     ms = cuda_ms(lambda: banded.extract_packed(pk, tk, pack, threshold))
     bms, by = bound_ms(0, pack.n_rows * 3 * pack.W * 4 + 4 + 4 * pack.B
                        + 8 * n_words)
     out["extraction"] = {"shape": shape, "threshold": threshold,
                          "words": n_words, "ms": ms, "bound_ms": bms,
                          "bound_by": by}
-    log(f"extraction (ops/banded.py:extract_packed) on the same pack, "
-        f"threshold {threshold}: {ms:.3f} ms for {n_words} words, bound "
+    log(f"extraction (ops/banded.py:extract_packed, torch ops, off the "
+        f"path) on K2-bwd POST's grid of the same pack: {ms:.3f} ms, bound "
         f"{bms:.4f} ms ({by})")
     return out
 
@@ -1070,17 +1314,22 @@ def zero_counters():
     banded.ROUTES.reset()
     DEVICE_STATS.reset()
     for c in (pairhmm.FORWARD_TOTAL, cuda_banded.FB_FORWARD,
-              cuda_banded.FB_BACKWARD, cuda_banded.SEG_FORWARD,
-              cuda_banded.SEG_BACKWARD, cuda_banded.FB_EXPECT,
-              rphmm_fb.RPHMM_FB):
+              cuda_banded.FB_BACKWARD, cuda_banded.FB_WORDS,
+              cuda_banded.SEG_FORWARD, cuda_banded.SEG_BACKWARD,
+              cuda_banded.FB_EXPECT, cuda_banded.FB_FORWARD_WIDE,
+              cuda_banded.FB_EXPECT_WIDE, rphmm_fb.RPHMM_FB):
         c.launches = 0
 
 
 def read_counters():
+    """The launch counters of the banded and dense kernels (K2-bwd counts
+    every launch of its backward + posterior walk, K2-bwd WORDS those of
+    its WORDS instance)."""
     from margin_tpu_torch.ops import cuda_banded, pairhmm
     return {"K1": pairhmm.FORWARD_TOTAL.launches,
             "K2-fwd": cuda_banded.FB_FORWARD.launches,
             "K2-bwd": cuda_banded.FB_BACKWARD.launches,
+            "K2-bwd WORDS": cuda_banded.FB_WORDS.launches,
             "K3-fwd": cuda_banded.SEG_FORWARD.launches,
             "K3-bwd": cuda_banded.SEG_BACKWARD.launches}
 
@@ -1090,7 +1339,7 @@ def fasta_seq(path):
         return "".join(line.strip() for line in fh if not line.startswith(">"))
 
 
-def polish_dataset(work, span=150_000):
+def polish_dataset(work, span=120_000):
     """The seeded haploid polish set of phases 6, 7 and the em, helen and
     tools phases (with truth.bam)."""
     from margin_tpu_torch.testing.synth import (PolishSynthConfig,
@@ -1101,7 +1350,7 @@ def polish_dataset(work, span=150_000):
         seed=11))
 
 
-def phase_polish(device, work, out_dir, span=150_000):
+def phase_polish(device, work, out_dir, span=120_000):
     """`margin polish` end to end on a seeded synthetic draft."""
     from margin_tpu_torch.ops import banded
     from margin_tpu_torch.parallel.executor import DEVICE_STATS
@@ -1122,6 +1371,7 @@ def phase_polish(device, work, out_dir, span=150_000):
     finally:
         rec.restore()
     launches = read_counters()
+    rec.no_extraction("polish")
     routes = {"k2_items": banded.ROUTES.pack_items,
               "k3_items": banded.ROUTES.seg_items,
               "host_items": banded.ROUTES.host_items,
@@ -1171,6 +1421,16 @@ def twins():
         (pairhmm, "forward_total"): pairhmm.forward_total_plain,
         (cuda_banded, "fb_forward"): cuda_banded.fb_forward_plain,
         (cuda_banded, "fb_backward"): cuda_banded.fb_backward_plain,
+        (cuda_banded, "fb_backward_words"):
+            lambda pack, fwd, totals, use_lut, threshold, cap=None,
+            chunk=None: cuda_banded.fb_words_plain(pack, fwd, totals,
+                                                   use_lut, threshold),
+        (cuda_banded, "fb_forward_wide"):
+            lambda pack, use_lut, ring_shared=None:
+            cuda_banded.fb_forward_plain(pack, use_lut),
+        (cuda_banded, "fb_expectations_wide"):
+            lambda pack, fwd, totals, use_lut, ring_shared=None:
+            cuda_banded.fb_expectations_plain(pack, fwd, totals, use_lut),
         (cuda_banded, "seg_forward"): cuda_banded.seg_forward_plain,
         (cuda_banded, "seg_backward"):
             lambda pack, ckpt, totals, use_lut, seg_d, threshold, cap=None:
@@ -1412,6 +1672,7 @@ def phase_diploid(device, work, out_dir, span=205_000):
     finally:
         rec.restore()
     launches = read_counters()
+    rec.no_extraction("diploid polish")
     routes = {"k2_items": banded.ROUTES.pack_items,
               "k3_items": banded.ROUTES.seg_items,
               "host_items": banded.ROUTES.host_items,
@@ -1420,6 +1681,7 @@ def phase_diploid(device, work, out_dir, span=205_000):
     scoring = DEVICE_STATS.snapshot()
     kms = rec.kernel_ms()
     k1l = rec.k1_launches("diploid")
+    words = words_on_largest(rec, "the diploid run's largest K2 pack")
     with open(f"{work}/dip.profile.json") as fh:
         prof = json.load(fh)
     agree, tagged = haplotag_agreement(f"{work}/dip.haplotagged.bam",
@@ -1440,8 +1702,7 @@ def phase_diploid(device, work, out_dir, span=205_000):
     log(f"diploid stages: {prof.get('stages_s')}; chunk stages: "
         f"{prof.get('chunk_stage_totals_s')}")
     log(f"diploid device ms: { {k: round(v, 1) for k, v in kms.items()} }")
-    missing = [k for k in ("K1", "K2-fwd", "K2-bwd", "K3-fwd", "K3-bwd")
-               if launches[k] == 0]
+    missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels of the diploid path never launched: "
                              f"{missing}")
@@ -1450,7 +1711,7 @@ def phase_diploid(device, work, out_dir, span=205_000):
     return {"wall_s": wall, "launches": launches, "routes": routes,
             "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
             "profile": prof, "haplotag_agreement": agree, "tagged_reads": tagged,
-            "edit_distances": ed,
+            "edit_distances": ed, "words_check": words,
             "lengths": {k: len(v) for k, v in {**seqs, **truths}.items()},
             "dataset_s": gen_s, "span": span}, ds
 
@@ -1503,6 +1764,36 @@ def phase_diploid_region(ds, work, region_len=10_000, device="cuda"):
         f"on hap {rows[1][5]}): kernels {kern_s:.1f} s (twins queued)")
     return {"region": region, "kernel_s": kern_s, "launches": launches,
             "k3_items": seg_items}
+
+
+def words_on_largest(rec, label, timed=False):
+    """K2-bwd WORDS against extract_packed on K2-bwd POST's grid, on the
+    largest K2 pack a run launched, at the run's threshold; timed: also
+    the device times of K2-bwd WORDS, of K2-bwd POST and of the torch-op
+    extraction on its grid there."""
+    from margin_tpu_torch.ops import banded, cuda_banded
+    _, pack, lut = rec.k2_max
+    threshold = rec.threshold.get(id(pack), 0.01)
+    fk, tk = cuda_banded.fb_forward(pack, lut)
+    pk = cuda_banded.fb_backward(pack, fk, tk, lut)
+    shape = f"B={pack.B} rows={pack.n_rows} W={pack.W}"
+    lo, _ = words_against(pack, fk, tk, pk, lut, threshold,
+                          f"{label} ({shape})")
+    out = {"shape": shape, "threshold": threshold, "words": lo.numel()}
+    if timed:
+        out["ms"] = {
+            "K2-bwd WORDS": cuda_ms(lambda: cuda_banded.fb_backward_words(
+                pack, fk, tk, lut, threshold)),
+            "K2-bwd": cuda_ms(lambda: cuda_banded.fb_backward(pack, fk, tk,
+                                                              lut)),
+            "extraction": cuda_ms(lambda: banded.extract_packed(
+                pk, tk, pack, threshold))}
+        out["bound_ms"] = bound_ms(*words_work(pack, lut, lo.numel()))
+    log(f"K2-bwd WORDS on {label} ({shape}, threshold {threshold}): "
+        f"{lo.numel()} words, equal to extract_packed's on K2-bwd POST's "
+        "grid" + (f"; device ms {out['ms']}, bound {out['bound_ms']}"
+                  if timed else ""))
+    return out
 
 
 def phase_k3_main_path(rec, max_b=16):
@@ -1640,14 +1931,19 @@ def em_read_pairs(ds, n, expansion, seed=21):
     return pairs
 
 
-def kmer_band_widths(pairs, expansion):
-    """The band widths the pairs would have on kmer anchors
-    (get_kmer_alignment_anchors) in place of their alignments'."""
+def kmer_anchored(pairs, expansion):
+    """The pairs re-anchored on their shared kmers
+    (get_kmer_alignment_anchors), as margin's EM anchors them
+    (getExpectationsUsingAnchors), with each band's width."""
     from margin_tpu_torch.ops import banded
     from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
-    return sorted(banded.BandGeometry.build(
-        get_kmer_alignment_anchors(x, y, expansion), len(x), len(y),
-        expansion, smooth=True).w_pad for x, y, _, _ in pairs)
+    out = []
+    for x, y, strand, _ in pairs:
+        a = get_kmer_alignment_anchors(x, y, expansion)
+        w = banded.BandGeometry.build(a, len(x), len(y), expansion,
+                                      smooth=True).w_pad
+        out.append((x, y, strand, a, w))
+    return out
 
 
 def em_short_pairs(n, seed=22):
@@ -1715,20 +2011,123 @@ def k4_against(tabs, groups, expansion, lut, label):
                         for c in checked]}
 
 
-def phase_em(ds, n_reads=1024, n_short=256, n_kmer=64, n_plain=16, n_deep=2,
+def k5_work(pack, lut, sweep):
+    """K5 on a pack: K5-fwd the forward's cell operations, the inputs
+    read and the grid and totals written once (K2-fwd's count); K5-exp
+    K4's (the same walk and sums)."""
+    if sweep == "exp":
+        return k4_work(pack, lut)
+    from margin_tpu_torch.ops import banded
+    cells = sum(banded._true_band_cells(g) for g in pack.geoms)
+    return (cells * fwd_ops_per_cell(lut), pack_input_bytes(pack)
+            + pack.n_rows * 3 * pack.W * 4 + 4 * pack.B)
+
+
+def k5_against(tabs, groups, expansion, lut, label):
+    """K5 on the packs banded.expectation_packs makes of each group (the
+    packs add_expectations launches it on: a pair alone), each held
+    against its twin: K5-fwd's grid and totals (LUT: identical bits;
+    exact: within 1e-4), K5-exp within K4's tolerance, and both again
+    with the ring of diagonals in device memory (identical to the shared
+    ring's). Then both timed on the deepest of those packs beside their
+    twins' times there, with bounds and ns per diagonal."""
+    import torch
+    from margin_tpu_torch.ops import banded, cuda_banded
+    checked = []
+    for group in groups:
+        for _, pack in banded.expectation_packs(tabs, group, expansion):
+            if pack.W <= 128:
+                raise AssertionError(f"K5 {label}: a pack of W={pack.W}")
+            fk, tk = cuda_banded.fb_forward_wide(pack, lut)
+            ek = cuda_banded.fb_expectations_wide(pack, fk, tk, lut)
+            fd, td = cuda_banded.fb_forward_wide(pack, lut, False)
+            ed = cuda_banded.fb_expectations_wide(pack, fk, tk, lut, False)
+            torch_sync()
+            t0 = time.perf_counter()
+            fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+            torch_sync()
+            pf = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ep = cuda_banded.fb_expectations_plain(pack, fk, tk, lut)
+            torch_sync()
+            pe = (time.perf_counter() - t0) * 1e3
+            shape = (f"B={pack.B} rows={pack.n_rows} W={pack.W}, deepest "
+                     f"{deepest(pack)} diagonals")
+            d_f = max(compare(f"K5-fwd totals, {label} {shape}", tk, tp, lut),
+                      compare(f"K5-fwd grid, {label} {shape}", fk, fp, lut))
+            diff, share = compare_expectations(f"K5-exp {label} {shape}",
+                                               ek, ep)
+            if not (torch.equal(fd, fk) and torch.equal(td, tk)
+                    and torch.equal(ed, ek)):
+                raise AssertionError(f"K5 {label} {shape}: the device-memory"
+                                     " ring gives other values")
+            checked.append({"pack": pack, "fwd": fk, "totals": tk,
+                            "shape": shape, "fwd_err": d_f,
+                            "max_abs_err": diff, "tolerance_share": share,
+                            "plain_fwd_ms": pf, "plain_exp_ms": pe})
+            del fp, fd, ed
+    top = max(checked, key=lambda c: (deepest(c["pack"]), c["pack"].n_rows))
+    pack = top["pack"]
+    d_max = deepest(pack)
+    rows = {}
+    for name, sweep, fn, pms, err in (
+            ("K5-fwd", "fwd", lambda: cuda_banded.fb_forward_wide(pack, lut),
+             top["plain_fwd_ms"], max(c["fwd_err"] for c in checked)),
+            ("K5-exp", "exp", lambda: cuda_banded.fb_expectations_wide(
+                pack, top["fwd"], top["totals"], lut), top["plain_exp_ms"],
+             max(c["max_abs_err"] for c in checked))):
+        ms = cuda_ms(fn)
+        bms, by = bound_ms(*k5_work(pack, lut, sweep))
+        rows[name] = {"shape": top["shape"], "lut": lut, "max_abs_err": err,
+                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                      "bound_by": by, "deepest_diagonals": d_max,
+                      "ns_per_diagonal": ms * 1e6 / d_max}
+        log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel {ms:.3f} "
+            f"ms on {top['shape']}, twin {pms:.0f} ms there, bound "
+            f"{bms:.4f} ms ({by}), {ms * 1e6 / d_max:.1f} ns per diagonal")
+    share = max(c["tolerance_share"] for c in checked)
+    rows["K5-exp"]["tolerance_share"] = share
+    log(f"K5 {label}: held against the twins on {len(checked)} packs "
+        f"({'; '.join(c['shape'] for c in checked)}): forward grids and "
+        f"totals {'identical' if lut else 'within 1e-4'}, expectations at "
+        f"most {share:.3f} of an entry's tolerance; the device-memory ring "
+        "identical to the shared one")
+    rows["checked"] = [(c["shape"], c["max_abs_err"], c["tolerance_share"])
+                       for c in checked]
+    return rows
+
+
+def em_checks(name, hmm):
+    """The accumulated expectations and likelihood of a read-to-draft EM
+    pass are in range; a read-to-draft pair aligns mostly by matches."""
+    import numpy as np
+    E = hmm.trans
+    if not (np.isfinite(E).all() and (E >= 0).all()
+            and np.isfinite(hmm.likelihood) and hmm.likelihood < 0):
+        raise AssertionError(f"EM {name}: expectations or likelihood out "
+                             "of range")
+    if not E[0, 0] > 0.5 * E.sum():
+        raise AssertionError(f"EM {name}: match -> match {E[0, 0]} of "
+                             f"{E.sum()}")
+
+
+def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
              device="cuda"):
     """Baum-Welch EM through the port's entry points: 1024 read-to-draft
-    pairs of 1-4 kb through HmmExpectations.add_expectations (anchored on
-    their alignments with the polish params' diagonalExpansion, each pair
-    on its strand, RLE off: getExpectationsUsingAnchors; the band widths
-    kmer anchors would give are counted on 64 of them), then em_iteration
-    over 256
-    anchorless pairs of 60-120 bases (expansion 20), LUT and exact. The
-    launch counters are zeroed right before and read right after. Then K4
-    is held against its twin at the main path's shapes: on the 16
-    shallowest read pairs (one pack) and on each of the 2 deepest alone,
-    as add_expectations launches it, timed on the deepest; and on every
-    pack em_iteration launched, timed on the deepest."""
+    pairs of 1-4 kb through HmmExpectations.add_expectations on kmer
+    anchors, as margin's EM anchors them (getExpectationsUsingAnchors,
+    the polish params' diagonalExpansion, each pair on its strand, RLE
+    off): every band wider than 128 cells on K5-fwd and K5-exp, the
+    narrower on K2-fwd and K4; then the same pairs anchored on their
+    alignments (bands of <= 32 cells: K2-fwd and K4), then em_iteration
+    over 256 anchorless pairs of 60-120 bases (expansion 20), LUT and
+    exact. The launch counters are zeroed right before and read right
+    after each pass. Then K5 is held against its twin on the widest and
+    the deepest kmer-anchored pair (each alone, as add_expectations
+    launches it), timed on the deeper; K4 on the 16 shallowest
+    alignment-anchored pairs (one pack) and on each of the 2 deepest
+    alone, timed on the deepest, and on every pack em_iteration
+    launched."""
     import numpy as np
     from margin_tpu_torch.ops import cuda_banded, em
     from margin_tpu_torch.params import Params
@@ -1742,16 +2141,50 @@ def phase_em(ds, n_reads=1024, n_short=256, n_kmer=64, n_plain=16, n_deep=2,
     shorts = em_short_pairs(n_short)
     prep_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kmer_w = kmer_band_widths(reads[:n_kmer], expansion)
-    log(f"em: on kmer anchors {sum(w <= 128 for w in kmer_w)} of the first "
-        f"{len(kmer_w)} pairs would have bands of <= 128 cells (widths "
-        f"{kmer_w[0]}..{kmer_w[len(kmer_w) // 2]}..{kmer_w[-1]}: min, "
-        f"median, max; {time.perf_counter() - t0:.1f} s); the wider wait "
-        "for K5, so the pairs take their alignments' anchors")
+    kmer = kmer_anchored(reads, expansion)
+    kmer_s = time.perf_counter() - t0
+    widths = sorted(w for *_, w in kmer)
+    n_wide = sum(w > 128 for w in widths)
+    log(f"em: {n_reads} read-to-draft pairs on kmer anchors ({kmer_s:.1f} "
+        f"s): {n_wide} bands wider than 128 cells (widths {widths[0]}.."
+        f"{widths[len(widths) // 2]}..{widths[-1]}: min, median, max)")
+
+    # --- the main path: EM on kmer anchors
     rec = Recorder()
     rec.install()
     zero_counters()
-    cuda_banded.FB_EXPECT.launches = 0
+    try:
+        t0 = time.perf_counter()
+        hmm_k = em.HmmExpectations(1e-12)
+        for x, y, strand, a, _ in kmer:
+            hmm_k.add_expectations(tabs, x, y, a, expansion, strand,
+                                   use_lut=True)
+        torch_sync()
+        kmer_run_s = time.perf_counter() - t0
+    finally:
+        rec.restore()
+    k_launches = {"K2-fwd": cuda_banded.FB_FORWARD.launches,
+                  "K4": cuda_banded.FB_EXPECT.launches,
+                  "K5-fwd": cuda_banded.FB_FORWARD_WIDE.launches,
+                  "K5-exp": cuda_banded.FB_EXPECT_WIDE.launches}
+    k_kms = {k: v for k, v in rec.kernel_ms().items() if k in k_launches}
+    if not (k_launches["K5-fwd"] == k_launches["K5-exp"] == n_wide > 0):
+        raise AssertionError(f"EM on kmer anchors: {n_wide} wide pairs, "
+                             f"launches {k_launches}")
+    if k_launches["K4"] != n_reads - n_wide:
+        raise AssertionError(f"EM on kmer anchors: {n_reads - n_wide} "
+                             f"narrow pairs, launches {k_launches}")
+    em_checks("on kmer anchors", hmm_k)
+    log(f"em on kmer anchors: {n_reads} pairs through add_expectations in "
+        f"{kmer_run_s:.1f} s; launches {k_launches}; device ms "
+        f"{ {k: round(v, 2) for k, v in k_kms.items()} }; E (from, to) "
+        f"{np.round(hmm_k.trans / hmm_k.trans.sum(), 5).tolist()}, "
+        f"likelihood {hmm_k.likelihood:.1f}")
+
+    # --- the same pairs on their alignments' anchors, and em_iteration
+    rec = Recorder()
+    rec.install()
+    zero_counters()
     try:
         t0 = time.perf_counter()
         hmm = em.HmmExpectations(1e-12)
@@ -1778,22 +2211,27 @@ def phase_em(ds, n_reads=1024, n_short=256, n_kmer=64, n_plain=16, n_deep=2,
     E = hmm.trans
     if launches["K4"] == 0 or launches["K2-fwd"] == 0:
         raise AssertionError(f"EM did not launch K2-fwd and K4: {launches}")
-    if not (np.isfinite(E).all() and (E >= 0).all()
-            and np.isfinite(hmm.likelihood) and hmm.likelihood < 0):
-        raise AssertionError("EM: expectations or likelihood out of range")
-    # a read-to-draft pair aligns mostly by matches
-    if not E[0, 0] > 0.5 * E.sum():
-        raise AssertionError(f"EM: match -> match {E[0, 0]} of {E.sum()}")
+    em_checks("on the alignments' anchors", hmm)
     for name, it in iters.items():
         if not (np.isfinite(it["likelihood"]) and it["likelihood"] < 0):
             raise AssertionError(f"em_iteration ({name}): likelihood "
                                  f"{it['likelihood']}")
-    log(f"em: {n_reads} read-to-draft pairs through add_expectations in "
-        f"{reads_s:.1f} s (prep {prep_s:.1f} s), em_iteration over "
-        f"{n_short} pairs: { {k: round(v['s'], 2) for k, v in iters.items()} }"
-        f" s; launches {launches}; device ms "
-        f"{ {k: round(v, 2) for k, v in kms.items()} }; E (from, to) "
-        f"{np.round(E / E.sum(), 5).tolist()}")
+    log(f"em: {n_reads} read-to-draft pairs on their alignments' anchors "
+        f"through add_expectations in {reads_s:.1f} s (prep {prep_s:.1f} "
+        f"s), em_iteration over {n_short} pairs: "
+        f"{ {k: round(v['s'], 2) for k, v in iters.items()} } s; launches "
+        f"{launches}; device ms { {k: round(v, 2) for k, v in kms.items()} }"
+        f"; E (from, to) {np.round(E / E.sum(), 5).tolist()}")
+    # K5 where the kmer-anchored pass launched it: the widest and the
+    # deepest wide pair, each alone
+    wide = [i for i, (*_, w) in enumerate(kmer) if w > 128]
+    kitems = [{"x_sym": kmer[i][0], "y_sym": kmer[i][1],
+               "anchors": kmer[i][3], "strand": kmer[i][2]} for i in wide]
+    widest = max(range(len(wide)), key=lambda j: kmer[wide[j]][4])
+    deepest_i = max(range(len(wide)), key=lambda j: len(kitems[j]["x_sym"])
+                    + len(kitems[j]["y_sym"]))
+    k5 = k5_against(tabs, [[kitems[j]] for j in sorted({widest, deepest_i})],
+                    expansion, True, "kmer-anchored read-to-draft pairs")
     # add_expectations launches K4 on each read pair alone; em_iteration
     # on its packs of the short pairs
     items = [{"x_sym": x, "y_sym": y, "anchors": a, "strand": s}
@@ -1811,7 +2249,12 @@ def phase_em(ds, n_reads=1024, n_short=256, n_kmer=64, n_plain=16, n_deep=2,
     return {"launches": launches, "kernel_ms": kms, "reads_s": reads_s,
             "prep_s": prep_s, "em_iterations": iters,
             "expectations": E.tolist(), "likelihood": hmm.likelihood,
-            "kmer_band_widths": kmer_w, "k4": rows}
+            "kmer": {"launches": k_launches, "kernel_ms": k_kms,
+                     "s": kmer_run_s, "anchor_s": kmer_s,
+                     "band_widths": widths, "wide_pairs": n_wide,
+                     "expectations": hmm_k.trans.tolist(),
+                     "likelihood": hmm_k.likelihood},
+            "k5": k5, "k4": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -2361,6 +2804,66 @@ def random_profile_seqs(seed, n_sites, n_reads, span):
     return ref, seqs
 
 
+def wide_site_pack(device, seed=41, ncol=6, C=256, wide=300, M=150):
+    """A seeded pack of ncol columns of 64 reads over three sites of 2,
+    `wide` and 3 alleles, random partitions and merge maps: a site whose
+    ancestor allele sums (2 x 300 ints a thread) do not fit in shared
+    memory."""
+    import numpy as np
+    import torch
+    from margin_tpu_torch.ops import rphmm_fb
+    rng = np.random.default_rng(seed)
+    site_a = np.tile(np.array([2, wide, 3], np.int32), (ncol, 1))
+    site_off = (np.cumsum(site_a, axis=1) - site_a).astype(np.int32)
+    A, As = int(site_a[0].sum()), wide
+    sub = rng.integers(0, 90, (ncol, 3, As, As)).astype(np.int32)
+    prior = rng.integers(0, 30, (ncol, 3, As)).astype(np.int32)
+    j = np.arange(As)
+    for s, a in enumerate(site_a[0]):
+        sub[:, s, j >= a, :] = rphmm_fb.BIG
+        sub[:, s, :, j >= a] = rphmm_fb.BIG
+        prior[:, s, j >= a] = 0
+    arrays = (
+        rng.integers(-(1 << 62), 1 << 62, (ncol, C), dtype=np.int64),
+        rng.integers(C // 2, C + 1, ncol).astype(np.int32),
+        np.full(ncol, 64, dtype=np.int32), np.full(ncol, 3, dtype=np.int32),
+        rng.integers(0, 64, (ncol, A, 64)).astype(np.uint8),
+        site_off, site_a, sub, prior,
+        rng.integers(0, M, (ncol, C)).astype(np.int32),
+        rng.integers(0, M, (ncol, C)).astype(np.int32))
+    return rphmm_fb.RphmmPack(*(torch.from_numpy(a).to(device)
+                                for a in arrays), M)
+
+
+def k6_wide_site(device="cuda"):
+    """K6 on a site of 300 alleles with the ancestor (its allele sums in
+    device memory) against its twin: every output equal."""
+    from margin_tpu_torch.ops import rphmm_fb
+    pk = wide_site_pack(device)
+    ncol, C, D, A, S, As, M = pk.dims
+    lay = rphmm_fb.emission_smem(A, D, As, True)
+    if lay.sums_shared:
+        raise AssertionError(f"K6 kept {As}-allele sums in shared memory")
+    # k6_work's counts from each column's own cells
+    alleles = pk.site_a[0].tolist()
+    ops = nbytes = 0
+    for n in pk.n_cells.tolist():
+        ops += (4 * n * D * sum(alleles) + 4 * n * sum(a * a for a in alleles)
+                + 4 * n)
+        nbytes += (28 * n + 12 + D * sum(alleles) + 8 * len(alleles)
+                   + 4 * sum(a * a + a for a in alleles))
+    nbytes += 8 * ncol * M
+    row, _ = k6_pack_row(pk, True, {"columns": ncol, "widest_cells": C,
+                                    "deepest_reads": D, "work": None},
+                         (ops, nbytes),
+                         f"{ncol} columns x {C} cells, a {As}-allele site")
+    log(f"K6 on a {As}-allele site with the ancestor ({ncol} columns x {C} "
+        f"cells, {D} reads; allele sums in device memory): kernel "
+        f"{row['ms']:.3f} ms, twin {row['plain_ms']:.1f} ms; identical to "
+        "the twin")
+    return row
+
+
 def phase_rphmm(device="cuda", big=(31, 600, 220, (60, 150))):
     """The stRPHmm FB on K6. (1) margin_tpu's path when the native engine
     is absent, through the port's entry points with MARGIN_TPU_RPHMM=device
@@ -2521,6 +3024,7 @@ def phase_rphmm(device="cuda", big=(31, 600, 220, (60, 150))):
         out["threshold"] = k6_against(hmm, False,
                                       "a random cross product of work >= "
                                       "10M", device)
+        out["wide_site"] = k6_wide_site(device)
     finally:
         rphmm_device.forward_backward_device = real_fbd
         if saved is None:
@@ -2537,12 +3041,18 @@ SOURCES = {
                "margin_tpu/ops/pallas_banded.py:174"),
     "K2-bwd": ("margin_tpu_torch/csrc/banded_fb.cu",
                "margin_tpu/ops/pallas_banded.py:253"),
+    "K2-bwd WORDS": ("margin_tpu_torch/csrc/banded_fb.cu",
+                     "margin_tpu/ops/banded.py:704"),
     "K3-fwd": ("margin_tpu_torch/csrc/banded_seg.cu",
                "margin_tpu/ops/pallas_banded.py:873"),
     "K3-bwd": ("margin_tpu_torch/csrc/banded_seg.cu",
                "margin_tpu/ops/pallas_banded.py:964"),
     "K4": ("margin_tpu_torch/csrc/banded_fb.cu",
            "margin_tpu/ops/banded.py:267"),
+    "K5-fwd": ("margin_tpu_torch/csrc/banded_wide.cu",
+               "margin_tpu/ops/banded.py:267"),
+    "K5-exp": ("margin_tpu_torch/csrc/banded_wide.cu",
+               "margin_tpu/ops/banded.py:267"),
     "K6": ("margin_tpu_torch/csrc/rphmm_fb.cu",
            "margin_tpu/phase/rphmm_device.py:80"),
 }
@@ -2621,6 +3131,8 @@ def main(argv=None) -> int:
         ds = None
         if "polish" in only:
             report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
+            report["polish"]["words_check"] = words_on_largest(
+                prec, "the polish run's largest K2 pack", timed=True)
             report["polish_region"] = phase_polish_region(ds, work)
             report.setdefault("main_path_shapes", {}).update(
                 phase_k3_main_path(prec))
@@ -2647,11 +3159,12 @@ def main(argv=None) -> int:
         if "phase" in only and "polish" in only:
             summed = {k: report["phase"]["kernel_ms"][k]
                       + report["polish"]["kernel_ms"][k]
-                      for k in report["polish"]["kernel_ms"] if k != "K4"}
+                      for k in report["polish"]["kernel_ms"]
+                      if k not in ("K4", "K5-fwd", "K5-exp")}
             report["main_path_device_ms"] = summed
             log("device ms summed over the phase and polish runs' launches "
-                "(the extraction's torch ops included): "
-                f"{ {k: round(v, 1) for k, v in summed.items()} }")
+                "(extraction: extract_packed's torch ops, none on this "
+                f"route): { {k: round(v, 1) for k, v in summed.items()} }")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["total_s"] = time.perf_counter() - t_start
@@ -2667,14 +3180,18 @@ def main(argv=None) -> int:
         for name, (src, rep) in SOURCES.items():
             if name == "K4":   # K4's path is EM's
                 m, path = report["em"]["k4"][0], "em"
+            elif name.startswith("K5"):   # EM on kmer anchors
+                m = report["em"]["k5"][name]
+                launches = report["em"]["kmer"]["launches"][name]
             elif name == "K6":   # the merge tree's FBs
                 m, path = report["rphmm"]["main_path"], "rphmm"
             else:
                 m = report["main_path_shapes"][name]
                 path = "polish" if name.startswith("K3") else "phase"
+            if not name.startswith("K5"):
+                launches = report[path]["launches"][name]
             kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": rep,
-                            "launches": report[path]["launches"][name],
+                            "replaces": rep, "launches": launches,
                             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                             "plain_ms": m["plain_ms"],
                             "bound_ms": m["bound_ms"],

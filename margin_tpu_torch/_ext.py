@@ -66,7 +66,8 @@ COMPAT = os.path.join(CSRC, "compat")
 DEFLATE_SYSTEM = "libdeflate"
 DEFLATE_STAND_IN = "zlib stand-in"
 
-KERNEL_SOURCES = ("pairhmm_forward", "banded_fb", "banded_seg", "rphmm_fb")
+KERNEL_SOURCES = ("pairhmm_forward", "banded_fb", "banded_seg",
+                  "banded_wide", "rphmm_fb")
 # the shared memory a Hopper block may use (set per kernel with
 # cudaFuncSetAttribute); the kernel wrappers size their layouts by it
 MAX_SMEM = 232_448

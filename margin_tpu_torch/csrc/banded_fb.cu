@@ -1,13 +1,18 @@
 // Kernels K2-fwd and K2-bwd: banded 3-state pair-HMM forward, then
-// backward + posterior, over a pack of problems, with the full grids in
-// device memory; and K4, K2-bwd's walk summing the Baum-Welch transition
-// expectations of every band cell into a (3, 3) matrix a problem.
+// backward + posterior, over a pack of problems, with the forward grid in
+// device memory. K2-bwd has three instances of one walk: POST writes the
+// (rows, 3, W) posterior grid; WORDS writes no grid and emits every
+// posterior cell at or above a threshold as the extraction's two int32
+// words; EXP (K4) sums the Baum-Welch transition expectations of every
+// band cell into a (3, 3) matrix a problem.
 //
 // Replaces: margin_tpu/ops/pallas_banded.py:_fwd_kernel (:174) and
 // _bwd_kernel (:253), launched by _fb_pallas (:390, :426), plus the total
-// at (lx+ly, k_final) with the end weights (:401-411); K4 the expectations
-// pass of margin_tpu/ops/banded.py:_banded_fb_core (:267,
-// compute_expectations :478-486, an XLA scan).
+// at (lx+ly, k_final) with the end weights (:401-411); WORDS also the
+// XLA extraction margin_tpu/ops/banded.py:_device_extract_flat (:704) /
+// _device_extract_packed (:747); K4 the expectations pass of
+// margin_tpu/ops/banded.py:_banded_fb_core (:267, compute_expectations
+// :478-486, an XLA scan).
 //
 // What bounds them on this card: the latency of each problem's serial
 // walk over its anti-diagonals. The work is ~100 float operations a band
@@ -46,9 +51,19 @@
 //     chunk to the grid with one bulk asynchronous copy (cp.async.bulk)
 //     while the block walks the next: on the H100 a direct global store
 //     a diagonal cost the forward step up to a third at W = 128 (PERF.md).
-//     K2-bwd stores each diagonal's posteriors exp(min(f + b - total, 0))
-//     (0 outside the band) to the grid as coalesced stores: its row
-//     buffers hold the staged forward rows.
+//     K2-bwd POST stores each diagonal's posteriors exp(min(f + b -
+//     total, 0)) (0 outside the band) to the grid as coalesced stores: its
+//     row buffers hold the staged forward rows.
+//   * K2-bwd WORDS selects, from each diagonal's posteriors in registers,
+//     the cells ops/banded.py:extract_packed selects (>= threshold; x > 0
+//     for gapX, y > 0 for gapY, both for a match; a cell outside the band
+//     has posterior 0) and stages their words per warp in shared memory
+//     with a ballot per state, with one atomicAdd on the count a flush
+//     (banded_step.cuh: stage_words, flush_words, as K3-bwd). The words
+//     need W <= 128 (k, 7 bits), B <= 128 (3b+s, 9 bits) and d < 2^22;
+//     the wrapper checks the pack before the launch. A grid of the phase
+//     run's largest pack (126,020 rows at W = 128) is 194 MB written and
+//     read back by torch ops without it; the words are a few MB.
 // The per-cell arithmetic is banded_cell.cuh's, shared with K3, so every
 // cell equals K3's and the plain twins' bit for bit; built with
 // --fmad=false.
@@ -60,10 +75,25 @@ namespace {
 
 // Shared-memory layout of a K2 block, in bytes; ops/cuda_banded.py:k2_smem
 // mirrors it. A staging buffer carries the chunk's forward rows: K2-fwd
-// writes them there for a bulk copy to the grid, K2-bwd reads them.
-__host__ __device__ inline Layout k2_layout(int W, int C, bool rle) {
-  return layout(W, C, rle, C * 3 * W * 4, 0);
+// writes them there for a bulk copy to the grid, K2-bwd reads them. The
+// WORDS instance's tail holds the staged words.
+__host__ __device__ inline Layout k2_layout(int W, int C, bool rle,
+                                            bool words = false) {
+  return layout(W, C, rle, C * 3 * W * 4, words ? WORDS_PER_BLOCK * 8 : 0);
 }
+
+// What K2-bwd's walk writes (see the header).
+enum BwdOut { OUT_POST, OUT_EXP, OUT_WORDS };
+
+// The WORDS instance's outputs: the count of selected cells (all of
+// them, also beyond cap) and the first cap words.
+struct WordsOut {
+  float threshold;
+  int* count;
+  int* lo;
+  int* hi;
+  int cap;
+};
 
 template <bool LUT, bool RLE, int NW>
 __global__ void __launch_bounds__(32 * NW)
@@ -139,19 +169,22 @@ __global__ void __launch_bounds__(32 * NW)
     totals[b] = corner_value<LUT>(a.end_w + b * 3, p1.v[0], p1.v[1], p1.v[2]);
 }
 
-// K2-bwd (POST) and K4 (EXP): the same backward walk. POST stores each
-// diagonal's posteriors; EXP sums each band cell's nine transition
-// expectations (updateExpectations, pairwiseAligner.c:349-366) into the
-// lane's own nine running sums, from the "to" terms the step hands out and
-// the staged forward row, and the block reduces them once at the end
-// (warp shuffles, then the warps in order) into exp_all[b] (3 x 3, [from,
-// to]). No barrier is added to the walk.
-template <bool LUT, bool RLE, int NW, bool POST, bool EXP>
+// K2-bwd (POST, WORDS) and K4 (EXP): the same backward walk. POST stores
+// each diagonal's posteriors; WORDS stages the selected posterior cells'
+// words (flushed when a warp's buffer nears full and at the end); EXP
+// sums each band cell's nine transition expectations (updateExpectations,
+// pairwiseAligner.c:349-366) into the lane's own nine running sums, from
+// the "to" terms the step hands out and the staged forward row, and the
+// block reduces them once at the end (warp shuffles, then the warps in
+// order) into exp_all[b] (3 x 3, [from, to]). No barrier is added to the
+// walk.
+template <bool LUT, bool RLE, int NW, int OUT>
 __global__ void __launch_bounds__(32 * NW)
     k2_bwd_kernel(BandArgs a, const float* fwd_all, const float* totals,
-                  float* post_all, float* exp_all, int W, int C) {
+                  float* post_all, float* exp_all, WordsOut wo, int W,
+                  int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = k2_layout(W, C, RLE);
+  const Layout L = k2_layout(W, C, RLE, OUT == OUT_WORDS);
   const int b = blockIdx.x;
   const int k = threadIdx.x;
   const Ctx c = context(a, b, W);
@@ -169,9 +202,12 @@ __global__ void __launch_bounds__(32 * NW)
   float acc[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) acc[i] = 0.0f;
+  constexpr int WCAP = WORDS_PER_BLOCK / NW;  // a warp's staged words
+  int2* const wbuf = (int2*)(smem + L.tail) + (k >> 5) * WCAP;
+  int wc = 0;
   const float total = totals[b];
   const float* fwd = fwd_all + a.geo_off[b] * 3 * W;
-  float* post = POST ? post_all + a.geo_off[b] * 3 * W : nullptr;
+  float* post = OUT == OUT_POST ? post_all + a.geo_off[b] * 3 * W : nullptr;
   const int n_chunk = c.D / C + 1;
   unsigned char* const buf0 = smem + L.stage0;  // staging buffers i & 1
   const int last0 = (n_chunk - 1) * C;
@@ -202,19 +238,28 @@ __global__ void __launch_bounds__(32 * NW)
                         step, to);
       Diag f;
       load_row(st.rows + (g - d0) * 3 * W, W, k, f);
-      if (EXP && in.vm) add_expectations(f.v, to, tm, total, acc);
-      if (POST) {
+      if (OUT == OUT_EXP && in.vm) add_expectations(f.v, to, tm, total, acc);
+      if (OUT != OUT_EXP) {
 #pragma unroll
         for (int s = 0; s < 3; ++s)
           f.v[s] = posterior(in.vm, f.v[s], nd.v[s], total);
-        store_row(post + (size_t)g * 3 * W, W, k, f);
+      }
+      if (OUT == OUT_POST) store_row(post + (size_t)g * 3 * W, W, k, f);
+      if (OUT == OUT_WORDS) {
+        const int xm = st.xm[g - cur.gl];
+        stage_words(f.v, x_base_of(g, xm) + 1 + k > 0,
+                    y_base_of(g, xm) + 1 - k > 0, k, W, wo.threshold, g, b,
+                    wbuf, wc);
+        if (wc > WCAP - 3 * 32)
+          flush_words(wbuf, wc, wo.count, wo.lo, wo.hi, wo.cap);
       }
       n2 = n1;
       n1 = nd;
     }
     cur = nxt;
   }
-  if (EXP) {
+  if (OUT == OUT_WORDS) flush_words(wbuf, wc, wo.count, wo.lo, wo.hi, wo.cap);
+  if (OUT == OUT_EXP) {
 #pragma unroll
     for (int i = 0; i < 9; ++i)
 #pragma unroll
@@ -248,19 +293,21 @@ int launch_fwd(const BandArgs& a, void** q, int B, int W, int C, int smem,
   return (int)cudaGetLastError();
 }
 
-template <bool POST, bool EXP>
+template <int OUT>
 struct Bwd {
   template <bool LUT, bool RLE, int NW>
-  static int launch(const BandArgs& a, void** q, int B, int W, int C,
-                    int smem, cudaStream_t st) {
-    auto kern = k2_bwd_kernel<LUT, RLE, NW, POST, EXP>;
+  static int launch(const BandArgs& a, void** q, const WordsOut& wo, int B,
+                    int W, int C, int smem, cudaStream_t st) {
+    auto kern = k2_bwd_kernel<LUT, RLE, NW, OUT>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     // q: fwd, totals, then the posterior grid (POST) or the expectations
+    // (EXP); WORDS writes through wo
     kern<<<B, 32 * NW, smem, st>>>(a, (const float*)q[0], (const float*)q[1],
-                                   POST ? (float*)q[2] : nullptr,
-                                   EXP ? (float*)q[2] : nullptr, W, C);
+                                   OUT == OUT_POST ? (float*)q[2] : nullptr,
+                                   OUT == OUT_EXP ? (float*)q[2] : nullptr, wo,
+                                   W, C);
     return (int)cudaGetLastError();
   }
 };
@@ -272,33 +319,40 @@ int forward_block(const BandArgs& a, void** q, int B, int W, int C, int smem,
 }
 
 template <bool LUT, bool RLE, class K>
-int backward_block(const BandArgs& a, void** q, int B, int W, int C,
-                   int smem, cudaStream_t st) {
-  BLOCK_OF_WIDTH(K::template launch, a, q, B, W, C, smem, st)
+int backward_block(const BandArgs& a, void** q, const WordsOut& wo, int B,
+                   int W, int C, int smem, cudaStream_t st) {
+  BLOCK_OF_WIDTH(K::template launch, a, q, wo, B, W, C, smem, st)
 }
 
-template <class K>
+template <int OUT>
 int backward_entry(void** ptrs, int B, int W, int C, int use_lut, int smem,
-                   void* stream) {
+                   const WordsOut& wo, void* stream) {
   if (B == 0) return 0;
   const BandArgs a = band_args(ptrs);
   const bool rle = a.rep_x != nullptr;
-  if (C < 1 || smem < k2_layout(W, C, rle).total)
+  if (C < 1 || smem < k2_layout(W, C, rle, OUT == OUT_WORDS).total)
     return (int)cudaErrorInvalidValue;
   void** q = ptrs + BAND_ARGS_N;
   cudaStream_t st = (cudaStream_t)stream;
+  using K = Bwd<OUT>;
   if (use_lut)
-    return rle ? backward_block<true, true, K>(a, q, B, W, C, smem, st)
-               : backward_block<true, false, K>(a, q, B, W, C, smem, st);
-  return rle ? backward_block<false, true, K>(a, q, B, W, C, smem, st)
-             : backward_block<false, false, K>(a, q, B, W, C, smem, st);
+    return rle ? backward_block<true, true, K>(a, q, wo, B, W, C, smem, st)
+               : backward_block<true, false, K>(a, q, wo, B, W, C, smem, st);
+  return rle ? backward_block<false, true, K>(a, q, wo, B, W, C, smem, st)
+             : backward_block<false, false, K>(a, q, wo, B, W, C, smem, st);
 }
 
 }  // namespace
 
-// Shared-memory bytes of a K2 block (K2-fwd's and K2-bwd's are alike).
+// Shared-memory bytes of a K2 block (K2-fwd's, K2-bwd POST's and K4's are
+// alike).
 extern "C" int k2_smem_bytes(int W, int C, int rle) {
   return k2_layout(W, C, rle != 0).total;
+}
+
+// Shared-memory bytes of a K2-bwd WORDS block.
+extern "C" int k2_words_smem_bytes(int W, int C, int rle) {
+  return k2_layout(W, C, rle != 0, true).total;
 }
 
 // ptrs: the 18 BandArgs pointers in field order (rep_* may be null), then
@@ -324,14 +378,26 @@ extern "C" int k2_forward(void** ptrs, int B, int W, int C, int use_lut,
 // k2_smem_bytes(W, C, rle).
 extern "C" int k2_backward(void** ptrs, int B, int W, int C, int use_lut,
                            int smem, void* stream) {
-  return backward_entry<Bwd<true, false>>(ptrs, B, W, C, use_lut, smem,
-                                          stream);
+  return backward_entry<OUT_POST>(ptrs, B, W, C, use_lut, smem, WordsOut{},
+                              stream);
+}
+
+// K2-bwd WORDS: ptrs: the 18 BandArgs pointers, then fwd, totals, count
+// (1 int, zeroed), lo, hi (cap ints each); smem at least
+// k2_words_smem_bytes(W, C, rle). count ends as the number of selected
+// cells; the words beyond cap are dropped.
+extern "C" int k2_backward_words(void** ptrs, int B, int W, int C,
+                                 int use_lut, int smem, float threshold,
+                                 int cap, void* stream) {
+  void** q = ptrs + BAND_ARGS_N;
+  const WordsOut wo{threshold, (int*)q[2], (int*)q[3], (int*)q[4], cap};
+  return backward_entry<OUT_WORDS>(ptrs, B, W, C, use_lut, smem, wo, stream);
 }
 
 // K4, the transition expectations: ptrs: the 18 BandArgs pointers, then
 // fwd, totals, exp (B, 3, 3); smem at least k2_smem_bytes(W, C, rle).
 extern "C" int k2_expectations(void** ptrs, int B, int W, int C,
                                int use_lut, int smem, void* stream) {
-  return backward_entry<Bwd<false, true>>(ptrs, B, W, C, use_lut, smem,
-                                          stream);
+  return backward_entry<OUT_EXP>(ptrs, B, W, C, use_lut, smem, WordsOut{},
+                             stream);
 }

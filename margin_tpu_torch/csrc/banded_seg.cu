@@ -68,8 +68,6 @@ using namespace margin;
 
 namespace {
 
-constexpr int WORDS_PER_BLOCK = 1024;  // extraction words staged per block
-
 // Shared-memory layout of a K3 block, in bytes; ops/cuda_banded.py:k3_smem
 // mirrors it. A staging buffer carries, K3-bwd, the segment's checkpoint
 // (6W floats); the block's tail holds, K3-bwd, the recomputed (S, 3, W)
@@ -78,30 +76,6 @@ __host__ __device__ inline Layout k3_layout(int W, int S, bool rle,
                                             bool bwd) {
   return layout(W, S, rle, bwd ? 6 * W * 4 : 0,
                 bwd ? S * 3 * W * 4 + WORDS_PER_BLOCK * 8 : 0);
-}
-
-// Write a warp's staged words out: one atomicAdd reserves their places.
-// wc is uniform across the warp.
-__device__ __forceinline__ void flush_words(const int2* wbuf, int& wc,
-                                            int* count, int* lo_buf,
-                                            int* hi_buf, int cap) {
-  const int lane = threadIdx.x & 31;
-  __syncwarp();
-  if (wc > 0) {
-    int base = 0;
-    if (lane == 0) base = atomicAdd(count, wc);
-    base = __shfl_sync(FULL, base, 0);
-    for (int i = lane; i < wc; i += 32) {
-      const int idx = base + i;
-      if (idx < cap) {
-        const int2 v = wbuf[i];
-        lo_buf[idx] = v.x;
-        hi_buf[idx] = v.y;
-      }
-    }
-    wc = 0;
-  }
-  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -175,7 +149,7 @@ __global__ void __launch_bounds__(32 * NW)
   const Layout L = k3_layout(W, S, RLE, true);
   const int b = blockIdx.x;
   const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
+  const int warp = k >> 5;
   const Ctx c = context(a, b, W);
   const Smem sm = smem_of(smem, L);
   float tr[9];
@@ -190,7 +164,6 @@ __global__ void __launch_bounds__(32 * NW)
   constexpr int WCAP = WORDS_PER_BLOCK / NW;
   int2* wbuf = (int2*)(smem + L.tail + S * 3 * W * 4) + warp * WCAP;
   int wc = 0;
-  const unsigned below = (1u << lane) - 1u;
   const int n_seg = c.D / S + 1;
   unsigned char* const buf0 = smem + L.stage0;  // staging buffers i & 1
   const int last0 = (n_seg - 1) * S;
@@ -266,20 +239,9 @@ __global__ void __launch_bounds__(32 * NW)
       Diag q;
       load_row(blk + (size_t)(g - d0) * 3 * W, W, k, q);
       const int xm = st.xm[g - cur.gl];
-      const bool x_ok = x_base_of(g, xm) + 1 + k > 0;
-      const bool y_ok = y_base_of(g, xm) + 1 - k > 0;
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        const bool need = s == 0 ? x_ok && y_ok : s == 1 ? x_ok : y_ok;
-        const float p = q.v[s];
-        const bool sel = p >= threshold && need && k < W;
-        const unsigned m = __ballot_sync(FULL, sel);
-        if (sel)
-          wbuf[wc + __popc(m & below)] = make_int2(
-              (int)floorf(fminf(p, 1.0f) * 10000000.0f) | (k << 24),
-              g | ((3 * b + s) << 22));
-        wc += __popc(m);
-      }
+      stage_words(q.v, x_base_of(g, xm) + 1 + k > 0,
+                  y_base_of(g, xm) + 1 - k > 0, k, W, threshold, g, b, wbuf,
+                  wc);
       if (wc > WCAP - 3 * 32) flush_words(wbuf, wc, count, lo_buf, hi_buf, cap);
     }
     flush_words(wbuf, wc, count, lo_buf, hi_buf, cap);

@@ -488,6 +488,62 @@ __device__ __forceinline__ void bwd_step(const Smem& sm, const float* tr,
                     to);
 }
 
+// ---------------------------------------------------------------------------
+// extraction words (K3-bwd, K2-bwd's WORDS instance): every posterior cell
+// at or above the threshold as two int32 words, lo = floor(min(p,1)*1e7) |
+// k << 24, hi = d | (3b+s) << 22 (ops/banded.py:extract_packed), staged
+// per warp in shared memory and written out with one atomicAdd a flush
+// ---------------------------------------------------------------------------
+
+constexpr int WORDS_PER_BLOCK = 1024;  // extraction words staged per block
+
+// Stage a lane's selected cells of diagonal g of problem b: state s is
+// selected when p[s] >= threshold, k < W and x (gapX), y (gapY) or both
+// (match) lie past 0; a ballot per state places them in the warp's buffer
+// wbuf after its wc staged words (wc stays uniform across the warp).
+__device__ __forceinline__ void stage_words(const float p[3], bool x_ok,
+                                            bool y_ok, int k, int W,
+                                            float threshold, int g, int b,
+                                            int2* wbuf, int& wc) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const bool need = s == 0 ? x_ok && y_ok : s == 1 ? x_ok : y_ok;
+    const bool sel = p[s] >= threshold && need && k < W;
+    const unsigned m = __ballot_sync(FULL, sel);
+    if (sel)
+      wbuf[wc + __popc(m & below)] =
+          make_int2((int)floorf(fminf(p[s], 1.0f) * 10000000.0f) | (k << 24),
+                    g | ((3 * b + s) << 22));
+    wc += __popc(m);
+  }
+}
+
+// Write a warp's staged words out: one atomicAdd reserves their places.
+// wc is uniform across the warp. Every word is counted; words beyond cap
+// are dropped (the host launches again with the exact count).
+__device__ __forceinline__ void flush_words(const int2* wbuf, int& wc,
+                                            int* count, int* lo_buf,
+                                            int* hi_buf, int cap) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  if (wc > 0) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(count, wc);
+    base = __shfl_sync(FULL, base, 0);
+    for (int i = lane; i < wc; i += 32) {
+      const int idx = base + i;
+      if (idx < cap) {
+        const int2 v = wbuf[i];
+        lo_buf[idx] = v.x;
+        hi_buf[idx] = v.y;
+      }
+    }
+    wc = 0;
+  }
+  __syncwarp();
+}
+
 }  // namespace margin
 
 // The block of a width: NW = max(W, 32) / 32 warps; LAUNCH<LUT, RLE, NW>

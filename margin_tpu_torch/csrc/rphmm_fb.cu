@@ -28,9 +28,14 @@
 //     The column's profile probabilities (A alleles x D reads, uint8) are
 //     staged in shared memory when they fit beside the scratch (up to
 //     ~3600 alleles at 64 reads), else read from device memory through
-//     L1; a cell's read bits come straight from its uint64 partition. With the ancestor, a thread keeps a site's two
-//     allele sums in a shared-memory scratch of 2 x As ints a thread for
-//     the min-plus over the substitution matrix.
+//     L1; a cell's read bits come straight from its uint64 partition.
+//     With the ancestor, a thread keeps a site's two allele sums in a
+//     scratch of 2 x As ints a thread for the min-plus over the
+//     substitution matrix: in shared memory up to 227 alleles a site, else
+//     in the block's own slice of a device-memory buffer the wrapper
+//     allocates (laid out a thread a column, so a warp's accesses
+//     coalesce). int32 sums are exact in any order, so either place gives
+//     the twin's values bit for bit.
 //   * k6_chain: one block walks the columns forward, then backward, a
 //     thread a cell. The merge vectors are the carry: column ci scatters
 //     its forward values into merge row ci with atomicMax (order-free on
@@ -55,10 +60,12 @@ struct Dims {
 };
 
 // The shared memory of an emissions block: the staged profile bytes (when
-// staged), then the ancestor scratch.
+// staged), then the ancestor scratch (when it is kept there,
+// sums_shared); ops/rphmm_fb.py:emission_smem chooses the layout.
 inline int emission_smem(int A, int D, int As, int threads, bool ancestor,
-                         bool staged) {
-  return (staged ? A * D : 0) + (ancestor ? 2 * As * threads * 4 : 0);
+                         bool staged, bool sums_shared) {
+  return (staged ? A * D : 0) +
+         (ancestor && sums_shared ? 2 * As * threads * 4 : 0);
 }
 
 __global__ void k6_emissions(const long long* __restrict__ parts,
@@ -69,14 +76,15 @@ __global__ void k6_emissions(const long long* __restrict__ parts,
                              const int* __restrict__ site_a,
                              const int* __restrict__ sub,
                              const int* __restrict__ prior,
-                             int* __restrict__ em, Dims dm, int ancestor,
-                             int staged) {
+                             int* __restrict__ em, int* sums, Dims dm,
+                             int ancestor, int staged, int sums_shared) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ci = blockIdx.x;
   const int T = blockDim.x;
   const int tid = threadIdx.x;
   const uint8_t* pcol = pt + (size_t)ci * dm.A * dm.D;
-  int* scratch = (int*)smem;
+  int* scratch = sums_shared ? (int*)smem
+                             : sums + (size_t)ci * 2 * dm.As * T;
   if (staged) {
     // the column's A x D profile bytes, D a multiple of 4 (the pack pads
     // it), so the scratch after them stays int-aligned
@@ -85,7 +93,7 @@ __global__ void k6_emissions(const long long* __restrict__ parts,
     int* dst = (int*)smem;
     for (int i = tid; i < n4; i += T) dst[i] = src[i];
     pcol = smem;
-    scratch = (int*)(smem + dm.A * dm.D);
+    if (sums_shared) scratch = (int*)(smem + dm.A * dm.D);
   }
   __syncthreads();
   const int d = depth[ci];
@@ -209,6 +217,8 @@ __global__ void k6_chain(const int* __restrict__ n_cells,
 
 // threads: of an emissions block; smem: the block's shared memory, as the
 // wrapper computed it; staged: whether the profile bytes are in it;
+// sums_shared: whether the ancestor's allele sums are, else sums holds
+// them (ncol x 2 x As x threads ints; may be null without the ancestor);
 // chain_threads: of the chain's block. Returns
 // cudaGetLastError() after both launches (refused: cudaErrorInvalidValue).
 extern "C" int k6_rphmm_fb(const void* parts, const void* n_cells,
@@ -217,14 +227,17 @@ extern "C" int k6_rphmm_fb(const void* parts, const void* n_cells,
                            const void* site_a, const void* sub,
                            const void* prior, const void* idx_prev,
                            const void* idx_next, void* em, void* fwd,
-                           void* bwd, void* m_fwd, void* m_bwd, int ncol,
-                           int C, int D, int A, int S, int As, int M,
-                           int ancestor, int threads, int smem,
-                           int staged, int chain_threads, void* stream) {
+                           void* bwd, void* m_fwd, void* m_bwd, void* sums,
+                           int ncol, int C, int D, int A, int S, int As,
+                           int M, int ancestor, int threads, int smem,
+                           int staged, int sums_shared, int chain_threads,
+                           void* stream) {
   const Dims dm{ncol, C, D, A, S, As, M};
   if (ncol <= 0 || C <= 0 || M <= 0 || D % 4 != 0 || threads <= 0 ||
       threads > 1024 || chain_threads <= 0 || chain_threads > 1024 ||
-      smem < emission_smem(A, D, As, threads, ancestor != 0, staged != 0))
+      smem < emission_smem(A, D, As, threads, ancestor != 0, staged != 0,
+                           sums_shared != 0) ||
+      (ancestor && !sums_shared && sums == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (smem > 48 * 1024) {
@@ -235,7 +248,8 @@ extern "C" int k6_rphmm_fb(const void* parts, const void* n_cells,
   k6_emissions<<<ncol, threads, smem, st>>>(
       (const long long*)parts, (const int*)depth, (const int*)n_sites,
       (const uint8_t*)pt, (const int*)site_off, (const int*)site_a,
-      (const int*)sub, (const int*)prior, (int*)em, dm, ancestor, staged);
+      (const int*)sub, (const int*)prior, (int*)em, (int*)sums, dm, ancestor,
+      staged, sums_shared);
   k6_chain<<<1, chain_threads, 0, st>>>(
       (const int*)n_cells, (const int*)idx_prev, (const int*)idx_next,
       (const int*)em, (int*)fwd, (int*)bwd, (int*)m_fwd, (int*)m_bwd, dm);

@@ -29,12 +29,15 @@ CUDA block walks each problem's own depth. The single-item
 takes the same pack route here. On a CUDA device a wide band with no
 host engine raises (nothing carries on on the CPU twins); on the CPU the
 twins take it. The worker-process branch and the cross-chunk funnel
-`_FbFunnel` wait for a later slice; results do not depend on them.
+`_FbFunnel` wait for a later slice; results do not depend on them. A pack
+on the card goes through K2-fwd and K2-bwd's WORDS instance, which emits
+the extraction words itself (no posterior grid); `extract_packed`, the
+torch-op extraction, is the WORDS instance's plain twin's second half.
 
 The transition expectations (`banded_expectations(_many)`, Baum-Welch EM)
 take K2-fwd and then K4 for any band up to 128 cells wide, whatever its
-depth; a wider band raises on a CUDA device (ROADMAP queue 2, K5) and runs
-on the twins on the CPU.
+depth, and K5-fwd and then K5-exp (csrc/banded_wide.cu) for a wider one;
+the plain twins on the CPU.
 """
 
 from __future__ import annotations
@@ -340,10 +343,11 @@ def banded_posteriors_many(tables, items, expansion: int,
     elif host_idx:
         if _on_card(tables):
             raise RuntimeError(
-                f"{len(host_idx)} bands wider than 128 cells need the host "
-                "banded engine (native/marginfb.cc, "
+                f"the posteriors of {len(host_idx)} bands wider than 128 "
+                "cells need the host banded engine (native/marginfb.cc, "
                 "margin_tpu_torch/_build/libmarginfb.so), which did not "
-                "build or load")
+                f"build or load ({K5_ITEM}: wide posteriors stay on the "
+                "host)")
         # on the CPU without the host engine the plain twins take the wide
         # bands, as the JAX package's pure-XLA scan does there
         for i in host_idx:
@@ -388,11 +392,11 @@ def _round8(w: int) -> int:
 
 def _solve_pack(tables, items, geoms, w_pad, use_rle, expansion, use_lut,
                 dynamic, threshold, refs):
-    post, totals, pack = cuda_banded.fb_posteriors_group(
-        tables, items, w_pad, expansion, use_lut, dynamic, use_rle,
-        geoms_in=geoms, device=tables.device)
     t0 = time.perf_counter()
-    packed = extract_packed(post, totals, pack, threshold).cpu().numpy()
+    packed, pack = cuda_banded.fb_posteriors_words(
+        tables, items, w_pad, expansion, use_lut, dynamic, use_rle,
+        threshold, geoms_in=geoms, device=tables.device)
+    packed = packed.cpu().numpy()
     _store_pack_results(refs, packed, pack, time.perf_counter() - t0)
 
 
@@ -411,57 +415,59 @@ def _solve_seg_pack(tables, items, geoms, w_pad, use_rle, expansion,
 # transition expectations (Baum-Welch)
 # ---------------------------------------------------------------------------
 
+# The ROADMAP's title of the wide-band forward-backward: its forward and
+# expectation halves are kernels K5-fwd / K5-exp (csrc/banded_wide.cu);
+# wide posteriors stay on the host engine, as margin_tpu routes them.
 K5_ITEM = "ROADMAP queue 2, K5: the wide-band forward-backward"
 
 
 def expectation_packs(tables, items, expansion: int, dynamic: bool = False):
-    """The packs banded_expectations_many launches K2-fwd and K4 on, built
-    one at a time: yields (item indices, BandPack). Every item whose band
-    is at most 128 cells wide goes, packed by width bucket, into a pack
-    whatever its depth; the expectations need no segmented route. On a
-    CUDA device a wider band raises NotImplementedError (K5); on the CPU
-    it gets a pack of its own for the plain twins. Empty items get none."""
+    """The packs banded_expectations_many launches on, built one at a
+    time: yields (item indices, BandPack). Items go by band width and RLE
+    state into packs of at most 128 problems, deepest first, whose grids
+    stay within cuda_banded.FB_GRID_BUDGET_BYTES: a band of at most 128
+    cells at its width bucket (16, 32, 64, 128) for K2-fwd and K4,
+    whatever its depth (the expectations need no segmented route); a wider
+    band at its width rounded up to 8 (the JAX package's w_pad) for K5-fwd
+    and K5-exp (a pack of W > 128). Empty items get none."""
     buckets: dict = {}        # (w_pad, use_rle) -> [(lx+ly, i)]
-    wide = []                 # (w_pad, use_rle, i): one pack each
     for i, it in enumerate(items):
         lx, ly = len(it["x_sym"]), len(it["y_sym"])
         if lx + ly == 0:
             continue
         geom = _item_geom(it, expansion, dynamic)
         use_rle = it.get("rep_x") is not None and tables.repeat is not None
-        if geom.w_pad <= 128:
-            w = _bucket_w(geom.w_pad)
-            if cuda_banded.grid_bytes(lx + ly + 1, w) \
-                    > cuda_banded.FB_GRID_BUDGET_BYTES:
-                raise ValueError(
-                    f"a problem of {lx + ly + 1} diagonals: its forward grid "
-                    "exceeds cuda_banded.FB_GRID_BUDGET_BYTES")
-            buckets.setdefault((w, use_rle), []).append((lx + ly, i))
-        elif _on_card(tables):
-            raise NotImplementedError(
-                f"transition expectations of a band {geom.w_pad} cells "
-                f"wide: bands wider than 128 cells wait for a kernel "
-                f"({K5_ITEM})")
-        else:
-            wide.append((_round8(geom.w_pad), use_rle, i))
-    packs = [(w, rle, idxs) for (w, rle), entries in buckets.items()
-             for idxs in _packs(entries, w, False)]
-    for w, rle, idxs in packs + [(w, rle, [i]) for w, rle, i in wide]:
-        yield idxs, cuda_banded._pack_host(
-            tables, [items[i] for i in idxs], w, expansion, dynamic, rle,
-            [items[i]["_geom"] for i in idxs], device=tables.device)
+        w = _bucket_w(geom.w_pad) if geom.w_pad <= 128 else \
+            _round8(geom.w_pad)
+        if cuda_banded.grid_bytes(lx + ly + 1, w) \
+                > cuda_banded.FB_GRID_BUDGET_BYTES:
+            raise ValueError(
+                f"a problem of {lx + ly + 1} diagonals: its forward grid "
+                "exceeds cuda_banded.FB_GRID_BUDGET_BYTES")
+        buckets.setdefault((w, use_rle), []).append((lx + ly, i))
+    for (w, rle), entries in buckets.items():
+        for idxs in _packs(entries, w, False):
+            yield idxs, cuda_banded._pack_host(
+                tables, [items[i] for i in idxs], w, expansion, dynamic, rle,
+                [items[i]["_geom"] for i in idxs], device=tables.device)
 
 
 def banded_expectations_many(tables, items, expansion: int,
                              use_lut: bool = False, dynamic: bool = False):
     """Transition expectations of many problems (items as in
     banded_posteriors_many): a list of (E (3, 3) float64 [from, to]
-    expected transition counts, total log prob) in input order, from
-    K2-fwd and then K4 (fb_expectations) on each of expectation_packs."""
+    expected transition counts, total log prob) in input order, from each
+    of expectation_packs: K2-fwd and then K4 (fb_expectations) on a pack
+    of W <= 128, K5-fwd and then K5-exp (fb_expectations_wide) on a wider
+    one."""
     results = [(np.zeros((3, 3)), 0.0) for _ in items]
     for idxs, pack in expectation_packs(tables, items, expansion, dynamic):
-        fwd, totals = cuda_banded.fb_forward(pack, use_lut)
-        e = cuda_banded.fb_expectations(pack, fwd, totals, use_lut)
+        if pack.W > 128:
+            fwd, totals = cuda_banded.fb_forward_wide(pack, use_lut)
+            e = cuda_banded.fb_expectations_wide(pack, fwd, totals, use_lut)
+        else:
+            fwd, totals = cuda_banded.fb_forward(pack, use_lut)
+            e = cuda_banded.fb_expectations(pack, fwd, totals, use_lut)
         e = e.cpu().numpy().astype(np.float64)
         totals = totals.cpu().numpy()
         for k, i in enumerate(idxs):

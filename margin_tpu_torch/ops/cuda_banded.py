@@ -1,6 +1,8 @@
 """Banded pair-HMM forward-backward over a pack of problems: the
-monolithic kernels K2-fwd / K2-bwd, the transition expectations K4 and the
-segmented kernels K3-fwd / K3-bwd.
+monolithic kernels K2-fwd / K2-bwd (with K2-bwd's WORDS instance, which
+emits the extraction words), the transition expectations K4, the
+wide-band forward and expectations K5-fwd / K5-exp and the segmented
+kernels K3-fwd / K3-bwd.
 
 Counterpart of `margin_tpu/ops/pallas_banded.py` (the one module of the
 port whose name differs from its JAX counterpart's): host prep
@@ -8,12 +10,16 @@ port whose name differs from its JAX counterpart's): host prep
 `_derive_geom` (:546-575), and `fb_posteriors_group` (:738-825), whose two
 Pallas kernels become the CUDA kernels of `csrc/banded_fb.cu`, and
 `fb_posteriors_group_seg` (:1346-1397), whose segmented Pallas kernels
-become those of `csrc/banded_seg.cu`; and the expectations pass of the
-XLA scan `margin_tpu/ops/banded.py:_banded_fb_core` (:267,
-compute_expectations :478-486), which becomes K4: K2-bwd's walk with each
-band cell's nine transition expectations summed in place of its stored
-posteriors (`fb_expectations`). Parity: getPosteriorProbsWithBanding
-(pairwiseAligner.c:706-844).
+become those of `csrc/banded_seg.cu`; the XLA extraction of
+`margin_tpu/ops/banded.py:_device_extract_flat` (:704-756), which becomes
+K2-bwd's WORDS instance (`fb_backward_words`, `fb_posteriors_words`: no
+posterior grid); and the expectations pass of the XLA scan
+`margin_tpu/ops/banded.py:_banded_fb_core` (:267, compute_expectations
+:478-486), which becomes K4: K2-bwd's walk with each band cell's nine
+transition expectations summed in place of its stored posteriors
+(`fb_expectations`), and, for bands wider than 128 cells, K5
+(`csrc/banded_wide.cu`: `fb_forward_wide`, `fb_expectations_wide`).
+Parity: getPosteriorProbsWithBanding (pairwiseAligner.c:706-844).
 
 Layout. A pack holds up to 128 problems, each with its own depth
 D_b = lx+ly+1. Per-diagonal arrays (xmy, width, k_lo) are flat and
@@ -28,14 +34,15 @@ backward through it and compacts the posterior cells above the threshold
 into the extraction words of `banded.extract_packed`. Checkpoints are
 (segments, 2, 3, W), problem b's segments from `seg_layout(pack, S)[0][b]`.
 
-On a CUDA device `fb_forward` / `fb_backward` / `fb_expectations` /
+On a CUDA device `fb_forward` / `fb_backward` / `fb_backward_words` /
+`fb_expectations` / `fb_forward_wide` / `fb_expectations_wide` /
 `seg_forward` / `seg_backward` launch the kernels; on the CPU they run the
 `*_plain` twins, the same recurrences in plain PyTorch vectorised over the
-pack's
-problems (the segmented twins walk the same segments). Both kernel pairs
+pack's problems (the segmented twins walk the same segments). K2 and K3
 walk a problem in chunks of diagonals staged in a block's shared memory,
-so the chunk depth is a property of the launch (`K2_CHUNK`, `SEG_D`) and
-`k2_smem` / `k3_smem` mirror the blocks' layouts.
+so the chunk depth is a property of the launch (`K2_CHUNK`,
+`K2_WORDS_CHUNK`, `SEG_D`) and `k2_smem` / `k3_smem` mirror the blocks'
+layouts.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ FB_GRID_BUDGET_BYTES = 8 << 30
 # JAX package's `_seg_d` (pallas_banded.py:863-870) sized a device-memory
 # scratch instead.
 SEG_STEP = 16
-_K3_WORDS = 1024   # extraction words staged per block (WORDS_PER_BLOCK)
+_WORDS = 1024      # extraction words staged per block (WORDS_PER_BLOCK)
 _MAX_NW = 4        # warps of a block (MAX_NW)
 
 
@@ -98,24 +105,26 @@ def _k3_smem_bytes(w: int, seg_d: int, rle: bool, sweep: str) -> int:
     """The layout of csrc/banded_seg.cu:k3_layout, in bytes."""
     bwd = sweep == "bwd"
     return _block_bytes(w, seg_d, rle, 24 * w if bwd else 0,
-                        12 * seg_d * w + 8 * _K3_WORDS if bwd else 0)
+                        12 * seg_d * w + 8 * _WORDS if bwd else 0)
 
 
-def _k2_smem_bytes(w: int, chunk: int, rle: bool) -> int:
+def _k2_smem_bytes(w: int, chunk: int, rle: bool, words: bool = False) -> int:
     """The layout of csrc/banded_fb.cu:k2_layout, in bytes."""
-    return _block_bytes(w, chunk, rle, 12 * chunk * w, 0)
+    return _block_bytes(w, chunk, rle, 12 * chunk * w,
+                        8 * _WORDS if words else 0)
 
 
-def k2_smem(w: int, chunk: int, rle: bool) -> int:
+def k2_smem(w: int, chunk: int, rle: bool, words: bool = False) -> int:
     """Shared-memory bytes of one K2 block, K2-fwd's or K2-bwd's (one
     layout), at width w and chunk depth `chunk`: the problem's repeat
     table (RLE) and emissions, and two staging buffers of a chunk's
     geometry, symbol and run-length windows and forward rows (K2-fwd
-    writes them, K2-bwd reads them). Raises ValueError for a chunk the
-    block cannot hold."""
+    writes them, K2-bwd reads them); K2-bwd's WORDS instance (words=True)
+    also its staged words. Raises ValueError for a chunk the block cannot
+    hold."""
     if chunk < 1:
         raise ValueError(f"chunk depth must be >= 1, got {chunk}")
-    n = _k2_smem_bytes(w, chunk, rle)
+    n = _k2_smem_bytes(w, chunk, rle, words)
     if n > MAX_SMEM:
         raise ValueError(f"K2 block of {n} bytes at W={w}, C={chunk}, RLE "
                          f"{'on' if rle else 'off'} exceeds the {MAX_SMEM} "
@@ -123,19 +132,23 @@ def k2_smem(w: int, chunk: int, rle: bool) -> int:
     return n
 
 
-def k2_chunk(w: int, rle: bool) -> int:
-    """The deepest chunk whose K2 block fits at width w."""
+def k2_chunk(w: int, rle: bool, words: bool = False) -> int:
+    """The deepest chunk whose K2 block (words: K2-bwd WORDS's) fits at
+    width w."""
     c = 1
-    while _k2_smem_bytes(w, c + 1, rle) <= MAX_SMEM:
+    while _k2_smem_bytes(w, c + 1, rle, words) <= MAX_SMEM:
         c += 1
     return c
 
 
 # Chunk depth of K2-fwd and K2-bwd per (band-width bucket, RLE): what a
 # K2 block holds (443 / 233 / 119 / 60 diagonals at W = 16 / 32 / 64 /
-# 128 with RLE on, a few more without its repeat table).
+# 128 with RLE on, a few more without its repeat table); K2_WORDS_CHUNK
+# the same for K2-bwd's WORDS instance, whose block also stages words.
 K2_CHUNK = {(w, rle): k2_chunk(w, rle) for w in (16, 32, 64, 128)
             for rle in (True, False)}
+K2_WORDS_CHUNK = {(w, rle): k2_chunk(w, rle, True) for w in (16, 32, 64, 128)
+                  for rle in (True, False)}
 
 
 def k3_smem(w: int, seg_d: int, rle: bool, sweep: str) -> int:
@@ -169,6 +182,25 @@ def seg_depth(w: int, rle: bool = True) -> int:
 # holds (the checkpoints grow in number, ~1.4 MB per 45k-diagonal problem
 # at W = 128).
 SEG_D = {w: seg_depth(w) for w in (16, 32, 64, 128)}
+
+
+def _k5_smem_bytes(w: int, ring_shared: bool) -> int:
+    """The layout of csrc/banded_wide.cu:k5_layout, in bytes: the
+    emissions, the block reduction's 32 x 9 sums and (ring_shared) the
+    ring of three diagonals, 3 x 3 x (w + 2) floats."""
+    return 36 * 4 + 32 * 9 * 4 + (36 * (w + 2) if ring_shared else 0)
+
+
+def k5_ring_shared(w: int) -> bool:
+    """Whether a K5 block keeps its ring of diagonals in shared memory (up
+    to ~6400 cells); wider bands keep it in device memory."""
+    return _k5_smem_bytes(w, True) <= MAX_SMEM
+
+
+def k5_threads(w: int) -> int:
+    """Threads of a K5 block: one a cell up to 1024 cells, which stride
+    over wider bands."""
+    return min(1024, _round_up(w, 32))
 
 
 def grid_bytes(n_rows: int, w: int) -> int:
@@ -318,10 +350,15 @@ def derive_geom(pack: BandPack):
 # ---------------------------------------------------------------------------
 
 FB_FORWARD = _Counter()
+# every launch of K2-bwd's backward + posterior walk, POST or WORDS
+# instance; FB_WORDS counts the WORDS instance's alone
 FB_BACKWARD = _Counter()
+FB_WORDS = _Counter()
 FB_EXPECT = _Counter()
 SEG_FORWARD = _Counter()
 SEG_BACKWARD = _Counter()
+FB_FORWARD_WIDE = _Counter()
+FB_EXPECT_WIDE = _Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,8 +369,12 @@ def _k2():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
-    lib.k2_smem_bytes.restype = ctypes.c_int
-    lib.k2_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.k2_backward_words.restype = ctypes.c_int
+    lib.k2_backward_words.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for name in ("k2_smem_bytes", "k2_words_smem_bytes"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -351,13 +392,30 @@ def _k3():
     return lib
 
 
-def _validate(pack: BandPack):
+@functools.lru_cache(maxsize=None)
+def _k5():
+    lib = _ext.kernel_lib("banded_wide")
+    for name in ("k5_forward", "k5_expectations"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+    lib.k5_smem_bytes.restype = ctypes.c_int
+    lib.k5_smem_bytes.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
+def _validate(pack: BandPack, wide: bool = False):
+    """Check a pack's tensors against the kernels' layout: K2 and K3 take
+    the widths (16, 32, 64, 128), K5 (wide) any."""
     dev = pack.device
     B, W, rows = pack.B, pack.W, pack.n_rows
-    if W not in (16, 32, 64, 128):
+    if not wide and W not in (16, 32, 64, 128):
         raise ValueError(f"K2 takes W in (16, 32, 64, 128), got {W}")
+    if W < 1:
+        raise ValueError(f"band width must be >= 1, got {W}")
     if not 0 < B <= 128:
-        raise ValueError(f"K2 takes 1..128 problems, got {B}")
+        raise ValueError(f"a pack holds 1..128 problems, got {B}")
     for name, dtype, shape in (
             ("lxs", torch.int32, (B,)), ("lys", torch.int32, (B,)),
             ("x_off", torch.int64, (B,)), ("y_off", torch.int64, (B,)),
@@ -387,16 +445,16 @@ def _validate_windows(pack: BandPack):
                          "pads them)")
 
 
-def _k2_launch(pack: BandPack, chunk: Optional[int]):
+def _k2_launch(pack: BandPack, chunk: Optional[int], words: bool = False):
     """(chunk, shared-memory bytes) of a K2 launch on a pack: chunk
-    defaults to K2_CHUNK of the pack's width and RLE state; k2_smem raises
-    for a chunk the block cannot hold."""
+    defaults to K2_CHUNK (words: K2_WORDS_CHUNK) of the pack's width and
+    RLE state; k2_smem raises for a chunk the block cannot hold."""
     _validate(pack)
     _validate_windows(pack)
     rle = pack.rep_x is not None
     if chunk is None:
-        chunk = K2_CHUNK[(pack.W, rle)]
-    return chunk, k2_smem(pack.W, chunk, rle)
+        chunk = (K2_WORDS_CHUNK if words else K2_CHUNK)[(pack.W, rle)]
+    return chunk, k2_smem(pack.W, chunk, rle, words)
 
 
 def _args(pack: BandPack, *extra):
@@ -454,6 +512,52 @@ def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     return post
 
 
+def _check_word_budget(pack: BandPack):
+    """The extraction words hold k < 128 and 3b+s < 511, which a pack of
+    W <= 128 and B <= 128 keeps (_validate), and d < 2^22: checked from
+    the problems' depths on the host, before a launch (the ValueError of
+    banded.extract_packed)."""
+    if max(g.lx + g.ly for g in pack.geoms) >= 1 << 22:
+        raise ValueError("pairs exceed the extraction word's bit budget")
+
+
+def fb_backward_words(pack: BandPack, fwd: torch.Tensor,
+                      totals: torch.Tensor, use_lut: bool, threshold: float,
+                      cap: Optional[int] = None,
+                      chunk: Optional[int] = None):
+    """Backward + posterior + extraction of a pack: returns (lo, hi) int32
+    extraction words (banded.extract_packed's), in no particular order; no
+    posterior grid is made. CUDA: K2-bwd's WORDS instance (chunk as in
+    fb_forward, default K2_WORDS_CHUNK), launched again with the exact
+    capacity when the first guess `cap` (K3-bwd's, 2 x rows + 16384)
+    overflows; CPU: fb_words_plain."""
+    if pack.device.type != "cuda":
+        return fb_words_plain(pack, fwd, totals, use_lut, threshold)
+    chunk, smem = _k2_launch(pack, chunk, words=True)
+    _check_word_budget(pack)
+    dev = pack.device
+    _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
+    _check(totals, "totals", torch.float32, (pack.B,), dev)
+    if cap is None:
+        cap = 2 * pack.n_rows + 16384
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    while True:
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        lo = torch.empty(cap, dtype=torch.int32, device=dev)
+        hi = torch.empty(cap, dtype=torch.int32, device=dev)
+        rc = _k2().k2_backward_words(
+            _args(pack, fwd, totals, count, lo, hi), pack.B, pack.W, chunk,
+            int(bool(use_lut)), smem, float(threshold), cap, stream)
+        _ext.check_launch(rc, "banded backward and extraction (K2-bwd "
+                              "WORDS)")
+        FB_BACKWARD.launches += 1
+        FB_WORDS.launches += 1
+        n = int(count.item())
+        if n <= cap:
+            return lo[:n], hi[:n]
+        cap = n
+
+
 def fb_expectations(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
                     use_lut: bool, chunk: Optional[int] = None
                     ) -> torch.Tensor:
@@ -474,6 +578,71 @@ def fb_expectations(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
                                chunk, int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "banded transition expectations (K4)")
     FB_EXPECT.launches += 1
+    return out
+
+
+def _k5_launch(pack: BandPack, ring_shared: Optional[bool]):
+    """(threads, shared-memory bytes, ring_shared, device ring or None) of a
+    K5 launch on a pack; ring_shared defaults to k5_ring_shared(W) (False
+    forces the device-memory ring)."""
+    _validate(pack, wide=True)
+    W = pack.W
+    if ring_shared is None:
+        ring_shared = k5_ring_shared(W)
+    smem = _k5_smem_bytes(W, ring_shared)
+    if smem > MAX_SMEM:
+        raise ValueError(f"K5 block of {smem} bytes at W={W} exceeds the "
+                         f"{MAX_SMEM} bytes of shared memory a block may use")
+    ring = None if ring_shared else torch.empty(
+        pack.B * 9 * (W + 2), dtype=torch.float32, device=pack.device)
+    return k5_threads(W), smem, ring_shared, ring
+
+
+def fb_forward_wide(pack: BandPack, use_lut: bool,
+                    ring_shared: Optional[bool] = None):
+    """Banded forward of a pack of any band width: (fwd (rows, 3, W) f32,
+    totals (B,) f32), fb_forward's results. CUDA: K5-fwd (a block a
+    problem, threads striding over the band, the last three diagonals in
+    shared memory or, ring_shared False, in device memory); CPU: the
+    plain twin."""
+    if pack.device.type != "cuda":
+        return fb_forward_plain(pack, use_lut)
+    threads, smem, ring_shared, ring = _k5_launch(pack, ring_shared)
+    if grid_bytes(pack.n_rows, pack.W) > FB_GRID_BUDGET_BYTES:
+        raise ValueError("pack grids exceed FB_GRID_BUDGET_BYTES")
+    dev = pack.device
+    fwd = torch.empty((pack.n_rows, 3, pack.W), dtype=torch.float32,
+                      device=dev)
+    totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _k5().k5_forward(_args(pack, fwd, totals, ring), pack.B, pack.W,
+                          threads, int(bool(use_lut)), smem, int(ring_shared),
+                          stream)
+    _ext.check_launch(rc, "wide banded forward (K5-fwd)")
+    FB_FORWARD_WIDE.launches += 1
+    return fwd, totals
+
+
+def fb_expectations_wide(pack: BandPack, fwd: torch.Tensor,
+                         totals: torch.Tensor, use_lut: bool,
+                         ring_shared: Optional[bool] = None) -> torch.Tensor:
+    """Transition expectations of a pack of any band width: (B, 3, 3) f32
+    [from, to], fb_expectations' results. CUDA: K5-exp (the backward walk
+    of K5-fwd's block summing each band cell's nine expectations, as K4
+    does); CPU: the plain twin."""
+    if pack.device.type != "cuda":
+        return fb_expectations_plain(pack, fwd, totals, use_lut)
+    threads, smem, ring_shared, ring = _k5_launch(pack, ring_shared)
+    dev = pack.device
+    _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
+    _check(totals, "totals", torch.float32, (pack.B,), dev)
+    out = torch.empty((pack.B, 3, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _k5().k5_expectations(_args(pack, fwd, totals, out, ring), pack.B,
+                               pack.W, threads, int(bool(use_lut)), smem,
+                               int(ring_shared), stream)
+    _ext.check_launch(rc, "wide banded transition expectations (K5-exp)")
+    FB_EXPECT_WIDE.launches += 1
     return out
 
 
@@ -794,6 +963,17 @@ def fb_backward_plain(pack: BandPack, fwd: torch.Tensor,
     return _bwd_plain(pack, fwd, totals, use_lut, expectations=False)
 
 
+def fb_words_plain(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
+                   use_lut: bool, threshold: float):
+    """Plain twin of K2-bwd WORDS: fb_backward_plain's posterior grid, then
+    banded.extract_packed's selection and words. Returns (lo, hi)."""
+    from margin_tpu_torch.ops import banded
+    post = fb_backward_plain(pack, fwd, totals, use_lut)
+    packed = banded.extract_packed(post, totals, pack, threshold)
+    n, B = int(packed[0]), pack.B
+    return packed[1 + B:1 + B + n], packed[1 + B + n:]
+
+
 # [from, to] transitions of the expectations, states (match, gapX, gapY)
 _TMAT = ((T_MM, T_OPEN_X, T_OPEN_Y), (T_M_FROM_GX, T_EXT_X, T_SW_Y),
          (T_M_FROM_GY, T_SW_X, T_EXT_Y))
@@ -944,6 +1124,21 @@ def fb_posteriors_group(tables, items, w_pad: int, expansion: int,
     fwd, totals = fb_forward(pack, use_lut)
     post = fb_backward(pack, fwd, totals, use_lut)
     return post, totals, pack
+
+
+def fb_posteriors_words(tables, items, w_pad: int, expansion: int,
+                        use_lut: bool, dynamic: bool, use_rle: bool,
+                        threshold: float, geoms_in=None, device="cuda"):
+    """Solve one pack (as fb_posteriors_group) into its extraction words:
+    K2-fwd, then K2-bwd WORDS on a CUDA device (the plain twins on the
+    CPU). Returns (the fused int32 readback [count, totals, lo words, hi
+    words] on `device`, pack): banded.extract_packed's words, in another
+    order, with no posterior grid made."""
+    pack = _pack_host(tables, items, w_pad, expansion, dynamic, use_rle,
+                      geoms_in, device)
+    fwd, totals = fb_forward(pack, use_lut)
+    lo, hi = fb_backward_words(pack, fwd, totals, use_lut, threshold)
+    return _fused(totals, lo, hi), pack
 
 
 def _fused(totals, lo, hi) -> torch.Tensor:

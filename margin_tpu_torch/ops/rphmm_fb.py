@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -72,25 +73,33 @@ _P = ctypes.c_void_p
 def _k6():
     lib = _ext.kernel_lib("rphmm_fb")
     lib.k6_rphmm_fb.restype = ctypes.c_int
-    lib.k6_rphmm_fb.argtypes = [_P] * 16 + [ctypes.c_int] * 12 + [_P]
+    lib.k6_rphmm_fb.argtypes = [_P] * 17 + [ctypes.c_int] * 13 + [_P]
     return lib
 
 
-def emission_smem(A: int, D: int, As: int, ancestor: bool):
-    """(bytes, staged): the shared memory of an emissions block
-    (csrc/rphmm_fb.cu:emission_smem). With the ancestor it holds a site's
-    allele sums, 2 x As ints a thread; the column's A x D profile bytes are
-    staged before them when both fit (up to ~3600 alleles at 64 reads),
-    else K6 reads them from device memory. Raises ValueError when the
-    sums alone do not fit (a site of more than 227 alleles)."""
+class EmissionLayout(NamedTuple):
+    """Where an emissions block keeps its data (csrc/rphmm_fb.cu:
+    emission_smem): `bytes` of shared memory; `staged`, whether the
+    column's A x D profile bytes are in it (else K6 reads them from device
+    memory); `sums_shared`, whether a site's allele sums, 2 x As ints a
+    thread with the ancestor, are in it (else in a device-memory slice a
+    block that the wrapper allocates)."""
+    bytes: int
+    staged: bool
+    sums_shared: bool
+
+
+def emission_smem(A: int, D: int, As: int, ancestor: bool) -> EmissionLayout:
+    """The layout of an emissions block. The ancestor's allele sums go to
+    shared memory when they fit (a site of up to 227 alleles), else to
+    device memory; the profile bytes are staged before the shared sums
+    when both fit (up to ~3600 alleles at 64 reads)."""
     scratch = 2 * As * EMISSION_THREADS * 4 if ancestor else 0
-    if A * D + scratch <= _ext.MAX_SMEM:
-        return A * D + scratch, True
-    if scratch > _ext.MAX_SMEM:
-        raise ValueError(f"K6 keeps a site's {As}-allele sums in {scratch} "
-                         "bytes of shared memory, more than "
-                         f"{_ext.MAX_SMEM}")
-    return scratch, False
+    sums_shared = scratch <= _ext.MAX_SMEM
+    shared = scratch if sums_shared else 0
+    staged = A * D + shared <= _ext.MAX_SMEM
+    return EmissionLayout((A * D if staged else 0) + shared, staged,
+                          sums_shared)
 
 
 def rphmm_fb(pk: RphmmPack, include_ancestor: bool):
@@ -110,7 +119,12 @@ def rphmm_fb(pk: RphmmPack, include_ancestor: bool):
     _check(pk.prior, "prior", torch.int32, (ncol, S, As), dev)
     for name in ("idx_prev", "idx_next"):
         _check(getattr(pk, name), name, torch.int32, (ncol, C), dev)
-    smem, staged = emission_smem(A, D, As, include_ancestor)
+    lay = emission_smem(A, D, As, include_ancestor)
+    # the ancestor's allele sums when they do not fit in shared memory: a
+    # slice of 2 x As ints a thread for each column's block
+    sums = (None if lay.sums_shared or not include_ancestor else
+            torch.empty(ncol * 2 * As * EMISSION_THREADS, dtype=torch.int32,
+                        device=dev))
     out = [torch.empty((ncol, C), dtype=torch.int32, device=dev)
            for _ in range(3)]
     out += [torch.empty((ncol, M), dtype=torch.int32, device=dev)
@@ -122,8 +136,10 @@ def rphmm_fb(pk: RphmmPack, include_ancestor: bool):
         pk.n_sites.data_ptr(), pk.pt.data_ptr(), pk.site_off.data_ptr(),
         pk.site_a.data_ptr(), pk.sub.data_ptr(), pk.prior.data_ptr(),
         pk.idx_prev.data_ptr(), pk.idx_next.data_ptr(),
-        *(t.data_ptr() for t in out), ncol, C, D, A, S, As, M,
-        int(bool(include_ancestor)), EMISSION_THREADS, smem, int(staged),
+        *(t.data_ptr() for t in out),
+        None if sums is None else sums.data_ptr(),
+        ncol, C, D, A, S, As, M, int(bool(include_ancestor)),
+        EMISSION_THREADS, lay.bytes, int(lay.staged), int(lay.sums_shared),
         chain_threads, stream)
     _ext.check_launch(rc, "read-partition HMM forward-backward (K6)")
     RPHMM_FB.launches += 1

@@ -319,6 +319,94 @@ def test_k2_launch_config(w, rle):
         cuda_banded.k2_smem(w, 0, rle)
 
 
+def _jax_words(post, pack, totals, threshold):
+    """margin_tpu's _device_extract_packed on a pack's posterior grid,
+    laid out as it takes it ((D, 3, W, B), lane-last): the valid words as
+    sorted int64 keys hi << 32 | lo."""
+    B, W = pack.B, pack.W
+    depth = [g.lx + g.ly + 1 for g in pack.geoms]
+    D = max(depth)
+    post_j = np.zeros((D, 3, W, B), np.float32)
+    xb = np.zeros((B, D), np.int32)
+    yb = np.zeros((B, D), np.int32)
+    off = pack.geo_off.numpy()
+    for b, (g, d) in enumerate(zip(pack.geoms, depth)):
+        post_j[:d, :, :, b] = post[off[b]:off[b] + d]
+        xb[b, :d] = g.x_base[:d]
+        yb[b, :d] = g.y_base[:d]
+    K = int(pack.n_rows * 3 * W)
+    out = np.asarray(jbanded._device_extract_packed(
+        post_j, xb, yb, np.ones(B, bool), totals, threshold, K=K))
+    n = int(out[0])
+    assert np.array_equal(out[1:1 + B].view(np.float32), totals)
+    lo, hi = out[1 + B:1 + B + n], out[1 + B + K:1 + B + K + n]
+    return np.sort((hi.astype(np.int64) << 32) | (lo.astype(np.int64)
+                                                  & 0xFFFFFFFF))
+
+
+@pytest.mark.parametrize("rle", [False, True])
+@pytest.mark.parametrize("w", [32, 128])
+def test_words_plain_match_jax_extraction(w, rle):
+    """fb_words_plain (the plain twin of K2-bwd WORDS: the twin's posterior
+    grid, then extract_packed) against margin_tpu's
+    _device_extract_packed on the same grid: the same words, compared as
+    sorted keys."""
+    pack = _width_pack(w, rle)
+    fwd, totals = cuda_banded.fb_forward_plain(pack, True)
+    post = cuda_banded.fb_backward_plain(pack, fwd, totals, True)
+    lo, hi = cuda_banded.fb_words_plain(pack, fwd, totals, True, 0.01)
+    got = np.sort((hi.numpy().astype(np.int64) << 32)
+                  | (lo.numpy().astype(np.int64) & 0xFFFFFFFF))
+    want = _jax_words(post.numpy(), pack, totals.numpy(), 0.01)
+    assert len(got) > 0
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("w", [64, 128])
+def test_banded_posteriors_many_takes_the_words_route(w, monkeypatch):
+    """banded_posteriors_many solves every pack through
+    fb_posteriors_words (K2-fwd, then K2-bwd WORDS on a card; its twins
+    here), with no posterior grid (fb_posteriors_group is not called), and
+    matches margin_tpu's Pallas route as
+    test_banded_posteriors_many_matches_pallas does."""
+    exp = WIDTH_EXPANSION[w]
+    items = _items(50 + w, False, 6, n=3)
+    for it in items:
+        it["anchors"] = [(a[0], a[1], exp) for a in it["anchors"]]
+    calls = []
+    real = cuda_banded.fb_posteriors_words
+
+    def words(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(out[1].W)
+        return out
+    monkeypatch.setattr(cuda_banded, "fb_posteriors_words", words)
+    monkeypatch.setattr(cuda_banded, "fb_posteriors_group", None)
+    got = banded.banded_posteriors_many(_port_tables(False), _fresh(items),
+                                        exp, threshold=0.01, use_lut=True)
+    assert calls == [w]
+    old = os.environ.get("MARGIN_TPU_PALLAS")
+    os.environ["MARGIN_TPU_PALLAS"] = "interpret"
+    try:
+        want = jbanded.banded_posteriors_many(
+            _jax_tables(False), _fresh(items), exp, threshold=0.01,
+            use_lut=True)
+    finally:
+        if old is None:
+            os.environ.pop("MARGIN_TPU_PALLAS")
+        else:
+            os.environ["MARGIN_TPU_PALLAS"] = old
+    for (gp, gt), (wp, wt) in zip(got, want):
+        assert gt == pytest.approx(wt, abs=2e-3)
+        assert len(gp[0]) > 0
+        for a, b in zip(gp, wp):
+            ka, kb = _pair_dict(a), _pair_dict(b)
+            common = set(ka) & set(kb)
+            assert len(common) >= 0.98 * max(len(ka), len(kb))
+            for key in common:
+                assert abs(ka[key] - kb[key]) <= 2000, key
+
+
 @pytest.mark.cuda
 def test_fb_kernels_match_plain():
     """K2 against its twins at every width bucket, RLE on and off, both
@@ -381,3 +469,46 @@ def test_fb_kernels_refuse_a_chunk_beyond_the_block():
         assert fn(args, pack.B, 128, C, 1, need - 1, stream) != 0
         assert fn(args, pack.B, 128, C, 1, need, stream) == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_k2_bwd_words_match_extraction():
+    """K2-bwd's WORDS instance against K2-bwd POST's grid through
+    extract_packed (the same arithmetic on the card: identical words as
+    sorted keys, both logAdds) and against fb_words_plain under the LUT,
+    at every width bucket, RLE on and off, at its launch's chunk depth,
+    at a chunk of 7 diagonals and with a capacity that overflows (the
+    wrapper launches again with the exact count); its block layout is the
+    wrapper's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    lib = cuda_banded._k2()
+    for w in (16, 32, 64, 128):
+        for rle in (0, 1):
+            C = cuda_banded.K2_WORDS_CHUNK[(w, bool(rle))]
+            assert lib.k2_words_smem_bytes(w, C, rle) == \
+                cuda_banded.k2_smem(w, C, bool(rle), words=True)
+
+    def keys(lo, hi):
+        return torch.sort((hi.long() << 32) | (lo.long() & 0xFFFFFFFF)).values
+    for w in (16, 32, 64, 128):
+        for rle in (False, True):
+            pack = _width_pack(w, rle, "cuda")
+            for use_lut in (True, False):
+                fk, tk = cuda_banded.fb_forward(pack, use_lut)
+                pk = cuda_banded.fb_backward(pack, fk, tk, use_lut)
+                packed = banded.extract_packed(pk, tk, pack, 0.01)
+                n = int(packed[0])
+                want = keys(packed[1 + pack.B:1 + pack.B + n],
+                            packed[1 + pack.B + n:])
+                assert n > 0
+                for chunk, cap in ((None, None), (7, None), (None, 5)):
+                    lo, hi = cuda_banded.fb_backward_words(
+                        pack, fk, tk, use_lut, 0.01, cap=cap, chunk=chunk)
+                    torch.cuda.synchronize()
+                    assert torch.equal(keys(lo, hi), want)
+                if use_lut:
+                    fp, tp = cuda_banded.fb_forward_plain(pack, True)
+                    lp, hp = cuda_banded.fb_words_plain(pack, fp, tp, True,
+                                                        0.01)
+                    assert torch.equal(keys(lp, hp), want)

@@ -1,6 +1,9 @@
 """Port of Baum-Welch EM (margin_tpu_torch.ops.em) and its transition
-expectations (ops.banded.banded_expectations, kernel K4 on a CUDA device)
-against the JAX package's on the same seeded pairs.
+expectations (ops.banded.banded_expectations: kernels K2-fwd and K4 on a
+CUDA device for bands up to 128 cells, K5-fwd and K5-exp for wider ones)
+against the JAX package's on the same seeded pairs, among them pairs
+anchored on their shared kmers as margin's EM anchors them
+(getExpectationsUsingAnchors), whose bands are 130-340 cells wide.
 
 The JAX side runs its XLA scan (`_banded_fb_core` with
 compute_expectations); the CPU runs the port's plain twin
@@ -26,6 +29,7 @@ from margin_tpu.ops import pairhmm as jpairhmm
 from margin_tpu.params import StateMachineParams as JSM
 from margin_tpu_torch.ops import banded, cuda_banded, em, native_fb, pairhmm
 from margin_tpu_torch.params import StateMachineParams
+from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
 
 torch.set_num_threads(1)
 
@@ -56,6 +60,38 @@ def _cases():
         anchors = [(int(a), int(ypos[a]), 6) for a in xa]
         out.append((x, y, anchors, 6, i % 2, i == 1, i == 2))
     return out
+
+
+def _kmer_cases():
+    """(x, y, kmer anchors, expansion 20, strand): three seeded pairs of
+    300-520 bases at ~6% substitutions, deletions and insertions each,
+    anchored by get_kmer_alignment_anchors, whose bands are 130-340 cells
+    wide (K5's case)."""
+    rng = np.random.default_rng(31)
+    out = []
+    while len(out) < 3:
+        lx = int(rng.integers(300, 520))
+        x = rng.integers(0, 4, lx).astype(np.int32)
+        y = []
+        for c in x:
+            r = rng.random()
+            if r < 0.06:
+                continue
+            y.append((c + rng.integers(1, 4)) % 4 if r < 0.12 else c)
+            if r >= 0.12 and rng.random() < 0.042:
+                y.append(rng.integers(0, 4))
+        y = np.array(y, np.int32)
+        anchors = get_kmer_alignment_anchors(x, y, 20)
+        w = banded.BandGeometry.build(anchors, lx, len(y), 20,
+                                      smooth=True).w_pad
+        if 130 <= w <= 340:
+            out.append((x, y, anchors, 20, len(out) % 2))
+    return out
+
+
+def _kmer_items():
+    return [{"x_sym": x, "y_sym": y, "anchors": a, "strand": s}
+            for x, y, a, _, s in _kmer_cases()]
 
 
 def _jax_tables():
@@ -89,11 +125,16 @@ def _assert_expectations(got, want):
 
 
 def jax_reference_without_fma(out_path):
-    """Subprocess body: JAX LUT expectations and totals of every case with
-    XLA's FMA contraction off."""
+    """Subprocess body: JAX LUT expectations and totals of every case and
+    every kmer-anchored case with XLA's FMA contraction off."""
     res = _jax_expectations(True)
+    tabs = _jax_tables()
+    kmer = [jbanded.banded_expectations(tabs, x, y, a, e, s, use_lut=True)
+            for x, y, a, e, s in _kmer_cases()]
     np.savez(out_path, e=np.stack([e for e, _ in res]),
-             totals=np.array([t for _, t in res], np.float64))
+             totals=np.array([t for _, t in res], np.float64),
+             kmer_e=np.stack([e for e, _ in kmer]),
+             kmer_totals=np.array([t for _, t in kmer], np.float64))
 
 
 @pytest.fixture(scope="module")
@@ -194,13 +235,78 @@ def test_wide_band_expectations_on_cpu_match_jax():
 
 
 def test_wide_band_expectations_raise_on_card(monkeypatch):
-    """On a CUDA device a band wider than 128 cells raises and names K5
-    (checked on the CPU with the device check patched)."""
+    """A band wider than 128 cells no longer raises on a CUDA device:
+    expectation_packs puts it in a pack of its width rounded up to 8, on
+    which banded_expectations_many launches K5-fwd and K5-exp, while the
+    narrow bands take K2-fwd and K4 (checked on the CPU with the device
+    check patched and recording stubs in the launchers' place); the
+    results are those of each problem solved alone."""
     rng = np.random.default_rng(9)
     x = rng.integers(0, 4, 200).astype(np.int32)
+    items = [{"x_sym": x, "y_sym": x[:190], "anchors": [], "strand": 0}]
+    items += [dict(it, anchors=list(it["anchors"])) for it in _kmer_items()]
+    narrow = [{"x_sym": x, "y_sym": y, "anchors": a or [], "strand": s}
+              for x, y, a, _, s, _, _ in _cases()[:2]]
+    items += narrow
     monkeypatch.setattr(banded, "_on_card", lambda tables: True)
-    with pytest.raises(NotImplementedError, match="K5"):
-        banded.banded_expectations(_port_tables(), x, x[:190], None, 20, 0)
+    calls = []
+
+    def stub(name, plain):
+        def launch(pack, *args):
+            calls.append((name, pack.W, pack.B))
+            return plain(pack, *args)
+        return launch
+    for attr, name, plain in (
+            ("fb_forward_wide", "K5-fwd", cuda_banded.fb_forward_plain),
+            ("fb_expectations_wide", "K5-exp",
+             cuda_banded.fb_expectations_plain),
+            ("fb_forward", "K2-fwd", cuda_banded.fb_forward_plain),
+            ("fb_expectations", "K4", cuda_banded.fb_expectations_plain)):
+        monkeypatch.setattr(cuda_banded, attr, stub(name, plain))
+    tabs = _port_tables()
+    got = banded.banded_expectations_many(tabs, items, 20, use_lut=True)
+    widths = [banded._item_geom(it, 20, False).w_pad for it in items]
+    wide = sorted({banded._round8(w) for w in widths if w > 128})
+    assert len(wide) >= 2 and all(w > 128 for w in wide)
+    assert sorted(w for n, w, _ in calls if n == "K5-fwd") == wide
+    assert sorted(w for n, w, _ in calls if n == "K5-exp") == wide
+    assert {w for n, w, _ in calls if n in ("K2-fwd", "K4")} <= {
+        16, 32, 64, 128}
+    assert sum(b for n, _, b in calls if n == "K5-fwd") == sum(
+        w > 128 for w in widths)
+    assert sum(b for n, _, b in calls if n == "K4") == len(narrow)
+    for it, (e, t) in zip(items, got):
+        (e1, t1), = banded.banded_expectations_many(tabs, [dict(it)], 20,
+                                                    use_lut=True)
+        assert t == t1 and np.array_equal(e, e1)
+
+
+def test_kmer_anchored_wide_expectations_match_jax_exact():
+    """Kmer-anchored pairs with bands of 130-340 cells, exact logAdd: the
+    port's expectations (K5's plain twins on the CPU) against margin_tpu's
+    banded_expectations in process, within test_native_fb.py's total
+    tolerance and this file's expectation tolerance."""
+    tabs, jtabs = _port_tables(), _jax_tables()
+    for x, y, a, e, s in _kmer_cases():
+        assert banded._item_geom({"x_sym": x, "y_sym": y, "anchors": a},
+                                 e, False).w_pad > 128
+        eg, tg = banded.banded_expectations(tabs, x, y, a, e, s)
+        ew, tw = jbanded.banded_expectations(jtabs, x, y, a, e, s)
+        assert tg == pytest.approx(tw, abs=2e-3)
+        _assert_expectations(eg, ew)
+
+
+def test_kmer_anchored_wide_expectations_match_jax_lut(no_fma_reference):
+    """The same pairs under the LUT logAdd: totals bit for bit against JAX
+    run with XLA's FMA contraction off, expectations within the
+    tolerance."""
+    tabs = _port_tables()
+    got = [banded.banded_expectations(tabs, x, y, a, e, s, use_lut=True)
+           for x, y, a, e, s in _kmer_cases()]
+    assert np.array_equal(np.array([t for _, t in got]),
+                          no_fma_reference["kmer_totals"])
+    for (eg, _), ew in zip(got, no_fma_reference["kmer_e"]):
+        _assert_expectations(eg, ew)
 
 
 def _wide_item():
@@ -273,4 +379,70 @@ def test_k4_matches_plain():
                                                   chunk)
                 torch.cuda.synchronize()
                 for g, w in zip(got.cpu().numpy(), want.cpu().numpy()):
+                    _assert_expectations(g, w)
+
+
+def _k5_pack(w, device, rle=False):
+    """Three anchored problems of 600-1500 bases whose bands are w cells
+    wide (the anchor expansion w - 7), packed at width w for K5."""
+    rng = np.random.default_rng(60 + w)
+    exp = w - 7
+    items = []
+    for i, lx in enumerate((1500, 600, 1100)):
+        x, y, ypos, keep = _pair(rng, lx)
+        xa = np.nonzero(keep)[0][::6][1:-1]
+        it = {"x_sym": x, "y_sym": y, "strand": i % 2,
+              "ragged_left": i == 1, "ragged_right": i == 2,
+              "anchors": [(int(a), int(ypos[a]), exp) for a in xa]}
+        if rle:
+            it["rep_x"] = rng.integers(1, 12, lx).astype(np.int32)
+            it["rep_y"] = rng.integers(1, 12, len(y)).astype(np.int32)
+        items.append(it)
+    geoms = [banded._item_geom(it, exp, False) for it in items]
+    w_pad = banded._round8(max(g.w_pad for g in geoms))
+    assert w_pad > 128
+    tabs = _port_tables(device)
+    if rle:
+        from margin_tpu_torch.params import RepeatSubMatrix
+        rep = RepeatSubMatrix.empty()
+        rep.log_probs = rng.uniform(-4.0, -0.05, (4, 51, 51))
+        tabs = pairhmm.PairHmmTables.from_params(
+            StateMachineParams.default_nucleotide(), repeat=rep,
+            device=device)
+    return cuda_banded._pack_host(tabs, items, w_pad, exp, False, rle, geoms,
+                                  device=device)
+
+
+@pytest.mark.cuda
+def test_k5_matches_plain():
+    """K5-fwd and K5-exp against their twins at widths 256, 512 and > 1024
+    (threads striding over the band), RLE off and on, both logAdds, with
+    the ring of diagonals in shared and in device memory: the forward grid
+    and totals bit for bit under the LUT (within 1e-4 exact), the
+    expectations within this file's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    packs = [_k5_pack(w, "cuda") for w in (256, 512, 1057)]
+    packs.append(_k5_pack(256, "cuda", rle=True))
+    assert packs[2].W > 1024
+    for pack in packs:   # the wrapper's layout is the kernel's
+        for shared in (0, 1):
+            assert cuda_banded._k5().k5_smem_bytes(pack.W, shared) == \
+                cuda_banded._k5_smem_bytes(pack.W, bool(shared))
+    for pack in packs:
+        for use_lut in (True, False):
+            fp, tp = cuda_banded.fb_forward_plain(pack, use_lut)
+            ep = cuda_banded.fb_expectations_plain(pack, fp, tp, use_lut)
+            for ring_shared in (None, False):
+                fk, tk = cuda_banded.fb_forward_wide(pack, use_lut,
+                                                     ring_shared)
+                ek = cuda_banded.fb_expectations_wide(pack, fp, tp, use_lut,
+                                                      ring_shared)
+                torch.cuda.synchronize()
+                if use_lut:
+                    assert torch.equal(tk, tp) and torch.equal(fk, fp)
+                else:
+                    assert (tk - tp).abs().max().item() <= 1e-4
+                    assert (fk - fp).abs().max().item() <= 1e-4
+                for g, w in zip(ek.cpu().numpy(), ep.cpu().numpy()):
                     _assert_expectations(g, w)

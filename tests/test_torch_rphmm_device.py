@@ -287,14 +287,58 @@ def test_k6_matches_twin_on_the_card():
 def test_emission_smem_stages_the_profile_when_it_fits():
     """K6 stages a column's profile bytes in shared memory beside the
     ancestor's allele sums when both fit, reads them from device memory
-    when they do not, and refuses only sums that alone overflow."""
+    when they do not, and keeps sums that alone overflow shared memory (a
+    site of more than 227 alleles) in device memory."""
     sums = 2 * 3 * rphmm_fb.EMISSION_THREADS * 4
-    assert rphmm_fb.emission_smem(100, 64, 3, True) == (6400 + sums, True)
-    assert rphmm_fb.emission_smem(100, 64, 3, False) == (6400, True)
-    assert rphmm_fb.emission_smem(4000, 64, 3, True) == (sums, False)
-    assert rphmm_fb.emission_smem(4000, 64, 3, False) == (0, False)
-    with pytest.raises(ValueError, match="allele sums"):
-        rphmm_fb.emission_smem(10, 4, 300, True)
+    assert rphmm_fb.emission_smem(100, 64, 3, True) == (6400 + sums, True,
+                                                        True)
+    assert rphmm_fb.emission_smem(100, 64, 3, False) == (6400, True, True)
+    assert rphmm_fb.emission_smem(4000, 64, 3, True) == (sums, False, True)
+    assert rphmm_fb.emission_smem(4000, 64, 3, False) == (0, False, True)
+    # 300 alleles: the sums go to device memory, the profile stays staged
+    lay = rphmm_fb.emission_smem(310, 64, 300, True)
+    assert lay == (310 * 64, True, False)
+    assert not lay.sums_shared and lay.staged
+    assert rphmm_fb.emission_smem(310, 64, 300, False) == (310 * 64, True,
+                                                           True)
+    assert rphmm_fb.emission_smem(4000, 64, 300, True) == (0, False, False)
+
+
+def _wide_site_hmms(seed, n_reads=10, wide=300):
+    """Each package's HMMs over a reference of four sites, the second of
+    `wide` alleles, and n_reads profile sequences over all of them."""
+    out = []
+    for mod, pp, get in ((jax_bubbles, JaxPhaseParams, jax_get_rp_hmms),
+                         (bubbles, PhaseParams, None)):
+        rng = np.random.default_rng(seed)
+        sites, off = [], 0
+        for a in (2, wide, 3, 2):
+            sites.append(mod.Site(
+                a, off, rng.integers(0, 30, a).astype(np.uint16),
+                rng.integers(0, 90, (a, a)).astype(np.uint16)))
+            off += a
+        ref = mod.Reference("t", sites, off)
+        seqs = _random_pseqs(mod, rng, ref, n_reads, span=(0, 4))
+        p = pp(maxNotSumTransitions=True, minPartitionsInAColumn=4,
+               maxPartitionsInAColumn=8,
+               minPosteriorProbabilityForPartition=0.01)
+        out.append(get(seqs, ref, p) if get else
+                   get_rp_hmms(seqs, ref, p, "cpu"))
+    return out
+
+
+def test_twin_on_a_300_allele_site_matches_jax():
+    """A site of 300 alleles with the ancestor, whose allele sums K6 keeps
+    in device memory: the twin (the device path on the CPU) equals
+    margin_tpu's _fb_jit and both host FBs bit for bit."""
+    jax_hmms, hmms = _wide_site_hmms(13)
+    assert hmms and len(hmms) == len(jax_hmms)
+    for jh, th in zip(jax_hmms, hmms):
+        pk = rphmm_device.pack(th, "cpu")
+        _, _, D, A, _, As, _ = pk.dims
+        assert As >= 300
+        assert not rphmm_fb.emission_smem(A, D, As, True).sums_shared
+        _four_ways(jh, th, True)
 
 
 def _random_pack(seed, ncol, C, n_sites, M, device):
@@ -336,5 +380,22 @@ def test_k6_matches_twin_on_a_column_too_wide_to_stage():
         assert not rphmm_fb.emission_smem(A, D, As, include_ancestor)[1]
         got = rphmm_fb.rphmm_fb(pk, include_ancestor)
         want = rphmm_fb.rphmm_fb_plain(pk, include_ancestor)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k6_matches_twin_on_a_300_allele_site():
+    """A site of 300 alleles with the ancestor: K6 keeps its allele sums in
+    device memory and still gives the twin's values bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 has no CPU mode")
+    _, hmms = _wide_site_hmms(13)
+    for hmm in hmms:
+        pk = rphmm_device.pack(hmm, "cuda")
+        _, _, D, A, _, As, _ = pk.dims
+        assert not rphmm_fb.emission_smem(A, D, As, True).sums_shared
+        got = rphmm_fb.rphmm_fb(pk, True)
+        want = rphmm_fb.rphmm_fb_plain(pk, True)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
