@@ -6,12 +6,16 @@ read-partition HMM's device forward-backward, on one NVIDIA GPU and check
 it end to end.
 
     python3 chip_smoke.py [--only kernels,phase,polish,diploid,em,helen,
-                           tools,cram,rphmm,k1]
+                           tools,cram,rphmm,k1,k5]
 
 (--only runs a subset after the build, for iterating on one path; k1 runs
-K1's shapes of phase 2 alone, about a minute with the build; tools and
-rphmm need phase, cram needs phase and polish; a plain run takes all but
-k1 and is the one that prints the kernels line.)
+K1's shapes of phase 2 alone, about a minute with the build; k5 holds
+both K5 designs against the twins and times them on packs of band widths
+136-1064, RLE off and on, and on two pairs of ~7950 diagonals at W = 208
+(anchored every 6 bases, and on its kmers as the em phase's pairs), both
+logAdds, about 2.5 minutes with the build; tools and rphmm need phase,
+cram needs phase and polish; a plain run takes all but k1 and k5 and is
+the one that prints the kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit) and whether h5py is
@@ -84,11 +88,12 @@ Phases (any failure raises and the script exits non-zero):
      sweep is printed (a ratio that compares across cards where a time
      does not);
   8. run `python -m margin_tpu_torch polish --diploid` (cli.main, LUT
-     logAdd) on a seeded synthetic diploid 205 kb draft at 30x (two
+     logAdd) on a seeded synthetic diploid 150 kb draft at 30x (two
      haplotypes with a het SNV or 1-10 bp het indel every 1-1.5 kb, the
      draft made from haplotype 1 with phase 6's draft edits, 5-30 kb reads
-     from both, 100 kb chunks with 1 kb boundaries: three chunks, two
-     phased seams); launch counters zeroed right before, read right after.
+     from both, 100 kb chunks with 1 kb boundaries: two chunks, one
+     phased seam; cut from 205 kb to keep the whole run within its time
+     limit); launch counters zeroed right before, read right after.
      Checks: K1, K2 and K3 launched, haplotag agreement with the reads'
      true haplotypes >= 90% (up to a swap: the stitched contig is one
      phase set); logs each haplotype FASTA's edit distance to each truth
@@ -103,13 +108,15 @@ Phases (any failure raises and the script exits non-zero):
      pairs of 1-4 kb cut from phase 6's set through
      HmmExpectations.add_expectations on kmer anchors, as margin's EM
      anchors them (bands of 100-400 cells: K5-fwd, then K5-exp, on every
-     band wider than 128 cells, K2-fwd and K4 on the rest), then the same
+     band wider than 128 cells, K2-fwd and K4 on the rest; K5's launches
+     counted by design, all on K2's step up to 512 cells), then the same
      pairs anchored on their alignments (K2-fwd, then K4), then
-     em_iteration over 256 pairs of 60-120 bases, LUT and exact; K5 held
-     against its twins on the widest and the deepest kmer-anchored pair
-     (forward grid and totals identical under the LUT, expectations
-     within K4's tolerance, the device-memory ring identical to the
-     shared one), timed on the deeper; K4 held against its twin (rtol
+     em_iteration over 256 pairs of 60-120 bases, LUT and exact; both K5
+     designs held against the twins on the widest and the deepest
+     kmer-anchored pair (forward grid and totals identical under the
+     LUT, expectations within K4's tolerance, the strided design's
+     device-memory ring identical to its shared one) and timed on each;
+     K4 held against its twin (rtol
      1e-5, atol 1e-7 x the matrix sum; K2-fwd's totals identical under
      the LUT) at the shapes the path launches it on: the 16 shallowest
      read pairs as one pack, the 2 deepest each alone as add_expectations
@@ -776,6 +783,8 @@ class Recorder:
         self.events = {"K1": [], "K2-fwd": [], "K2-bwd": [],
                        "K2-bwd WORDS": [], "K3-fwd": [], "K3-bwd": [],
                        "K4": [], "K5-fwd": [], "K5-exp": [],
+                       "K5-fwd step": [], "K5-fwd strided": [],
+                       "K5-exp step": [], "K5-exp strided": [],
                        "extraction": []}
         self.extract_calls = 0
         self.k1_max = None    # (cells, tables, batch, use_lut)
@@ -784,7 +793,8 @@ class Recorder:
         self.k3_max = None    # (rows*W, fb_posteriors_seg arguments)
         self.threshold = {}   # id(pack) -> extraction threshold
 
-    def _timed(self, name, fn):
+    def _timed(self, name, fn, design=None):
+        """fn timed under `name` (and, for K5, under `name design`)."""
         import torch
 
         def call(*args):
@@ -794,6 +804,8 @@ class Recorder:
             rc = fn(*args)
             e.record()
             self.events[name].append((s, e))
+            if design is not None:
+                self.events[f"{name} {design}"].append((s, e))
             return rc
         return call
 
@@ -824,9 +836,14 @@ class Recorder:
                                                    lib3.k3_backward))
 
         class TimedK5:
-            k5_forward = staticmethod(self._timed("K5-fwd", lib5.k5_forward))
+            k5_forward = staticmethod(self._timed(
+                "K5-fwd", lib5.k5_forward, "strided"))
             k5_expectations = staticmethod(self._timed(
-                "K5-exp", lib5.k5_expectations))
+                "K5-exp", lib5.k5_expectations, "strided"))
+            k5_step_forward = staticmethod(self._timed(
+                "K5-fwd", lib5.k5_step_forward, "step"))
+            k5_step_expectations = staticmethod(self._timed(
+                "K5-exp", lib5.k5_step_expectations, "step"))
 
         def fb_posteriors_seg(*args, **kw):
             out = fps(*args, **kw)
@@ -1316,9 +1333,10 @@ def zero_counters():
     for c in (pairhmm.FORWARD_TOTAL, cuda_banded.FB_FORWARD,
               cuda_banded.FB_BACKWARD, cuda_banded.FB_WORDS,
               cuda_banded.SEG_FORWARD, cuda_banded.SEG_BACKWARD,
-              cuda_banded.FB_EXPECT, cuda_banded.FB_FORWARD_WIDE,
-              cuda_banded.FB_EXPECT_WIDE, rphmm_fb.RPHMM_FB):
+              cuda_banded.FB_EXPECT, rphmm_fb.RPHMM_FB):
         c.launches = 0
+    cuda_banded.FB_FORWARD_WIDE.reset()
+    cuda_banded.FB_EXPECT_WIDE.reset()
 
 
 def read_counters():
@@ -1426,10 +1444,10 @@ def twins():
             chunk=None: cuda_banded.fb_words_plain(pack, fwd, totals,
                                                    use_lut, threshold),
         (cuda_banded, "fb_forward_wide"):
-            lambda pack, use_lut, ring_shared=None:
+            lambda pack, use_lut, ring_shared=None, design=None:
             cuda_banded.fb_forward_plain(pack, use_lut),
         (cuda_banded, "fb_expectations_wide"):
-            lambda pack, fwd, totals, use_lut, ring_shared=None:
+            lambda pack, fwd, totals, use_lut, ring_shared=None, design=None:
             cuda_banded.fb_expectations_plain(pack, fwd, totals, use_lut),
         (cuda_banded, "seg_forward"): cuda_banded.seg_forward_plain,
         (cuda_banded, "seg_backward"):
@@ -1642,7 +1660,7 @@ def haplotag_agreement(bam, read_hap):
     return max(agree, tagged - agree) / max(tagged, 1), tagged
 
 
-def phase_diploid(device, work, out_dir, span=205_000):
+def phase_diploid(device, work, out_dir, span=150_000):
     """`margin polish --diploid` end to end on a seeded synthetic diploid
     draft: launches, kernel ms, routes, stages, haplotag agreement, and
     each haplotype FASTA's edit distance to each truth haplotype."""
@@ -1946,6 +1964,29 @@ def kmer_anchored(pairs, expansion):
     return out
 
 
+def live_warp_share(pairs, expansion):
+    """The share of the warp-diagonals of K5's step blocks that hold a
+    cell of their band (k in [k_lo, width)) over kmer_anchored pairs
+    wider than 128 cells, each at its pack width: the others skip their
+    recurrence (banded_step.cuh:warp_live, which also drops cells outside
+    the DP rectangle, so this is an upper bound)."""
+    import numpy as np
+    from margin_tpu_torch.ops import banded, cuda_banded
+    live = total = 0
+    for x, y, _, a, w in pairs:
+        if w <= 128:
+            continue
+        g = banded.BandGeometry.build(a, len(x), len(y), expansion,
+                                      smooth=True)
+        D = len(x) + len(y) + 1
+        klo = np.zeros(D) if g.k_lo is None else g.k_lo[:D]
+        w0 = 32 * np.arange(cuda_banded.block_warps(banded._round8(w)))
+        hit = (w0[:, None] < g.widths[:D]) & (w0[:, None] + 32 > klo)
+        live += int(hit.sum())
+        total += hit.size
+    return live / max(total, 1)
+
+
 def em_short_pairs(n, seed=22):
     """n anchorless pairs of 60-120 bases: x random, y an erroneous copy
     (test_em's structure at more pairs)."""
@@ -2023,78 +2064,227 @@ def k5_work(pack, lut, sweep):
             + pack.n_rows * 3 * pack.W * 4 + 4 * pack.B)
 
 
+def k5_designs(w):
+    """The K5 designs that serve a pack of width w: K2's step (where
+    cuda_banded.k5_design gives it, the main path's choice) and the
+    strided kernel, which serves any width."""
+    from margin_tpu_torch.ops import cuda_banded
+    return (("step", "strided") if cuda_banded.k5_design(w) == "step"
+            else ("strided",))
+
+
+def k5_hold(pack, lut, label):
+    """Each K5 design that serves the pack's width held against the plain
+    twins on it: K5-fwd's grid and totals (LUT: identical bits; exact:
+    within 1e-4), K5-exp (on the twin's forward) within K4's tolerance;
+    the strided design again with its ring in device memory (identical
+    to the shared ring's). Then each design timed (cuda_ms, as every
+    kernel of the kernels line), with ns a diagonal of the deepest problem
+    and the bound of the pack's work."""
+    import torch
+    from margin_tpu_torch.ops import cuda_banded
+    torch_sync()
+    t0 = time.perf_counter()
+    fp, tp = cuda_banded.fb_forward_plain(pack, lut)
+    torch_sync()
+    pf = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ep = cuda_banded.fb_expectations_plain(pack, fp, tp, lut)
+    torch_sync()
+    pe = (time.perf_counter() - t0) * 1e3
+    d_max = deepest(pack)
+    shape = (f"B={pack.B} rows={pack.n_rows} W={pack.W} RLE "
+             f"{'on' if pack.rep_x is not None else 'off'}, deepest "
+             f"{d_max} diagonals")
+    out = {"shape": shape, "W": pack.W, "lut": lut, "plain_fwd_ms": pf,
+           "plain_exp_ms": pe, "deepest_diagonals": d_max, "designs": {}}
+    bounds = {sweep: bound_ms(*k5_work(pack, lut, sweep))
+              for sweep in ("fwd", "exp")}
+    for design in k5_designs(pack.W):
+        name = f"K5 {design}, {label} {shape} {'LUT' if lut else 'exact'}"
+        fk, tk = cuda_banded.fb_forward_wide(pack, lut, design=design)
+        ek = cuda_banded.fb_expectations_wide(pack, fp, tp, lut,
+                                              design=design)
+        torch_sync()
+        d_f = max(compare(f"{name}: K5-fwd totals", tk, tp, lut),
+                  compare(f"{name}: K5-fwd grid", fk, fp, lut))
+        diff, share = compare_expectations(f"{name}: K5-exp", ek, ep)
+        if design == "strided":
+            fd, td = cuda_banded.fb_forward_wide(pack, lut, False, design)
+            ed = cuda_banded.fb_expectations_wide(pack, fp, tp, lut, False,
+                                                  design)
+            if not (torch.equal(fd, fk) and torch.equal(td, tk)
+                    and torch.equal(ed, ek)):
+                raise AssertionError(f"{name}: the device-memory ring "
+                                     "gives other values")
+            del fd, ed
+        del fk, ek
+        fms = cuda_ms(lambda: cuda_banded.fb_forward_wide(
+            pack, lut, design=design))
+        ems = cuda_ms(lambda: cuda_banded.fb_expectations_wide(
+            pack, fp, tp, lut, design=design))
+        out["designs"][design] = {
+            "fwd_ms": fms, "exp_ms": ems, "fwd_err": d_f,
+            "max_abs_err": diff, "tolerance_share": share,
+            "fwd_ns_per_diagonal": fms * 1e6 / d_max,
+            "exp_ns_per_diagonal": ems * 1e6 / d_max}
+        log(f"{name}: K5-fwd {fms:.3f} ms ({fms * 1e6 / d_max:.1f} ns a "
+            f"diagonal), K5-exp {ems:.3f} ms ({ems * 1e6 / d_max:.1f} ns);"
+            f" twins {pf:.0f} / {pe:.0f} ms; bounds {bounds['fwd'][0]:.4f}"
+            f" / {bounds['exp'][0]:.4f} ms ({bounds['fwd'][1]}); max|diff| "
+            f"fwd {d_f:.3g}, exp {diff:.3g} at {share:.3f} of an entry's "
+            "tolerance")
+    out["bounds"] = {k: {"bound_ms": v[0], "bound_by": v[1]}
+                     for k, v in bounds.items()}
+    return out
+
+
+def k5_shares(held):
+    """The largest expectation tolerance share of each design over k5_hold
+    results."""
+    return {d: max(h["designs"][d]["tolerance_share"] for h in held
+                   if d in h["designs"]) for d in ("step", "strided")
+            if any(d in h["designs"] for h in held)}
+
+
+def k5_row(held, name):
+    """The kernels line's numbers of K5-fwd or K5-exp from a k5_hold
+    result: the design the main path takes at that width."""
+    from margin_tpu_torch.ops import cuda_banded
+    design = cuda_banded.k5_design(held["W"])
+    d = held["designs"][design]
+    sweep = "fwd" if name == "K5-fwd" else "exp"
+    ms = d[f"{sweep}_ms"]
+    return {"shape": held["shape"], "lut": held["lut"], "design": design,
+            "max_abs_err": d["fwd_err"] if sweep == "fwd"
+            else d["max_abs_err"], "ms": ms,
+            "plain_ms": held[f"plain_{sweep}_ms"],
+            "bound_ms": held["bounds"][sweep]["bound_ms"],
+            "bound_by": held["bounds"][sweep]["bound_by"],
+            "deepest_diagonals": held["deepest_diagonals"],
+            "ns_per_diagonal": ms * 1e6 / held["deepest_diagonals"]}
+
+
 def k5_against(tabs, groups, expansion, lut, label):
     """K5 on the packs banded.expectation_packs makes of each group (the
-    packs add_expectations launches it on: a pair alone), each held
-    against its twin: K5-fwd's grid and totals (LUT: identical bits;
-    exact: within 1e-4), K5-exp within K4's tolerance, and both again
-    with the ring of diagonals in device memory (identical to the shared
-    ring's). Then both timed on the deepest of those packs beside their
-    twins' times there, with bounds and ns per diagonal."""
-    import torch
-    from margin_tpu_torch.ops import banded, cuda_banded
-    checked = []
+    packs add_expectations launches it on: a pair alone): each design
+    held against the twins and timed there (k5_hold). The kernels line
+    takes the deepest pack's numbers of the main path's design."""
+    from margin_tpu_torch.ops import banded
+    held = []
     for group in groups:
         for _, pack in banded.expectation_packs(tabs, group, expansion):
             if pack.W <= 128:
                 raise AssertionError(f"K5 {label}: a pack of W={pack.W}")
-            fk, tk = cuda_banded.fb_forward_wide(pack, lut)
-            ek = cuda_banded.fb_expectations_wide(pack, fk, tk, lut)
-            fd, td = cuda_banded.fb_forward_wide(pack, lut, False)
-            ed = cuda_banded.fb_expectations_wide(pack, fk, tk, lut, False)
-            torch_sync()
-            t0 = time.perf_counter()
-            fp, tp = cuda_banded.fb_forward_plain(pack, lut)
-            torch_sync()
-            pf = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            ep = cuda_banded.fb_expectations_plain(pack, fk, tk, lut)
-            torch_sync()
-            pe = (time.perf_counter() - t0) * 1e3
-            shape = (f"B={pack.B} rows={pack.n_rows} W={pack.W}, deepest "
-                     f"{deepest(pack)} diagonals")
-            d_f = max(compare(f"K5-fwd totals, {label} {shape}", tk, tp, lut),
-                      compare(f"K5-fwd grid, {label} {shape}", fk, fp, lut))
-            diff, share = compare_expectations(f"K5-exp {label} {shape}",
-                                               ek, ep)
-            if not (torch.equal(fd, fk) and torch.equal(td, tk)
-                    and torch.equal(ed, ek)):
-                raise AssertionError(f"K5 {label} {shape}: the device-memory"
-                                     " ring gives other values")
-            checked.append({"pack": pack, "fwd": fk, "totals": tk,
-                            "shape": shape, "fwd_err": d_f,
-                            "max_abs_err": diff, "tolerance_share": share,
-                            "plain_fwd_ms": pf, "plain_exp_ms": pe})
-            del fp, fd, ed
-    top = max(checked, key=lambda c: (deepest(c["pack"]), c["pack"].n_rows))
-    pack = top["pack"]
-    d_max = deepest(pack)
-    rows = {}
-    for name, sweep, fn, pms, err in (
-            ("K5-fwd", "fwd", lambda: cuda_banded.fb_forward_wide(pack, lut),
-             top["plain_fwd_ms"], max(c["fwd_err"] for c in checked)),
-            ("K5-exp", "exp", lambda: cuda_banded.fb_expectations_wide(
-                pack, top["fwd"], top["totals"], lut), top["plain_exp_ms"],
-             max(c["max_abs_err"] for c in checked))):
-        ms = cuda_ms(fn)
-        bms, by = bound_ms(*k5_work(pack, lut, sweep))
-        rows[name] = {"shape": top["shape"], "lut": lut, "max_abs_err": err,
-                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                      "bound_by": by, "deepest_diagonals": d_max,
-                      "ns_per_diagonal": ms * 1e6 / d_max}
-        log(f"{name} {label} {'LUT' if lut else 'exact'}: kernel {ms:.3f} "
-            f"ms on {top['shape']}, twin {pms:.0f} ms there, bound "
-            f"{bms:.4f} ms ({by}), {ms * 1e6 / d_max:.1f} ns per diagonal")
-    share = max(c["tolerance_share"] for c in checked)
+            held.append(k5_hold(pack, lut, label))
+    top = max(held, key=lambda h: (h["deepest_diagonals"], h["W"]))
+    rows = {name: k5_row(top, name) for name in ("K5-fwd", "K5-exp")}
+    share = k5_shares(held)
     rows["K5-exp"]["tolerance_share"] = share
-    log(f"K5 {label}: held against the twins on {len(checked)} packs "
-        f"({'; '.join(c['shape'] for c in checked)}): forward grids and "
+    log(f"K5 {label}: both designs held against the twins on {len(held)} "
+        f"packs ({'; '.join(h['shape'] for h in held)}): forward grids and "
         f"totals {'identical' if lut else 'within 1e-4'}, expectations at "
-        f"most {share:.3f} of an entry's tolerance; the device-memory ring "
-        "identical to the shared one")
-    rows["checked"] = [(c["shape"], c["max_abs_err"], c["tolerance_share"])
-                       for c in checked]
+        f"most {share} of an entry's tolerance by design")
+    rows["held"] = held
     return rows
+
+
+# The k5 loop's packs: tests/test_torch_em.py:_k5_pack's three anchored
+# problems of 600-1500 bases at these band widths (K2's step up to 512,
+# the strided design beyond; anchored every 6 bases, so the band fills
+# its width on every diagonal), and the em run's deepest shape, one pair
+# of ~7950 diagonals at W = 208, anchored every 6 bases and on its kmers.
+K5_WIDTHS = (136, 208, 256, 424, 512, 640, 1057)
+
+
+def k5_pack(device, w, rle, lxs=(1500, 600, 1100)):
+    """Problems of lengths lxs (the first strand 0, then alternating;
+    the second ragged left, the third ragged right), y an erroneous copy
+    of x anchored every 6 bases at expansion w - 7, whose bands are about
+    w cells wide, packed at their widest band rounded up to 8."""
+    import numpy as np
+    from margin_tpu_torch.ops import banded, cuda_banded
+    rng = np.random.default_rng(60 + w)
+    exp = w - 7
+    items = []
+    for i, lx in enumerate(lxs):
+        x = rng.integers(0, 4, lx).astype(np.int32)
+        y = x.copy()
+        flip = rng.random(lx) < 0.08
+        y[flip] = (y[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
+        keep = rng.random(lx) > 0.04
+        ypos = np.cumsum(keep) - 1
+        y = y[keep]
+        xa = np.nonzero(keep)[0][::6][1:-1]
+        it = {"x_sym": x, "y_sym": y, "strand": i % 2,
+              "ragged_left": i == 1, "ragged_right": i == 2,
+              "anchors": [(int(a), int(ypos[a]), exp) for a in xa]}
+        if rle:
+            it["rep_x"] = rng.integers(1, 12, lx).astype(np.int32)
+            it["rep_y"] = rng.integers(1, 12, len(y)).astype(np.int32)
+        items.append(it)
+    geoms = [banded._item_geom(it, exp, False) for it in items]
+    w_pad = banded._round8(max(g.w_pad for g in geoms))
+    return cuda_banded._pack_host(tables(device, rle), items, w_pad, exp,
+                                  False, rle, geoms, device=device)
+
+
+def k5_kmer_pack(device, lx=4000, seed=25, expansion=20):
+    """One read-like pair anchored on its kmers as margin's EM anchors it
+    (the em phase's shape): x of lx random bases, y a copy with 3%
+    substitutions, 3% deletions and 2% insertions, packed at its band
+    width rounded up to 8 (seed 25: 7935 diagonals, W = 208). Along such
+    a band its own width moves far below W."""
+    import numpy as np
+    from margin_tpu_torch.ops import banded, cuda_banded
+    from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 4, lx)
+    y = []
+    for c in x:
+        r = rng.random()
+        if r < 0.03:
+            continue
+        y.append((c + rng.integers(1, 4)) % 4 if r < 0.06 else c)
+        if rng.random() < 0.02:
+            y.append(rng.integers(0, 4))
+    it = {"x_sym": x.astype(np.int32), "y_sym": np.array(y, np.int32),
+          "strand": 0}
+    it["anchors"] = get_kmer_alignment_anchors(it["x_sym"], it["y_sym"],
+                                               expansion)
+    geom = banded._item_geom(it, expansion, False)
+    return cuda_banded._pack_host(tables(device, False), [it],
+                                  banded._round8(geom.w_pad), expansion,
+                                  False, False, [geom], device=device)
+
+
+def phase_k5(device):
+    """K5's loop: each design on every pack of K5_WIDTHS, RLE off and on,
+    and on the deep pairs (RLE off), both logAdds, held against the twins
+    and timed (k5_hold); then each design's largest tolerance share and
+    the step design's time as a share of the strided one's."""
+    from margin_tpu_torch import _ext
+    log(f"k5: banded_wide built in "
+        f"{_ext.BUILD_SECONDS.get('banded_wide', 0.0):.1f} s, banded_fb in "
+        f"{_ext.BUILD_SECONDS.get('banded_fb', 0.0):.1f} s")
+    packs = [(f"W {w}", k5_pack(device, w, rle))
+             for w in K5_WIDTHS for rle in (False, True)]
+    packs.append(("the deep pair", k5_pack(device, 208, False, (4060,))))
+    packs.append(("the deep kmer pair", k5_kmer_pack(device)))
+    rows = []
+    for label, pack in packs:
+        for lut in (True, False):
+            rows.append(k5_hold(pack, lut, label))
+    share = k5_shares(rows)
+    ratios = [(r["shape"], r["lut"],
+               round(r["designs"]["step"]["fwd_ms"]
+                     / r["designs"]["strided"]["fwd_ms"], 3),
+               round(r["designs"]["step"]["exp_ms"]
+                     / r["designs"]["strided"]["exp_ms"], 3))
+              for r in rows if "step" in r["designs"]]
+    log(f"k5: {len(rows)} packs x logAdds held; largest tolerance share by "
+        f"design {share}; step / strided ms (fwd, exp): {ratios}")
+    return {"rows": rows, "tolerance_share": share, "ratios": ratios}
 
 
 def em_checks(name, hmm):
@@ -2129,7 +2319,7 @@ def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
     alone, timed on the deepest, and on every pack em_iteration
     launched."""
     import numpy as np
-    from margin_tpu_torch.ops import cuda_banded, em
+    from margin_tpu_torch.ops import banded, cuda_banded, em
     from margin_tpu_torch.params import Params
     from margin_tpu_torch.ops import pairhmm
     pp = Params.load(ds.params).polish
@@ -2145,9 +2335,12 @@ def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
     kmer_s = time.perf_counter() - t0
     widths = sorted(w for *_, w in kmer)
     n_wide = sum(w > 128 for w in widths)
+    live = live_warp_share(kmer, expansion)
     log(f"em: {n_reads} read-to-draft pairs on kmer anchors ({kmer_s:.1f} "
         f"s): {n_wide} bands wider than 128 cells (widths {widths[0]}.."
-        f"{widths[len(widths) // 2]}..{widths[-1]}: min, median, max)")
+        f"{widths[len(widths) // 2]}..{widths[-1]}: min, median, max); at "
+        f"most {live:.3f} of their step blocks' warp-diagonals hold a band "
+        "cell")
 
     # --- the main path: EM on kmer anchors
     rec = Recorder()
@@ -2167,16 +2360,26 @@ def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
                   "K4": cuda_banded.FB_EXPECT.launches,
                   "K5-fwd": cuda_banded.FB_FORWARD_WIDE.launches,
                   "K5-exp": cuda_banded.FB_EXPECT_WIDE.launches}
-    k_kms = {k: v for k, v in rec.kernel_ms().items() if k in k_launches}
-    if not (k_launches["K5-fwd"] == k_launches["K5-exp"] == n_wide > 0):
-        raise AssertionError(f"EM on kmer anchors: {n_wide} wide pairs, "
-                             f"launches {k_launches}")
+    k_designs = {"K5-fwd": dict(cuda_banded.FB_FORWARD_WIDE.designs),
+                 "K5-exp": dict(cuda_banded.FB_EXPECT_WIDE.designs)}
+    k_kms = {k: v for k, v in rec.kernel_ms().items()
+             if k.split(" ")[0] in k_launches}
+    # the design of each wide pair's launches, from its pack width
+    want = {d: sum(cuda_banded.k5_design(banded._round8(w)) == d
+                   for w in widths if w > 128)
+            for d in cuda_banded.K5_DESIGNS}
+    if not (k_launches["K5-fwd"] == k_launches["K5-exp"] == n_wide > 0
+            and k_designs["K5-fwd"] == k_designs["K5-exp"] == want):
+        raise AssertionError(f"EM on kmer anchors: {n_wide} wide pairs "
+                             f"({want} by design), launches {k_launches}, "
+                             f"by design {k_designs}")
     if k_launches["K4"] != n_reads - n_wide:
         raise AssertionError(f"EM on kmer anchors: {n_reads - n_wide} "
                              f"narrow pairs, launches {k_launches}")
     em_checks("on kmer anchors", hmm_k)
     log(f"em on kmer anchors: {n_reads} pairs through add_expectations in "
-        f"{kmer_run_s:.1f} s; launches {k_launches}; device ms "
+        f"{kmer_run_s:.1f} s; launches {k_launches}, K5's by design "
+        f"{k_designs}; device ms "
         f"{ {k: round(v, 2) for k, v in k_kms.items()} }; E (from, to) "
         f"{np.round(hmm_k.trans / hmm_k.trans.sum(), 5).tolist()}, "
         f"likelihood {hmm_k.likelihood:.1f}")
@@ -2249,8 +2452,10 @@ def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
     return {"launches": launches, "kernel_ms": kms, "reads_s": reads_s,
             "prep_s": prep_s, "em_iterations": iters,
             "expectations": E.tolist(), "likelihood": hmm.likelihood,
-            "kmer": {"launches": k_launches, "kernel_ms": k_kms,
+            "kmer": {"launches": k_launches, "designs": k_designs,
+                     "kernel_ms": k_kms,
                      "s": kmer_run_s, "anchor_s": kmer_s,
+                     "live_warp_share": live,
                      "band_widths": widths, "wide_pairs": n_wide,
                      "expectations": hmm_k.trans.tolist(),
                      "likelihood": hmm_k.likelihood},
@@ -3060,7 +3265,7 @@ SOURCES = {
 
 PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools",
           "cram", "rphmm")
-CHOICES = PHASES + ("k1",)
+CHOICES = PHASES + ("k1", "k5")
 
 
 def main(argv=None) -> int:
@@ -3069,7 +3274,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
                          "build, for iterating on one path (k1: K1's "
-                         "shapes of the kernels phase alone; tools and "
+                         "shapes of the kernels phase alone; k5: both K5 "
+                         "designs on their loop's packs; tools and "
                          "rphmm need phase, cram needs phase and polish); "
                          "the kernels line is printed only when all of %s "
                          "run" % (CHOICES, PHASES))
@@ -3119,6 +3325,8 @@ def main(argv=None) -> int:
     report["build"] = phase_build()
     if "kernels" in only or "k1" in only:
         report["k1"] = phase_k1("cuda")
+    if "k5" in only:
+        report["k5"] = phase_k5("cuda")
     if "kernels" in only:
         report["k2"] = phase_k2("cuda")
         report["k3"] = phase_k3("cuda")

@@ -1,9 +1,11 @@
 // The diagonal step of the banded pair-HMM forward-backward on Hopper,
-// shared by the monolithic kernels K2 (banded_fb.cu) and the segmented
-// kernels K3 (banded_seg.cu): one block of NW = max(W, 32) / 32 warps per
-// problem, lane k = threadIdx.x holding band cell k, a diagonal's cells in
-// registers, neighbours from warp shuffles and (NW > 1) a two-slot
-// exchange between warps behind a named barrier; a problem's inputs are
+// shared by the monolithic kernels K2 (banded_k2.cuh: K2 in banded_fb.cu
+// and, for bands of 136-512 cells, K5's step design in banded_wide.cu)
+// and the segmented kernels K3 (banded_seg.cu): one block of NW =
+// block_warps(W) warps per problem, lane k = threadIdx.x holding band
+// cell k (lanes k >= W idle), a diagonal's cells in registers,
+// neighbours from warp shuffles and (NW > 1) a two-slot exchange between
+// warps behind a named barrier; a problem's inputs are
 // staged in shared memory by cp.async one chunk of S diagonals ahead
 // (geometry, symbol and run-length windows, and a kernel's own float rows),
 // its emissions and repeat table once per block. A step reads only
@@ -17,11 +19,22 @@
 namespace margin {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_NW = 4;  // warps of a block
+// the warps whose exchange slots a block holds at least, so that K2's and
+// K3's layouts at W <= 128 do not depend on their own warp count
+constexpr int XCH_MIN_NW = 4;
 constexpr int REP_BYTES = 4 * REP_N * REP_N * 4;
 
 __host__ __device__ inline int round_up(int v, int m) {
   return (v + m - 1) / m * m;
+}
+
+// warps of a block at width W: one a 32 band cells (1, 1, 2, 4 at W = 16,
+// 32, 64, 128), rounded up to an even count above 128 cells (6..16 for
+// K5's widths of 136..512: half the kernel instances of one a count,
+// whose banded_wide.cu built in 31-44 s against 24 s on an H100 host,
+// PERF.md; a warp beyond W idles)
+__host__ __device__ inline int block_warps(int W) {
+  return W <= 32 ? 1 : W <= 128 ? (W + 31) / 32 : (W + 63) / 64 * 2;
 }
 
 // Shared-memory layout of a block that walks a problem in staged chunks of
@@ -32,7 +45,9 @@ __host__ __device__ inline int round_up(int v, int m) {
 // K2: the chunk's forward rows). Then the block's own: the repeat
 // table (RLE), the emissions, the two buffers, `tail` bytes of the
 // kernel's own (K3-bwd: the recomputed segment and the staged words) and
-// the warps' exchange slots.
+// the warps' exchange slots (two of (NW, 2 edges, 3 states) floats, NW at
+// least XCH_MIN_NW; K2-bwd EXP's block reduction reuses them, 9 floats a
+// warp).
 struct Layout {
   int G, XB, RW;
   int geo, xs, ys, rx, ry, rows, stage;  // within a staging buffer
@@ -69,7 +84,8 @@ __host__ __device__ inline Layout layout(int W, int S, bool rle, int rows,
   L.tail = o;
   o += tail;
   L.xch = o;
-  o += 2 * MAX_NW * 2 * 3 * 4;
+  const int nw = block_warps(W);
+  o += 2 * (nw > XCH_MIN_NW ? nw : XCH_MIN_NW) * 2 * 3 * 4;
   L.total = o;
   return L;
 }
@@ -398,14 +414,29 @@ __device__ __forceinline__ Emis staged_emissions(const Smem& sm,
 }
 
 // The input part of a lane's cell on diagonal g: band mask, emissions,
-// shifts (forward: s1, s2; backward: t1, t2).
+// shifts (forward: s1, s2; backward: t1, t2), and whether the lane's warp
+// has a cell to compute on g (live).
 struct Inputs {
   Emis e;
-  bool vm;
+  bool vm, live;
   int sa, sb;
 };
 
-template <bool RLE>
+// Whether a warp computes its cells of a diagonal: a block of more than
+// XCH_MIN_NW warps (K5's step design, bands of 136..512 cells) skips the
+// recurrence of a warp none of whose cells lies in the band (on the
+// kmer-anchored EM bands of chip_smoke's em phase, over 70% of the
+// warp-diagonals: a band's own width moves far below W along the walk),
+// whose cells are LOG_ZERO either way.
+// The input part, computed a diagonal ahead, stays unconditional, so its
+// loads are in flight before the branch. K2's and K3's blocks compute
+// every warp, as before.
+template <int NW>
+__device__ __forceinline__ bool warp_live(bool need) {
+  return NW > XCH_MIN_NW ? __any_sync(FULL, need) : true;
+}
+
+template <bool RLE, int NW = 1>
 __device__ __forceinline__ Inputs fwd_inputs(const Smem& sm, const Stage& st,
                                              const Win& w, const Ctx& c,
                                              int g, int k) {
@@ -417,11 +448,13 @@ __device__ __forceinline__ Inputs fwd_inputs(const Smem& sm, const Stage& st,
   in.sb = fwd_s2(g, xm, xm2);
   const int xb = x_base_of(g, xm), yb = y_base_of(g, xm);
   in.vm = band_cell(g, xm, st.kl[i], st.wd[i], k, c.lx, c.ly);
+  in.live = warp_live<NW>(in.vm);
   in.e = staged_emissions<RLE>(sm, st, w, c, xb + k, yb - k, k < c.W);
   return in;
 }
 
-template <bool RLE>
+// (the final diagonal D carries the end weights: every warp is live there)
+template <bool RLE, int NW = 1>
 __device__ __forceinline__ Inputs bwd_inputs(const Smem& sm, const Stage& st,
                                              const Win& w, const Ctx& c,
                                              int g, int k) {
@@ -434,6 +467,7 @@ __device__ __forceinline__ Inputs bwd_inputs(const Smem& sm, const Stage& st,
   in.sb = bwd_t2(has2, xm, xn2);
   const int xb = x_base_of(g, xm), yb = y_base_of(g, xm);
   in.vm = band_cell(g, xm, st.kl[i], st.wd[i], k, c.lx, c.ly);
+  in.live = warp_live<NW>(in.vm || g == c.D);
   in.e = staged_emissions<RLE>(sm, st, w, c, xb + k + 1, yb + 1 - k,
                                k < c.W);
   return in;
@@ -447,12 +481,16 @@ __device__ __forceinline__ void fwd_step(const Smem& sm, const float* tr,
                                          int& step) {
   float l[3], d[3], u[3], o[3];
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    l[s] = nb(p1, s, in.sa);
-    u[s] = nb(p1, s, in.sa + 1);
-    d[s] = nb(p2, s, in.sb);
+  for (int s = 0; s < 3; ++s) o[s] = LOG_ZERO_F;
+  if (in.live) {
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      l[s] = nb(p1, s, in.sa);
+      u[s] = nb(p1, s, in.sa + 1);
+      d[s] = nb(p2, s, in.sb);
+    }
+    forward_recurrence<LUT>(tr, in.e, l, d, u, o);
   }
-  forward_recurrence<LUT>(tr, in.e, l, d, u, o);
 #pragma unroll
   for (int s = 0; s < 3; ++s) out.v[s] = in.vm ? o[s] : LOG_ZERO_F;
   link<NW>(out, sm.xch, step);
@@ -468,8 +506,11 @@ __device__ __forceinline__ void bwd_step(const Smem& sm, const float* tr,
                                          const Diag& n1, const Diag& n2,
                                          Diag& out, int& step, float to[3]) {
   float o[3];
-  backward_recurrence<LUT>(tr, in.e, nb(n1, 1, in.sa), nb(n2, 0, in.sb),
-                           nb(n1, 2, in.sa - 1), o, to);
+#pragma unroll
+  for (int s = 0; s < 3; ++s) o[s] = to[s] = LOG_ZERO_F;
+  if (in.live)
+    backward_recurrence<LUT>(tr, in.e, nb(n1, 1, in.sa), nb(n2, 0, in.sb),
+                             nb(n1, 2, in.sa - 1), o, to);
 #pragma unroll
   for (int s = 0; s < 3; ++s)
     out.v[s] = final_diag ? (at_kf ? end_w[s] : LOG_ZERO_F)
@@ -546,10 +587,23 @@ __device__ __forceinline__ void flush_words(const int2* wbuf, int& wc,
 
 }  // namespace margin
 
-// The block of a width: NW = max(W, 32) / 32 warps; LAUNCH<LUT, RLE, NW>
-// returns the launch's error code.
+// The block of a width bucket: NW = block_warps(W) warps; LAUNCH<LUT,
+// RLE, NW> returns the launch's error code.
 #define BLOCK_OF_WIDTH(LAUNCH, ...)                                \
   if (W == 16 || W == 32) return LAUNCH<LUT, RLE, 1>(__VA_ARGS__); \
   if (W == 64) return LAUNCH<LUT, RLE, 2>(__VA_ARGS__);            \
   if (W == 128) return LAUNCH<LUT, RLE, 4>(__VA_ARGS__);           \
   return (int)cudaErrorInvalidValue;
+
+// The block of a band of 136..512 cells, a multiple of 8 (K5's step
+// design): NW = block_warps(W) = 6, 8, .., 16 warps, lanes k >= W idle.
+#define BLOCK_OF_WIDE_WIDTH(LAUNCH, ...)                                \
+  if (W <= 128 || W > 512 || W % 8) return (int)cudaErrorInvalidValue; \
+  switch (block_warps(W)) {                                             \
+    case 6: return LAUNCH<LUT, RLE, 6>(__VA_ARGS__);                    \
+    case 8: return LAUNCH<LUT, RLE, 8>(__VA_ARGS__);                    \
+    case 10: return LAUNCH<LUT, RLE, 10>(__VA_ARGS__);                  \
+    case 12: return LAUNCH<LUT, RLE, 12>(__VA_ARGS__);                  \
+    case 14: return LAUNCH<LUT, RLE, 14>(__VA_ARGS__);                  \
+    default: return LAUNCH<LUT, RLE, 16>(__VA_ARGS__);                  \
+  }

@@ -1,8 +1,8 @@
 // Kernels K5-fwd and K5-exp: the banded 3-state pair-HMM forward, then
 // the backward walk summing the Baum-Welch transition expectations of
-// every band cell, for bands of any width (the transition expectations of
-// getExpectationsUsingAnchors on kmer anchors give bands of 100-400
-// cells; K2 and K4 take at most 128).
+// every band cell, for bands wider than K2's 128 cells (the transition
+// expectations of getExpectationsUsingAnchors on kmer anchors give bands
+// of 100-424 cells).
 //
 // Replaces: the XLA scan margin_tpu/ops/banded.py:_banded_fb_core (:267,
 // compute_expectations :478-486), which margin_tpu's banded_expectations
@@ -13,30 +13,52 @@
 // What bounds them on this card: the latency of each problem's serial
 // walk over its anti-diagonals, as for K2 (~100 float operations a band
 // cell; the bytes are the inputs and the forward grid, written once and
-// read back once). This is the simple version (ROADMAP lists the speed
-// work): one block a problem whose threads stride over the band's cells,
-// one __syncthreads() a diagonal.
-//   * A block of min(1024, W rounded up to 32) threads; thread t takes
-//     cells t, t + T, ... of each diagonal, so any width runs.
-//   * The last three diagonals (3 states x W cells each, with a LOG_ZERO
-//     cell at both ends of a row for the neighbours beyond the band
-//     storage) sit in a ring in shared memory, or, for a band too wide for
-//     the 227 KB of a block (W > ~6400), in the block's slice of a
-//     device-memory buffer the wrapper allocates. A diagonal reads the two
-//     before it (forward) or after it (backward) and writes its own slot,
-//     which no thread reads in that step: one barrier a diagonal orders
-//     it all.
-//   * The problem's emissions sit in shared memory; symbols, run lengths,
-//     the per-diagonal geometry and (RLE) the repeat table are read from
-//     device memory through the caches.
+// read back once): one block a problem, so a launch lasts its deepest
+// problem's diagonal count times one diagonal step.
+//
+// Two designs, chosen from W by the wrappers (ops/cuda_banded.py:
+// k5_design):
+//   * The step design, bands of 136..512 cells (a multiple of 8): K2's
+//     kernels (banded_k2.cuh), K2-fwd and K2-bwd's EXP instance (K4), at
+//     NW = block_warps(W) = 6, 8, .., 16 warps. Lane k holds band cell k
+//     in registers (lanes k >= W idle), neighbours come from shuffles and
+//     warp edges from the exchange behind a named barrier, inputs and
+//     forward rows are staged one chunk ahead by cp.async, K5-fwd's rows
+//     go out by cp.async.bulk; the exchange slots and EXP's reduction
+//     are sized by NW, so K2's layouts at W <= 128 do not change. The
+//     strided design below spent its step on a __syncthreads() a
+//     diagonal, 9 ring loads and 3 ring stores a cell, geometry and
+//     symbol loads from device memory on the chain, and (K5-fwd) a
+//     direct store of each row. At more than 4 warps a block is bound
+//     by instruction issue (two warps or more on each of the SM's four
+//     schedulers, a cell's ~100 float operations each), so a warp with
+//     no band cell on a diagonal skips its emissions and recurrence
+//     (banded_step.cuh:warp_live): a kmer-anchored band's own width
+//     moves far below its pack width W along the walk, and over 70% of
+//     the warp-diagonals of chip_smoke's em phase have no cell.
+//   * The strided design, the route for bands wider than 512 (it serves
+//     any width): one block a problem whose threads stride over the
+//     band's cells, one __syncthreads() a diagonal.
+//       - A block of min(1024, W rounded up to 32) threads; thread t
+//         takes cells t, t + T, ... of each diagonal, so any width runs.
+//       - The last three diagonals (3 states x W cells each, with a
+//         LOG_ZERO cell at both ends of a row for the neighbours beyond
+//         the band storage) sit in a ring in shared memory, or, for a
+//         band too wide for the 227 KB of a block (W > ~6400), in the
+//         block's slice of a device-memory buffer the wrapper allocates.
+//         A diagonal reads the two before it (forward) or after it
+//         (backward) and writes its own slot, which no thread reads in
+//         that step: one barrier a diagonal orders it all.
+//       - The problem's emissions sit in shared memory; symbols, run
+//         lengths, the per-diagonal geometry and (RLE) the repeat table
+//         are read from device memory through the caches.
 // The per-cell arithmetic is banded_cell.cuh's, shared with K2 and K3, so
-// the forward cells and totals equal the plain twins' (and K2's) bit for
-// bit; built with --fmad=false. The expectations' sums run in another
-// order than the twin's (each thread its own nine running sums, then the
-// block's warps in order), as K4's do.
-#include "banded_step.cuh"
-
-using namespace margin;
+// the forward cells and totals of both designs equal the plain twins'
+// (and K2's) bit for bit; built with --fmad=false. The expectations' sums
+// run in another order than the twin's: each thread keeps its own running
+// sums over the whole walk, then the block reduces them (a warp's
+// butterfly, then the warps in order).
+#include "banded_k2.cuh"
 
 namespace {
 
@@ -269,8 +291,8 @@ bool refused(int W, int threads, int smem, int ring_shared,
 }
 
 template <bool LUT, bool RLE>
-int launch_fwd(const BandArgs& a, void** q, int B, int W, int threads,
-               int smem, int ring_shared, cudaStream_t st) {
+int strided_fwd(const BandArgs& a, void** q, int B, int W, int threads,
+                int smem, int ring_shared, cudaStream_t st) {
   auto kern = k5_fwd_kernel<LUT, RLE>;
   const int e = prepare(kern, smem);
   if (e) return e;
@@ -280,8 +302,8 @@ int launch_fwd(const BandArgs& a, void** q, int B, int W, int threads,
 }
 
 template <bool LUT, bool RLE>
-int launch_exp(const BandArgs& a, void** q, int B, int W, int threads,
-               int smem, int ring_shared, cudaStream_t st) {
+int strided_exp(const BandArgs& a, void** q, int B, int W, int threads,
+                int smem, int ring_shared, cudaStream_t st) {
   auto kern = k5_exp_kernel<LUT, RLE>;
   const int e = prepare(kern, smem);
   if (e) return e;
@@ -290,18 +312,80 @@ int launch_exp(const BandArgs& a, void** q, int B, int W, int threads,
   return (int)cudaGetLastError();
 }
 
+// the step design: K2-fwd and K2-bwd EXP at block_warps(W) = 6..16 warps
+template <bool LUT, bool RLE>
+int step_forward_block(const BandArgs& a, void** q, int B, int W, int C,
+                       int smem, cudaStream_t st) {
+  BLOCK_OF_WIDE_WIDTH(launch_fwd, a, q, B, W, C, smem, st)
+}
+
+template <bool LUT, bool RLE>
+int step_exp_block(const BandArgs& a, void** q, int B, int W, int C,
+                   int smem, cudaStream_t st) {
+  using K = Bwd<OUT_EXP>;
+  BLOCK_OF_WIDE_WIDTH(K::template launch, a, q, WordsOut{}, B, W, C, smem,
+                      st)
+}
+
+template <bool EXP>
+int step_entry(void** ptrs, int B, int W, int C, int use_lut, int smem,
+               void* stream) {
+  if (B == 0) return 0;
+  const BandArgs a = band_args(ptrs);
+  const bool rle = a.rep_x != nullptr;
+  if (C < 1 || smem < k2_layout(W, C, rle).total)
+    return (int)cudaErrorInvalidValue;
+  void** q = ptrs + BAND_ARGS_N;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (EXP) {
+    if (use_lut)
+      return rle ? step_exp_block<true, true>(a, q, B, W, C, smem, st)
+                 : step_exp_block<true, false>(a, q, B, W, C, smem, st);
+    return rle ? step_exp_block<false, true>(a, q, B, W, C, smem, st)
+               : step_exp_block<false, false>(a, q, B, W, C, smem, st);
+  }
+  if (use_lut)
+    return rle ? step_forward_block<true, true>(a, q, B, W, C, smem, st)
+               : step_forward_block<true, false>(a, q, B, W, C, smem, st);
+  return rle ? step_forward_block<false, true>(a, q, B, W, C, smem, st)
+             : step_forward_block<false, false>(a, q, B, W, C, smem, st);
+}
+
 }  // namespace
 
-// Shared-memory bytes of a K5 block (K5-fwd's and K5-exp's are alike);
-// ring_shared: whether the ring of three diagonals is in it.
+// Shared-memory bytes of a step-design K5 block at width W and chunk
+// depth C (K2's layout, banded_k2.cuh:k2_layout; K5-fwd's and K5-exp's
+// are alike).
+extern "C" int k5_step_smem_bytes(int W, int C, int rle) {
+  return k2_layout(W, C, rle != 0).total;
+}
+
+// K5-fwd, step design (W in 136..512, a multiple of 8). ptrs: the 18
+// BandArgs pointers in field order (rep_* may be null), then fwd (rows,
+// 3, W) and totals (B,); smem at least k5_step_smem_bytes(W, C, rle).
+extern "C" int k5_step_forward(void** ptrs, int B, int W, int C,
+                               int use_lut, int smem, void* stream) {
+  return step_entry<false>(ptrs, B, W, C, use_lut, smem, stream);
+}
+
+// K5-exp, step design: ptrs: the 18 BandArgs pointers, then fwd, totals,
+// exp (B, 3, 3); smem at least k5_step_smem_bytes(W, C, rle).
+extern "C" int k5_step_expectations(void** ptrs, int B, int W, int C,
+                                    int use_lut, int smem, void* stream) {
+  return step_entry<true>(ptrs, B, W, C, use_lut, smem, stream);
+}
+
+// Shared-memory bytes of a strided K5 block (K5-fwd's and K5-exp's are
+// alike); ring_shared: whether the ring of three diagonals is in it.
 extern "C" int k5_smem_bytes(int W, int ring_shared) {
   return k5_layout(W, ring_shared != 0).total;
 }
 
-// K5-fwd. ptrs: the 18 BandArgs pointers in field order (rep_* may be
-// null), then fwd (rows, 3, W), totals (B,) and the device-memory ring
-// (B x 9 x (W + 2) floats; null when ring_shared); threads: a multiple of
-// 32 up to 1024; smem at least k5_smem_bytes(W, ring_shared).
+// K5-fwd, strided design (any W). ptrs: the 18 BandArgs pointers in field
+// order (rep_* may be null), then fwd (rows, 3, W), totals (B,) and the
+// device-memory ring (B x 9 x (W + 2) floats; null when ring_shared);
+// threads: a multiple of 32 up to 1024; smem at least k5_smem_bytes(W,
+// ring_shared).
 extern "C" int k5_forward(void** ptrs, int B, int W, int threads,
                           int use_lut, int smem, int ring_shared,
                           void* stream) {
@@ -313,18 +397,18 @@ extern "C" int k5_forward(void** ptrs, int B, int W, int threads,
   const bool rle = a.rep_x != nullptr;
   cudaStream_t st = (cudaStream_t)stream;
   if (use_lut)
-    return rle ? launch_fwd<true, true>(a, q, B, W, threads, smem,
+    return rle ? strided_fwd<true, true>(a, q, B, W, threads, smem,
+                                         ring_shared, st)
+               : strided_fwd<true, false>(a, q, B, W, threads, smem,
+                                          ring_shared, st);
+  return rle ? strided_fwd<false, true>(a, q, B, W, threads, smem,
                                         ring_shared, st)
-               : launch_fwd<true, false>(a, q, B, W, threads, smem,
+             : strided_fwd<false, false>(a, q, B, W, threads, smem,
                                          ring_shared, st);
-  return rle ? launch_fwd<false, true>(a, q, B, W, threads, smem,
-                                       ring_shared, st)
-             : launch_fwd<false, false>(a, q, B, W, threads, smem,
-                                        ring_shared, st);
 }
 
-// K5-exp. ptrs: the 18 BandArgs pointers, then fwd, totals, exp (B, 3, 3)
-// and the ring (as for k5_forward).
+// K5-exp, strided design. ptrs: the 18 BandArgs pointers, then fwd,
+// totals, exp (B, 3, 3) and the ring (as for k5_forward).
 extern "C" int k5_expectations(void** ptrs, int B, int W, int threads,
                                int use_lut, int smem, int ring_shared,
                                void* stream) {
@@ -336,12 +420,12 @@ extern "C" int k5_expectations(void** ptrs, int B, int W, int threads,
   const bool rle = a.rep_x != nullptr;
   cudaStream_t st = (cudaStream_t)stream;
   if (use_lut)
-    return rle ? launch_exp<true, true>(a, q, B, W, threads, smem,
+    return rle ? strided_exp<true, true>(a, q, B, W, threads, smem,
+                                         ring_shared, st)
+               : strided_exp<true, false>(a, q, B, W, threads, smem,
+                                          ring_shared, st);
+  return rle ? strided_exp<false, true>(a, q, B, W, threads, smem,
                                         ring_shared, st)
-               : launch_exp<true, false>(a, q, B, W, threads, smem,
+             : strided_exp<false, false>(a, q, B, W, threads, smem,
                                          ring_shared, st);
-  return rle ? launch_exp<false, true>(a, q, B, W, threads, smem,
-                                       ring_shared, st)
-             : launch_exp<false, false>(a, q, B, W, threads, smem,
-                                        ring_shared, st);
 }

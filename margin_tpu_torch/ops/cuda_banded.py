@@ -18,8 +18,9 @@ posterior grid); and the expectations pass of the XLA scan
 :478-486), which becomes K4: K2-bwd's walk with each band cell's nine
 transition expectations summed in place of its stored posteriors
 (`fb_expectations`), and, for bands wider than 128 cells, K5
-(`csrc/banded_wide.cu`: `fb_forward_wide`, `fb_expectations_wide`).
-Parity: getPosteriorProbsWithBanding (pairwiseAligner.c:706-844).
+(`fb_forward_wide`, `fb_expectations_wide`: K2's kernels at 6-16 warps
+for bands of 136-512 cells, `csrc/banded_wide.cu`'s strided kernels for
+wider ones). Parity: getPosteriorProbsWithBanding (pairwiseAligner.c:706-844).
 
 Layout. A pack holds up to 128 problems, each with its own depth
 D_b = lx+ly+1. Per-diagonal arrays (xmy, width, k_lo) are flat and
@@ -84,11 +85,19 @@ FB_GRID_BUDGET_BYTES = 8 << 30
 # scratch instead.
 SEG_STEP = 16
 _WORDS = 1024      # extraction words staged per block (WORDS_PER_BLOCK)
-_MAX_NW = 4        # warps of a block (MAX_NW)
+_XCH_NW = 4        # warps the exchange slots hold at least (XCH_MIN_NW)
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def block_warps(w: int) -> int:
+    """Warps of a K2 or K3 block at width w (csrc/banded_step.cuh:
+    block_warps): one a 32 band cells, lanes k >= w idle, rounded up to an
+    even count above 128 cells (6, 8, .., 16 for K5's step design)."""
+    return (max(1, _round_up(w, 32) // 32) if w <= 128
+            else _round_up(w, 64) // 32)
 
 
 def _block_bytes(w: int, depth: int, rle: bool, rows: int, tail: int) -> int:
@@ -98,7 +107,7 @@ def _block_bytes(w: int, depth: int, rle: bool, rows: int, tail: int) -> int:
     stage = (_round_up(12 * (depth + 4), 16) + 2 * _round_up(depth + w + 8, 16)
              + (8 * _round_up(depth + w + 4, 4) if rle else 0) + rows)
     return ((4 * _REP * _REP * 4 if rle else 0) + 36 * 4 + 2 * stage + tail
-            + 48 * _MAX_NW)
+            + 48 * max(block_warps(w), _XCH_NW))
 
 
 def _k3_smem_bytes(w: int, seg_d: int, rle: bool, sweep: str) -> int:
@@ -132,6 +141,7 @@ def k2_smem(w: int, chunk: int, rle: bool, words: bool = False) -> int:
     return n
 
 
+@functools.lru_cache(maxsize=None)
 def k2_chunk(w: int, rle: bool, words: bool = False) -> int:
     """The deepest chunk whose K2 block (words: K2-bwd WORDS's) fits at
     width w."""
@@ -184,6 +194,25 @@ def seg_depth(w: int, rle: bool = True) -> int:
 SEG_D = {w: seg_depth(w) for w in (16, 32, 64, 128)}
 
 
+# K5, a band wider than 128 cells, has two designs. "step": K2's kernels
+# (csrc/banded_k2.cuh) at NW = block_warps(W) = 6, 8, .., 16 warps, lane
+# k holding cell k, for W <= K5_STEP_MAX_W; "strided"
+# (csrc/banded_wide.cu): a block whose threads stride over the band with
+# a ring of three diagonals in shared memory (device memory beyond ~6400
+# cells), for any wider band. The wrappers pick the design from W before
+# the launch.
+K5_DESIGNS = ("step", "strided")
+K5_STEP_MAX_W = 512
+
+
+def k5_design(w: int) -> str:
+    """The design a K5 launch on a pack of width w takes: "step" for a
+    width of 136..K5_STEP_MAX_W that is a multiple of 8 (the packs'
+    widths), else "strided"."""
+    return ("step" if 128 < w <= K5_STEP_MAX_W and w % 8 == 0
+            else "strided")
+
+
 def _k5_smem_bytes(w: int, ring_shared: bool) -> int:
     """The layout of csrc/banded_wide.cu:k5_layout, in bytes: the
     emissions, the block reduction's 32 x 9 sums and (ring_shared) the
@@ -192,14 +221,14 @@ def _k5_smem_bytes(w: int, ring_shared: bool) -> int:
 
 
 def k5_ring_shared(w: int) -> bool:
-    """Whether a K5 block keeps its ring of diagonals in shared memory (up
-    to ~6400 cells); wider bands keep it in device memory."""
+    """Whether a strided K5 block keeps its ring of diagonals in shared
+    memory (up to ~6400 cells); wider bands keep it in device memory."""
     return _k5_smem_bytes(w, True) <= MAX_SMEM
 
 
 def k5_threads(w: int) -> int:
-    """Threads of a K5 block: one a cell up to 1024 cells, which stride
-    over wider bands."""
+    """Threads of a strided K5 block: one a cell up to 1024 cells, which
+    stride over wider bands."""
     return min(1024, _round_up(w, 32))
 
 
@@ -357,8 +386,27 @@ FB_WORDS = _Counter()
 FB_EXPECT = _Counter()
 SEG_FORWARD = _Counter()
 SEG_BACKWARD = _Counter()
-FB_FORWARD_WIDE = _Counter()
-FB_EXPECT_WIDE = _Counter()
+
+
+class _WideCounter(_Counter):
+    """K5's launch counter: every launch, and the launches of each design
+    (K5_DESIGNS)."""
+
+    def __init__(self):
+        super().__init__()
+        self.designs = dict.fromkeys(K5_DESIGNS, 0)
+
+    def reset(self):
+        self.launches = 0
+        self.designs = dict.fromkeys(K5_DESIGNS, 0)
+
+    def add(self, design: str):
+        self.launches += 1
+        self.designs[design] += 1
+
+
+FB_FORWARD_WIDE = _WideCounter()
+FB_EXPECT_WIDE = _WideCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -400,8 +448,15 @@ def _k5():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
+    for name in ("k5_step_forward", "k5_step_expectations"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
     lib.k5_smem_bytes.restype = ctypes.c_int
     lib.k5_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.k5_step_smem_bytes.restype = ctypes.c_int
+    lib.k5_step_smem_bytes.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -581,11 +636,34 @@ def fb_expectations(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     return out
 
 
-def _k5_launch(pack: BandPack, ring_shared: Optional[bool]):
-    """(threads, shared-memory bytes, ring_shared, device ring or None) of a
-    K5 launch on a pack; ring_shared defaults to k5_ring_shared(W) (False
-    forces the device-memory ring)."""
+def _k5_design(pack: BandPack, design: Optional[str]) -> str:
+    """The design of a K5 launch on a pack: k5_design(W) unless the checks
+    force one ("strided" serves any width, "step" those k5_design gives
+    it)."""
     _validate(pack, wide=True)
+    if design is None:
+        design = k5_design(pack.W)
+    if design not in K5_DESIGNS:
+        raise ValueError(f"K5 design {design!r} not in {K5_DESIGNS}")
+    if design == "step" and k5_design(pack.W) != "step":
+        raise ValueError(f"K5's step design takes W in 136..{K5_STEP_MAX_W}"
+                         f", a multiple of 8; got {pack.W}")
+    return design
+
+
+def _k5_step_launch(pack: BandPack):
+    """(chunk, shared-memory bytes) of a K5 launch on K2's step: the
+    deepest chunk the block holds (k2_chunk)."""
+    _validate_windows(pack)
+    rle = pack.rep_x is not None
+    chunk = k2_chunk(pack.W, rle)
+    return chunk, k2_smem(pack.W, chunk, rle)
+
+
+def _k5_strided_launch(pack: BandPack, ring_shared: Optional[bool]):
+    """(threads, shared-memory bytes, ring_shared, device ring or None) of
+    a strided K5 launch on a pack; ring_shared defaults to
+    k5_ring_shared(W) (False forces the device-memory ring)."""
     W = pack.W
     if ring_shared is None:
         ring_shared = k5_ring_shared(W)
@@ -598,51 +676,97 @@ def _k5_launch(pack: BandPack, ring_shared: Optional[bool]):
     return k5_threads(W), smem, ring_shared, ring
 
 
+def _k5_forward_step(pack, use_lut, fwd, totals):
+    chunk, smem = _k5_step_launch(pack)
+    stream = torch.cuda.current_stream(pack.device).cuda_stream
+    return _k5().k5_step_forward(_args(pack, fwd, totals), pack.B, pack.W,
+                                 chunk, int(bool(use_lut)), smem, stream)
+
+
+def _k5_forward_strided(pack, use_lut, fwd, totals, ring_shared):
+    threads, smem, ring_shared, ring = _k5_strided_launch(pack, ring_shared)
+    stream = torch.cuda.current_stream(pack.device).cuda_stream
+    return _k5().k5_forward(_args(pack, fwd, totals, ring), pack.B, pack.W,
+                            threads, int(bool(use_lut)), smem,
+                            int(ring_shared), stream)
+
+
+def _k5_expect_step(pack, use_lut, fwd, totals, out):
+    chunk, smem = _k5_step_launch(pack)
+    stream = torch.cuda.current_stream(pack.device).cuda_stream
+    return _k5().k5_step_expectations(_args(pack, fwd, totals, out), pack.B,
+                                      pack.W, chunk, int(bool(use_lut)),
+                                      smem, stream)
+
+
+def _k5_expect_strided(pack, use_lut, fwd, totals, out, ring_shared):
+    threads, smem, ring_shared, ring = _k5_strided_launch(pack, ring_shared)
+    stream = torch.cuda.current_stream(pack.device).cuda_stream
+    return _k5().k5_expectations(_args(pack, fwd, totals, out, ring),
+                                 pack.B, pack.W, threads, int(bool(use_lut)),
+                                 smem, int(ring_shared), stream)
+
+
+# K5's launchers by design: each fills the wrapper's outputs and returns
+# the C launch's error code; the strided ones also take ring_shared
+K5_FORWARD = {"step": _k5_forward_step, "strided": _k5_forward_strided}
+K5_EXPECT = {"step": _k5_expect_step, "strided": _k5_expect_strided}
+
+
+def _on_card(pack: BandPack) -> bool:
+    """Whether a pack's tensors lie on a CUDA device (K5's wrappers launch
+    a kernel there, and run the plain twin on the CPU)."""
+    return pack.device.type == "cuda"
+
+
 def fb_forward_wide(pack: BandPack, use_lut: bool,
-                    ring_shared: Optional[bool] = None):
+                    ring_shared: Optional[bool] = None,
+                    design: Optional[str] = None):
     """Banded forward of a pack of any band width: (fwd (rows, 3, W) f32,
-    totals (B,) f32), fb_forward's results. CUDA: K5-fwd (a block a
-    problem, threads striding over the band, the last three diagonals in
-    shared memory or, ring_shared False, in device memory); CPU: the
-    plain twin."""
-    if pack.device.type != "cuda":
+    totals (B,) f32), fb_forward's results. CUDA: K5-fwd, in the design
+    k5_design(W) gives: K2-fwd's kernel at block_warps(W) warps for a width
+    of 136..K5_STEP_MAX_W (walking chunks of the deepest its block holds),
+    else the strided kernel (the last three
+    diagonals in shared memory or, ring_shared False, in device memory);
+    `design` forces one, for the checks. CPU: the plain twin."""
+    if not _on_card(pack):
         return fb_forward_plain(pack, use_lut)
-    threads, smem, ring_shared, ring = _k5_launch(pack, ring_shared)
+    design = _k5_design(pack, design)
     if grid_bytes(pack.n_rows, pack.W) > FB_GRID_BUDGET_BYTES:
         raise ValueError("pack grids exceed FB_GRID_BUDGET_BYTES")
-    dev = pack.device
     fwd = torch.empty((pack.n_rows, 3, pack.W), dtype=torch.float32,
-                      device=dev)
-    totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k5().k5_forward(_args(pack, fwd, totals, ring), pack.B, pack.W,
-                          threads, int(bool(use_lut)), smem, int(ring_shared),
-                          stream)
-    _ext.check_launch(rc, "wide banded forward (K5-fwd)")
-    FB_FORWARD_WIDE.launches += 1
+                      device=pack.device)
+    totals = torch.empty(pack.B, dtype=torch.float32, device=pack.device)
+    launch = K5_FORWARD[design]
+    rc = (launch(pack, use_lut, fwd, totals) if design == "step"
+          else launch(pack, use_lut, fwd, totals, ring_shared))
+    _ext.check_launch(rc, f"wide banded forward (K5-fwd, {design})")
+    FB_FORWARD_WIDE.add(design)
     return fwd, totals
 
 
 def fb_expectations_wide(pack: BandPack, fwd: torch.Tensor,
                          totals: torch.Tensor, use_lut: bool,
-                         ring_shared: Optional[bool] = None) -> torch.Tensor:
+                         ring_shared: Optional[bool] = None,
+                         design: Optional[str] = None) -> torch.Tensor:
     """Transition expectations of a pack of any band width: (B, 3, 3) f32
-    [from, to], fb_expectations' results. CUDA: K5-exp (the backward walk
-    of K5-fwd's block summing each band cell's nine expectations, as K4
-    does); CPU: the plain twin."""
-    if pack.device.type != "cuda":
+    [from, to], fb_expectations' results. CUDA: K5-exp, in the design of
+    fb_forward_wide: K4's kernel (K2-bwd's walk summing each band cell's
+    nine expectations) at block_warps(W) warps, or the strided kernel's
+    backward walk; CPU: the plain twin."""
+    if not _on_card(pack):
         return fb_expectations_plain(pack, fwd, totals, use_lut)
-    threads, smem, ring_shared, ring = _k5_launch(pack, ring_shared)
+    design = _k5_design(pack, design)
     dev = pack.device
     _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
     _check(totals, "totals", torch.float32, (pack.B,), dev)
     out = torch.empty((pack.B, 3, 3), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k5().k5_expectations(_args(pack, fwd, totals, out, ring), pack.B,
-                               pack.W, threads, int(bool(use_lut)), smem,
-                               int(ring_shared), stream)
-    _ext.check_launch(rc, "wide banded transition expectations (K5-exp)")
-    FB_EXPECT_WIDE.launches += 1
+    launch = K5_EXPECT[design]
+    rc = (launch(pack, use_lut, fwd, totals, out) if design == "step"
+          else launch(pack, use_lut, fwd, totals, out, ring_shared))
+    _ext.check_launch(rc, "wide banded transition expectations (K5-exp, "
+                          f"{design})")
+    FB_EXPECT_WIDE.add(design)
     return out
 
 
@@ -983,7 +1107,7 @@ _TO_ORDER = (1, 0, 2)   # _bwd_step's (gapX, match, gapY) -> (m, gx, gy)
 def fb_expectations_plain(pack: BandPack, fwd: torch.Tensor,
                           totals: torch.Tensor,
                           use_lut: bool) -> torch.Tensor:
-    """Plain PyTorch twin of K4, in margin_tpu's order
+    """Plain PyTorch twin of K4 and K5-exp, in margin_tpu's order
     (ops/banded.py:_banded_fb_core :478-486 with compute_expectations):
     per diagonal, last first, every band cell's exp(f[from] + to[to] +
     t[from, to] - total), summed over the band, then added into a (3, 3)

@@ -304,13 +304,32 @@ def _width_pack(w, rle, device="cpu"):
                                   exp, False, rle, geoms, device=device)
 
 
+# K2's chunk depths at its width buckets (RLE on, off): the layout of
+# the block with its exchange slots sized for 4 warps, which the wider
+# blocks of K5's step design leave as they were
+K2_BUCKET_CHUNK = {16: (443, 562), 32: (233, 291), 64: (119, 148),
+                   128: (60, 74)}
+
+
 @pytest.mark.parametrize("rle", [True, False])
-@pytest.mark.parametrize("w", [16, 32, 64, 128])
+@pytest.mark.parametrize("w", [16, 32, 64, 128, 136, 208, 256, 424, 512])
 def test_k2_launch_config(w, rle):
-    """Every width bucket gets a chunk depth whose K2 block fits the
-    shared memory a Hopper block may use; one diagonal more does not, and
-    k2_smem raises for it."""
-    C = cuda_banded.K2_CHUNK[(w, rle)]
+    """Every width bucket, and every width K5 runs on K2's step (136..512
+    cells at 6, 8, .., 16 warps: ceil(W / 32) rounded up to even), gets a
+    chunk depth whose K2 block fits the shared memory a Hopper block may
+    use; one diagonal more does not, and k2_smem raises for it. The
+    buckets' depths are unchanged; at W = 512 a block still holds 14
+    diagonals (RLE on)."""
+    nw = cuda_banded.block_warps(w)
+    if w <= 128:
+        assert nw == max(1, -(-w // 32))
+        C = cuda_banded.K2_CHUNK[(w, rle)]
+        assert C == K2_BUCKET_CHUNK[w][0 if rle else 1]
+    else:
+        assert nw == 2 * -(-w // 64) and 6 <= nw <= 16
+        assert cuda_banded.k5_design(w) == "step"
+        C = cuda_banded.k2_chunk(w, rle)
+        assert C >= (14 if rle else 18)
     assert C == cuda_banded.k2_chunk(w, rle) >= 1
     assert cuda_banded.k2_smem(w, C, rle) <= 232_448
     with pytest.raises(ValueError):

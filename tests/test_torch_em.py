@@ -309,6 +309,58 @@ def test_kmer_anchored_wide_expectations_match_jax_lut(no_fma_reference):
         _assert_expectations(eg, ew)
 
 
+def _expectation_sums():
+    """scripts/expectation_sums.py, the summation orders of one problem's
+    expectation terms."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "expectation_sums", os.path.join(os.path.dirname(HERE), "scripts",
+                                         "expectation_sums.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _share(got, want):
+    """The largest |got - want| as a share of _assert_expectations'
+    tolerance."""
+    tol = RTOL * np.abs(want) + ATOL_OF_SUM * want.sum()
+    return float((np.abs(got - want) / tol).max())
+
+
+@pytest.mark.parametrize("use_lut", [False, True])
+def test_em_deep_expectations_match_jax(use_lut):
+    """At EM depth (one pair of 4060 bases anchored every 6 bases at W =
+    208: 7958 diagonals, chip_smoke's deep k5 pair), the port's
+    expectations (the plain twin on the CPU, margin_tpu's float32
+    accumulator) against margin_tpu's within the tolerance, and the
+    kernels' summation order (a lane's float32 running sums, then the
+    warps; scripts/expectation_sums.py:lane_sums) too. The known gap: the
+    float64 sum of the same terms lies 0.83 (exact) and 1.01 (LUT) of the
+    tolerance from margin_tpu's on this pair (scripts/expectation_sums.py
+    gives 1.08 against the twin's LUT sum), so a kernel summing nearer the
+    float64 sum would fail the tolerance against margin_tpu at this
+    depth."""
+    items, exp, _ = _k5_items(208, lxs=(4060,))
+    it = items[0]
+    args = (it["x_sym"], it["y_sym"], it["anchors"], exp, it["strand"])
+    eg, tg = banded.banded_expectations(_port_tables(), *args,
+                                        use_lut=use_lut)
+    ew, tw = jbanded.banded_expectations(_jax_tables(), *args,
+                                         use_lut=use_lut)
+    assert tg == pytest.approx(tw, abs=2e-3)
+    _assert_expectations(eg, ew)
+    sums = _expectation_sums()
+    geom = banded._item_geom(it, exp, False)
+    pack = cuda_banded._pack_host(_port_tables(), [it],
+                                  banded._round8(geom.w_pad), exp, False,
+                                  False, [geom], device="cpu")
+    terms = sums.terms_of(pack, use_lut)
+    assert pack.W == 208 and terms.shape[0] == 7958
+    _assert_expectations(sums.lane_sums(terms, terms.shape[0]), ew)
+    assert _share(terms.astype(np.float64).sum(axis=(0, 3)), ew) > 0.5
+
+
 def _wide_item():
     rng = np.random.default_rng(4)
     return [{"x_sym": rng.integers(0, 4, 150).astype(np.int32),
@@ -382,13 +434,14 @@ def test_k4_matches_plain():
                     _assert_expectations(g, w)
 
 
-def _k5_pack(w, device, rle=False):
-    """Three anchored problems of 600-1500 bases whose bands are w cells
-    wide (the anchor expansion w - 7), packed at width w for K5."""
+def _k5_items(w, rle=False, lxs=(1500, 600, 1100)):
+    """Anchored problems of lxs bases (three of 600-1500 by default) whose
+    bands are w cells wide (the anchor expansion w - 7): (items,
+    expansion, the generator they were drawn from)."""
     rng = np.random.default_rng(60 + w)
     exp = w - 7
     items = []
-    for i, lx in enumerate((1500, 600, 1100)):
+    for i, lx in enumerate(lxs):
         x, y, ypos, keep = _pair(rng, lx)
         xa = np.nonzero(keep)[0][::6][1:-1]
         it = {"x_sym": x, "y_sym": y, "strand": i % 2,
@@ -398,6 +451,13 @@ def _k5_pack(w, device, rle=False):
             it["rep_x"] = rng.integers(1, 12, lx).astype(np.int32)
             it["rep_y"] = rng.integers(1, 12, len(y)).astype(np.int32)
         items.append(it)
+    return items, exp, rng
+
+
+def _k5_pack(w, device, rle=False):
+    """_k5_items(w) packed at their widest band rounded up to 8, for
+    K5."""
+    items, exp, rng = _k5_items(w, rle)
     geoms = [banded._item_geom(it, exp, False) for it in items]
     w_pad = banded._round8(max(g.w_pad for g in geoms))
     assert w_pad > 128
@@ -413,32 +473,129 @@ def _k5_pack(w, device, rle=False):
                                   device=device)
 
 
+@pytest.mark.parametrize("w, design", [
+    (136, "step"), (208, "step"), (424, "step"), (512, "step"),
+    (132, "strided"), (520, "strided"), (640, "strided"),
+    (1064, "strided")])
+def test_k5_design_of_width(w, design):
+    """A K5 pack of 136..512 cells, a multiple of 8 (the packs' width
+    rounding), runs on K2's step; any other width on the strided kernels,
+    which the checks may also force at the step's widths, while the step
+    design refuses a width it has no block for."""
+    assert cuda_banded.k5_design(w) == design
+    pack = cuda_banded._pack_host(_port_tables(), [{
+        "x_sym": np.zeros(40, np.int32), "y_sym": np.zeros(40, np.int32),
+        "anchors": [], "strand": 0}], w, 20, False, False, device="cpu")
+    assert cuda_banded._k5_design(pack, None) == design
+    assert cuda_banded._k5_design(pack, "strided") == "strided"
+    if design == "strided":
+        with pytest.raises(ValueError):
+            cuda_banded._k5_design(pack, "step")
+
+
+def test_wide_band_design_follows_width(monkeypatch):
+    """K5's wrappers pick the design from the pack's width before the
+    launch: the kmer-anchored bands (136..512 cells once rounded up to 8)
+    take K2's step, the _k5_items(1057) problems (packs of 576..1064) the
+    strided kernels; checked on the CPU with the device check patched and
+    recording stubs in the launchers' place (filling the outputs from the
+    plain twins). The counters count every launch and each design's, and
+    the results are those of each problem solved alone."""
+    monkeypatch.setattr(cuda_banded, "_on_card", lambda pack: True)
+    calls = []
+
+    def fwd_stub(design):
+        def launch(pack, use_lut, fwd, totals, *ring_shared):
+            assert len(ring_shared) == (design == "strided")
+            calls.append(("K5-fwd", design, pack.W, pack.B))
+            f, t = cuda_banded.fb_forward_plain(pack, use_lut)
+            fwd.copy_(f)
+            totals.copy_(t)
+            return 0
+        return launch
+
+    def exp_stub(design):
+        def launch(pack, use_lut, fwd, totals, out, *ring_shared):
+            assert len(ring_shared) == (design == "strided")
+            calls.append(("K5-exp", design, pack.W, pack.B))
+            out.copy_(cuda_banded.fb_expectations_plain(pack, fwd, totals,
+                                                        use_lut))
+            return 0
+        return launch
+    for d in cuda_banded.K5_DESIGNS:
+        monkeypatch.setitem(cuda_banded.K5_FORWARD, d, fwd_stub(d))
+        monkeypatch.setitem(cuda_banded.K5_EXPECT, d, exp_stub(d))
+    for c in (cuda_banded.FB_FORWARD_WIDE, cuda_banded.FB_EXPECT_WIDE):
+        monkeypatch.setattr(c, "launches", 0)
+        monkeypatch.setattr(c, "designs", dict.fromkeys(
+            cuda_banded.K5_DESIGNS, 0))
+    tabs = _port_tables()
+    groups = [(_kmer_items(), 20, "step"),
+              (_k5_items(1057)[0], 1050, "strided")]
+    want = dict.fromkeys(cuda_banded.K5_DESIGNS, 0)
+    runs = []
+    for items, exp, design in groups:
+        widths = [banded._round8(banded._item_geom(it, exp, False).w_pad)
+                  for it in items]
+        assert all((128 < w <= 512) == (design == "step") for w in widths)
+        assert {cuda_banded.k5_design(w) for w in widths} == {design}
+        got = banded.banded_expectations_many(tabs, items, exp, use_lut=True)
+        mine = [c for c in calls if c[1] == design]
+        for name in ("K5-fwd", "K5-exp"):
+            assert sorted(w for n, _, w, _ in mine if n == name) == sorted(
+                set(widths))
+            assert sum(b for n, _, _, b in mine if n == name) == len(items)
+        want[design] += len(set(widths))
+        runs.append((items, exp, got))
+    assert want["step"] > 0 and want["strided"] > 0
+    assert len(calls) == 2 * sum(want.values())
+    for c in (cuda_banded.FB_FORWARD_WIDE, cuda_banded.FB_EXPECT_WIDE):
+        assert c.designs == want and c.launches == sum(want.values())
+    for items, exp, got in runs:
+        for it, (e, t) in zip(items, got):
+            (e1, t1), = banded.banded_expectations_many(tabs, [dict(it)],
+                                                        exp, use_lut=True)
+            assert t == t1 and np.array_equal(e, e1)
+
+
 @pytest.mark.cuda
 def test_k5_matches_plain():
-    """K5-fwd and K5-exp against their twins at widths 256, 512 and > 1024
-    (threads striding over the band), RLE off and on, both logAdds, with
-    the ring of diagonals in shared and in device memory: the forward grid
-    and totals bit for bit under the LUT (within 1e-4 exact), the
-    expectations within this file's tolerance."""
+    """K5-fwd and K5-exp against their twins in both designs: K2's step at
+    widths 136, 256, 424 and 512 (6..16 warps; the strided design forced
+    there too), the strided design at
+    640 and > 1024 (threads striding over the band) with the ring of
+    diagonals in shared and in device memory; RLE off and on, both
+    logAdds: the forward grid and totals bit for bit under the LUT
+    (within 1e-4 exact), the expectations within this file's tolerance;
+    each launch counted under its design."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    packs = [_k5_pack(w, "cuda") for w in (256, 512, 1057)]
-    packs.append(_k5_pack(256, "cuda", rle=True))
-    assert packs[2].W > 1024
+    packs = [_k5_pack(w, "cuda", rle) for w in (136, 256, 424, 512, 640, 1057)
+             for rle in (False, True)]
+    assert packs[-1].W > 1024
     for pack in packs:   # the wrapper's layout is the kernel's
         for shared in (0, 1):
             assert cuda_banded._k5().k5_smem_bytes(pack.W, shared) == \
                 cuda_banded._k5_smem_bytes(pack.W, bool(shared))
     for pack in packs:
+        step = pack.W <= 512
+        assert cuda_banded.k5_design(pack.W) == ("step" if step
+                                                 else "strided")
+        runs = ([{}, {"design": "strided"}] if step
+                else [{}, {"ring_shared": False}])
         for use_lut in (True, False):
             fp, tp = cuda_banded.fb_forward_plain(pack, use_lut)
             ep = cuda_banded.fb_expectations_plain(pack, fp, tp, use_lut)
-            for ring_shared in (None, False):
-                fk, tk = cuda_banded.fb_forward_wide(pack, use_lut,
-                                                     ring_shared)
+            for kw in runs:
+                design = kw.get("design", cuda_banded.k5_design(pack.W))
+                n_f = cuda_banded.FB_FORWARD_WIDE.designs[design]
+                n_e = cuda_banded.FB_EXPECT_WIDE.designs[design]
+                fk, tk = cuda_banded.fb_forward_wide(pack, use_lut, **kw)
                 ek = cuda_banded.fb_expectations_wide(pack, fp, tp, use_lut,
-                                                      ring_shared)
+                                                      **kw)
                 torch.cuda.synchronize()
+                assert cuda_banded.FB_FORWARD_WIDE.designs[design] == n_f + 1
+                assert cuda_banded.FB_EXPECT_WIDE.designs[design] == n_e + 1
                 if use_lut:
                     assert torch.equal(tk, tp) and torch.equal(fk, fp)
                 else:
@@ -446,3 +603,19 @@ def test_k5_matches_plain():
                     assert (fk - fp).abs().max().item() <= 1e-4
                 for g, w in zip(ek.cpu().numpy(), ep.cpu().numpy()):
                     _assert_expectations(g, w)
+
+
+@pytest.mark.cuda
+def test_k5_step_layout_matches_kernel():
+    """The Python mirror of the step design's block (cuda_banded.k2_smem:
+    K2's layout, its exchange slots sized by the block's 6..16 warps)
+    equals the kernel's (k5_step_smem_bytes) at every width of the design,
+    RLE on and off, at chunks 1, 7 and the deepest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    lib = cuda_banded._k5()
+    for w in range(136, 513, 8):
+        for rle in (True, False):
+            for C in (1, 7, cuda_banded.k2_chunk(w, rle)):
+                assert lib.k5_step_smem_bytes(w, C, int(rle)) == \
+                    cuda_banded.k2_smem(w, C, rle)
