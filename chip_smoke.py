@@ -6,16 +6,18 @@ read-partition HMM's device forward-backward, on one NVIDIA GPU and check
 it end to end.
 
     python3 chip_smoke.py [--only kernels,phase,polish,diploid,em,helen,
-                           tools,cram,rphmm,k1,k5]
+                           tools,cram,rphmm,k1,k5,k6]
 
 (--only runs a subset after the build, for iterating on one path; k1 runs
 K1's shapes of phase 2 alone, about a minute with the build; k5 holds
 both K5 designs against the twins and times them on packs of band widths
 136-1064, RLE off and on, and on two pairs of ~7950 diagonals at W = 208
 (anchored every 6 bases, and on its kmers as the em phase's pairs), both
-logAdds, about 2.5 minutes with the build; tools and rphmm need phase,
-cram needs phase and polish; a plain run takes all but k1 and k5 and is
-the one that prints the kernels line.)
+logAdds, about 2.5 minutes with the build; k6 runs K6 on a cross
+product of work >= 10M, sites of 300 and 800 alleles, merge rows of
+20,000 slots and a seeded merge tree, each held and timed; tools and rphmm need
+phase, cram needs phase and polish; a plain run takes all but k1, k5 and
+k6 and is the one that prints the kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit) and whether h5py is
@@ -75,7 +77,7 @@ Phases (any failure raises and the script exits non-zero):
      draft's; K2-bwd WORDS held against extract_packed on the run's
      largest K2 pack (also for phase 8's run) and timed there beside
      K2-bwd POST and the torch-op extraction;
-  7. polish a 10 kb sub-region in process (run_polish, the dataset's
+  7. polish a 5 kb sub-region in process (run_polish, the dataset's
      own POA-consensus iterations and bubble pass, channelRleWeight HELEN
      features labelled by the set's truth.bam) with SEG_MIN_D lowered to
      2048, through the kernels and (at the end) through the plain twins
@@ -88,17 +90,17 @@ Phases (any failure raises and the script exits non-zero):
      sweep is printed (a ratio that compares across cards where a time
      does not);
   8. run `python -m margin_tpu_torch polish --diploid` (cli.main, LUT
-     logAdd) on a seeded synthetic diploid 150 kb draft at 30x (two
+     logAdd) on a seeded synthetic diploid 120 kb draft at 30x (two
      haplotypes with a het SNV or 1-10 bp het indel every 1-1.5 kb, the
      draft made from haplotype 1 with phase 6's draft edits, 5-30 kb reads
      from both, 100 kb chunks with 1 kb boundaries: two chunks, one
-     phased seam; cut from 205 kb to keep the whole run within its time
-     limit); launch counters zeroed right before, read right after.
+     phased seam; cut from 205 and 150 kb to keep the whole run within
+     its time limit); launch counters zeroed right before, read right after.
      Checks: K1, K2 and K3 launched, haplotag agreement with the reads'
      true haplotypes >= 90% (up to a swap: the stitched contig is one
      phase set); logs each haplotype FASTA's edit distance to each truth
      haplotype and the draft's, the stages and the device ms;
-  9. diploid-polish a 10 kb sub-region in process with SEG_MIN_D lowered
+  9. diploid-polish a 5 kb sub-region in process with SEG_MIN_D lowered
      to 2048 and the truth haplotypes riding along (-u truth.bam; they
      must land on different haplotypes), through the kernels and (at the
      end) through the plain twins bound in their place: identical hap
@@ -122,11 +124,13 @@ Phases (any failure raises and the script exits non-zero):
      read pairs as one pack, the 2 deepest each alone as add_expectations
      launches them (timed on the deepest), and every pack em_iteration
      launched;
- 11. helen: splitRleWeight labelled by truth.bam on phase 6's production
-     chunk (100 kb and its 1 kb boundary), counters zeroed right before
-     and read right after (the truth alignment, ~140k diagonals, takes
-     K3; the consensus rows' labels must be nucleotides);
-     simpleWeight (run-length encoding off) labelled on a 10 kb
+ 11. helen: splitRleWeight labelled by truth.bam on the first 51 kb of
+     phase 6's set (one chunk; cut from its 101 kb production chunk to
+     keep the whole run within its time limit), counters zeroed right
+     before and read right after (the truth alignment, ~76k diagonals,
+     takes K3; at least a feature row a base; the consensus rows' labels
+     must be nucleotides);
+     simpleWeight (run-length encoding off) labelled on a 5 kb
      region through the kernels and (at the end) the twins: identical
      arrays and labels. The feature groups are held in memory, as the
      HDF5 file would get them (h5py is not on every card machine);
@@ -150,18 +154,27 @@ Phases (any failure raises and the script exits non-zero):
      MARGIN_TPU_RPHMM=device on the profile sequences of phase 4's
      region chunk with the most reads (get_rp_hmms ->
      merge_two_tiling_paths -> fuse_tiling_path -> forward_backward; the
-     K6 counter zeroed right before and read right after): the same
-     traceback and genome fragment as with MARGIN_TPU_RPHMM=host, K6 held
-     against its twin and timed on the largest FB of that run; every
-     fused HMM the native engine returned for phase 4's chunks FB'd again
-     through K6, its twin and the host float64 path (identical fields;
-     timed on the one of most work); a cross product of two seeded random
-     read sets' tiling paths of work >= 10M, which MARGIN_TPU_RPHMM=auto
-     sends to K6 by itself, held and timed the same way (ns a column);
-     and K6 on a seeded pack with a 300-allele site and the ancestor
-     (allele sums in device memory) against its twin;
+     K6 counter zeroed right before and read right after), three turns
+     each way: the same traceback and genome fragment as with
+     MARGIN_TPU_RPHMM=host, K6 held against its twin and timed on the
+     largest FB of that run; every fused HMM the native engine returned
+     for phase 4's chunks FB'd again through K6, its twin and the host
+     float64 path (identical fields; timed on the one of most work); a
+     cross product of two seeded random read sets' tiling paths of work
+     >= 10M, which MARGIN_TPU_RPHMM=auto sends to K6 by itself, held and
+     timed the same way (the pack's ms beside it); and K6 against its
+     twin on seeded packs with a site of 300 alleles and one of 800 and
+     the ancestor (allele sums in shared memory, then in device memory)
+     and on one of 20,000 merge slots (the carry in device memory). Each
+     K6 time has k6_emissions and k6_chain apart (torch.profiler) and the
+     chain's ns a column; each FB of the merge tree its pack's ms;
  15. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
-     a subprocess of its own sharing the card, then each comparison.
+     a subprocess of its own sharing the card, then each comparison
+     (the polish, diploid and HELEN regions are TWIN_REGION_LEN = 5 kb,
+     cut from 10 kb to keep the whole run within its time limit: the
+     twins walk one diagonal at a time).
+Each phase's seconds are logged as it ends ("... phase NAME: S s") and
+kept under "phase_s" in chiprun_out/chip_smoke.json.
 Every K1, K2, K3 and K4 timing also prints the deepest pair's or
 problem's diagonal count and the nanoseconds per diagonal; the device
 time each kernel and the extraction summed over the phase and polish
@@ -1461,6 +1474,9 @@ def twins():
 # ---------------------------------------------------------------------------
 
 TWIN_JOBS = []   # (label, spec, check): queued by the phases
+# the polish, diploid and HELEN twins' regions: a twin walks one diagonal
+# at a time, so these runs take most of phase 15 (10 kb took 264 s)
+TWIN_REGION_LEN = 5_000
 
 
 def queue_twin(label, spec, check):
@@ -1599,7 +1615,8 @@ def mid_region(ds, region_len):
     return f"{ds.contig}:{mid - region_len // 2 + 1}-{mid + region_len // 2}"
 
 
-def phase_polish_region(ds, work, region_len=10_000, device="cuda"):
+def phase_polish_region(ds, work, region_len=TWIN_REGION_LEN,
+                        device="cuda"):
     """A sub-region in process through the kernels, with channelRleWeight
     HELEN features labelled by truth.bam (-u), then (queued) through the
     plain twins bound in their place: byte-identical FASTA and feature
@@ -1660,7 +1677,7 @@ def haplotag_agreement(bam, read_hap):
     return max(agree, tagged - agree) / max(tagged, 1), tagged
 
 
-def phase_diploid(device, work, out_dir, span=150_000):
+def phase_diploid(device, work, out_dir, span=120_000):
     """`margin polish --diploid` end to end on a seeded synthetic diploid
     draft: launches, kernel ms, routes, stages, haplotag agreement, and
     each haplotype FASTA's edit distance to each truth haplotype."""
@@ -1740,7 +1757,8 @@ def bam_records(path):
         return [(rec.name, rec.flag, rec.pos, rec.tags_blob()) for rec in r]
 
 
-def phase_diploid_region(ds, work, region_len=10_000, device="cuda"):
+def phase_diploid_region(ds, work, region_len=TWIN_REGION_LEN,
+                         device="cuda"):
     """Diploid polish of a sub-region in process through the kernels with
     the truth haplotypes riding along (-u truth.bam), then (queued)
     through the plain twins bound in their place (SEG_MIN_D lowered to
@@ -2466,14 +2484,15 @@ def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
 # HELEN features and the aux tools
 # ---------------------------------------------------------------------------
 
-def phase_helen(ds, work, device="cuda", min_rows=100_000):
+def phase_helen(ds, work, device="cuda", region_len=51_000):
     """HELEN features: splitRleWeight labelled by truth.bam (-f -F
-    splitRleWeight -u) on the production chunk of the polish set (100 kb
-    and its 1 kb boundary: the truth alignment is one K3 problem of about
-    140k diagonals), kernels only, counters zeroed right before and read
-    right after; then simpleWeight with -u on the set's params with
-    run-length encoding off, on a 10 kb region through the kernels and
-    (queued) through the twins: identical feature arrays and labels."""
+    splitRleWeight -u) on the first region_len bases of the polish set
+    (one chunk: the truth alignment is one K3 problem of about 76k
+    diagonals), kernels only, counters zeroed right before and read right
+    after, at least one feature row a base of the region; then
+    simpleWeight with -u on the set's params with run-length encoding
+    off, on a TWIN_REGION_LEN region through the kernels and (queued)
+    through the twins: identical feature arrays and labels."""
     import numpy as np
     from margin_tpu_torch.ops import banded
     from margin_tpu_torch.polish import helen
@@ -2483,7 +2502,7 @@ def phase_helen(ds, work, device="cuda", min_rows=100_000):
     def banded_posteriors(tables, x_sym, y_sym, *a, **kw):
         truth_items.append(len(x_sym) + len(y_sym) + 1)
         return orig(tables, x_sym, y_sym, *a, **kw)
-    region = f"{ds.contig}:1-101000"
+    region = f"{ds.contig}:1-{region_len}"
     zero_counters()
     banded.banded_posteriors = banded_posteriors
     try:
@@ -2500,7 +2519,7 @@ def phase_helen(ds, work, device="cuda", min_rows=100_000):
     with open(f"{work}/hc.features.pkl", "rb") as fh:
         groups = pickle.load(fh)
     rows = sum(len(g["position"]) for g in groups.values())
-    if not groups or rows < min_rows:
+    if not groups or rows < region_len:
         raise AssertionError(f"HELEN wrote {len(groups)} groups, {rows} rows")
     position = np.concatenate([g["position"] for g in groups.values()])
     labels = np.concatenate([g["label_base"].ravel()
@@ -2529,7 +2548,7 @@ def phase_helen(ds, work, device="cuda", min_rows=100_000):
     norle = f"{work}/params_norle.json"
     with open(norle, "w") as fh:
         json.dump(p, fh)
-    sregion = mid_region(ds, 10_000)
+    sregion = mid_region(ds, TWIN_REGION_LEN)
     args = {"bam": ds.bam, "draft": ds.draft, "params": norle,
             "region": sregion, "truth_bam": ds.truth_bam,
             "feature_type": "simpleWeight", "seg_min_d": 2048,
@@ -2911,11 +2930,41 @@ def k6_work(hmm, include_ancestor):
     return ops, nbytes
 
 
+def k6_split(pk, include_ancestor, reps=5, tries=3):
+    """Each K6 kernel's device microseconds a launch, k6_emissions and
+    k6_chain apart, from torch.profiler over `reps` launches; a session
+    that shows no K6 kernel (CUPTI loses one now and then) is tried again,
+    up to `tries` times, then both are None (not measured)."""
+    from margin_tpu_torch.ops import rphmm_fb
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch_sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                rphmm_fb.rphmm_fb(pk, include_ancestor)
+            torch_sync()
+        out = {"k6_emissions": 0.0, "k6_chain": 0.0}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            for name in out:
+                if name in ev.key:
+                    out[name] += t / reps
+        if out["k6_emissions"] and out["k6_chain"]:
+            return out
+    log("torch.profiler showed no K6 kernel in "
+        f"{tries} sessions: its kernels' times are not measured here")
+    return {"k6_emissions": None, "k6_chain": None}
+
+
 def k6_pack_row(pk, include_ancestor, stats, work, label, reps=5):
     """K6 against its twin on one pack (every output equal: tolerance 0),
-    then K6's device time (the two launches, CUDA events), the twin's, and
-    the bound from `work` = k6_work of the HMM the pack was made from.
-    Returns (the row, the twin's outputs)."""
+    then K6's time (the two launches, CUDA events), its kernels' device
+    times apart (torch.profiler; ns a column of the chain, each sweep),
+    the twin's time, and the bound from `work` = k6_work of the HMM the
+    pack was made from. Returns (the row, the twin's outputs)."""
     import torch
     from margin_tpu_torch.ops import rphmm_fb
     got = rphmm_fb.rphmm_fb(pk, include_ancestor)
@@ -2930,19 +2979,46 @@ def k6_pack_row(pk, include_ancestor, stats, work, label, reps=5):
         raise AssertionError(f"K6 against its twin, {label}: max|diff| "
                              f"{err}, tolerance 0")
     ms = cuda_ms(lambda: rphmm_fb.rphmm_fb(pk, include_ancestor), reps=reps)
+    split = k6_split(pk, include_ancestor, reps)
     bms, by = bound_ms(*work)
+    ncol, C, D, A, S, As, M = pk.dims
+    lay = rphmm_fb.k6_launch(C, A, D, As, S, M, include_ancestor)
     row = dict(stats, shape=label, include_ancestor=include_ancestor,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, ns_per_column=ms * 1e6 / stats["columns"])
+               bound_by=by, ns_per_column=ms * 1e6 / stats["columns"],
+               emissions_us=split["k6_emissions"],
+               chain_us=split["k6_chain"],
+               chain_ns_per_column=(None if split["k6_chain"] is None
+                                    else split["k6_chain"] * 1e3 / ncol),
+               layout=lay._asdict())
     return row, want
+
+
+def k6_log(label, row):
+    if row["chain_us"] is None:
+        split = "kernels apart not measured"
+    else:
+        split = (f"k6_emissions {row['emissions_us']:.1f} us, k6_chain "
+                 f"{row['chain_us']:.1f} us, {row['chain_ns_per_column']:.0f}"
+                 " ns a column, the two sweeps side by side")
+    log(f"K6 {label}: kernel {row['ms']:.3f} ms ({split}), twin "
+        f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3g} ms "
+        f"({row['bound_by']}); sums in {row['layout']['sums']}, carry in "
+        f"{row['layout']['carry']} memory; identical to the twin")
 
 
 def k6_against(hmm, include_ancestor, label, device="cuda", reps=5):
     """One HMM's FB through K6 (forward_backward_device), its plain twin
     and the host float64 path: identical fields; then k6_pack_row's times
-    and bound, the host FB's time and K6 end to end (pack, launches, one
-    read back)."""
+    and bound, the host FB's time, the pack's (first call on this HMM,
+    then the median of 3) and K6 end to end (pack, launches, one read
+    back)."""
     from margin_tpu_torch.phase import rphmm_device
+    torch_sync()
+    t0 = time.perf_counter()
+    pk = rphmm_device.pack(hmm, device)
+    torch_sync()
+    pack_first_ms = (time.perf_counter() - t0) * 1e3
     os.environ["MARGIN_TPU_RPHMM"] = "host"
     host_ms = []
     for _ in range(3):
@@ -2950,30 +3026,35 @@ def k6_against(hmm, include_ancestor, label, device="cuda", reps=5):
         hmm.forward_backward(include_ancestor=include_ancestor)
         host_ms.append((time.perf_counter() - t0) * 1e3)
     host = rphmm_snapshot(hmm)
-    e2e_ms = []
+    e2e_ms, pack_ms = [], []
     for _ in range(3):
         torch_sync()
         t0 = time.perf_counter()
+        rphmm_device.pack(hmm, device)
+        torch_sync()
+        t1 = time.perf_counter()
         rphmm_device.forward_backward_device(hmm, include_ancestor, device)
-        e2e_ms.append((time.perf_counter() - t0) * 1e3)
+        e2e_ms.append((time.perf_counter() - t1) * 1e3)
+        pack_ms.append((t1 - t0) * 1e3)
     same_snapshot(f"K6 against the host FB, {label}", rphmm_snapshot(hmm),
                   host)
     st = rphmm_stats(hmm)
-    row, want = k6_pack_row(rphmm_device.pack(hmm, device), include_ancestor,
-                            st, k6_work(hmm, include_ancestor), label, reps)
+    row, want = k6_pack_row(pk, include_ancestor, st,
+                            k6_work(hmm, include_ancestor), label, reps)
     rphmm_device.fill(hmm, *(w.cpu().numpy() for w in want))
     same_snapshot(f"K6's twin against the host FB, {label}",
                   rphmm_snapshot(hmm), host)
     row.update(host_ms=statistics.median(host_ms),
-               e2e_ms=statistics.median(e2e_ms))
+               e2e_ms=statistics.median(e2e_ms),
+               pack_ms=statistics.median(pack_ms),
+               pack_first_ms=pack_first_ms)
     log(f"K6 {label} ({st['columns']} columns, widest {st['widest_cells']} "
         f"cells, deepest {st['deepest_reads']} reads, work {st['work']}, "
-        f"ancestor {include_ancestor}): kernel {row['ms']:.3f} ms "
-        f"({row['ns_per_column']:.0f} ns a column), twin "
-        f"{row['plain_ms']:.1f} ms, host float64 FB {row['host_ms']:.1f} ms,"
-        f" K6 with pack and read back {row['e2e_ms']:.1f} ms, bound "
-        f"{row['bound_ms']:.3g} ms ({row['bound_by']}); identical to the "
-        "twin and the host FB")
+        f"ancestor {include_ancestor}): host float64 FB "
+        f"{row['host_ms']:.1f} ms, K6 with pack and read back "
+        f"{row['e2e_ms']:.1f} ms, the pack {row['pack_ms']:.1f} ms (first "
+        f"call {pack_first_ms:.1f} ms); identical to the host FB")
+    k6_log(label, row)
     return row
 
 
@@ -3012,8 +3093,9 @@ def random_profile_seqs(seed, n_sites, n_reads, span):
 def wide_site_pack(device, seed=41, ncol=6, C=256, wide=300, M=150):
     """A seeded pack of ncol columns of 64 reads over three sites of 2,
     `wide` and 3 alleles, random partitions and merge maps: a site whose
-    ancestor allele sums (2 x 300 ints a thread) do not fit in shared
-    memory."""
+    ancestor allele sums (2 x `wide` ints a thread) go beyond K6's register
+    bucket: to shared memory at 64 threads a block for 300 alleles, to
+    device memory for 800."""
     import numpy as np
     import torch
     from margin_tpu_torch.ops import rphmm_fb
@@ -3040,137 +3122,279 @@ def wide_site_pack(device, seed=41, ncol=6, C=256, wide=300, M=150):
                                 for a in arrays), M)
 
 
-def k6_wide_site(device="cuda"):
-    """K6 on a site of 300 alleles with the ancestor (its allele sums in
-    device memory) against its twin: every output equal."""
-    from margin_tpu_torch.ops import rphmm_fb
-    pk = wide_site_pack(device)
-    ncol, C, D, A, S, As, M = pk.dims
-    lay = rphmm_fb.emission_smem(A, D, As, True)
-    if lay.sums_shared:
-        raise AssertionError(f"K6 kept {As}-allele sums in shared memory")
-    # k6_work's counts from each column's own cells
-    alleles = pk.site_a[0].tolist()
+def k6_pack_work(pk, include_ancestor):
+    """k6_work's counts for a seeded pack with no HMM behind it, from each
+    column's own cells, reads, sites and alleles."""
     ops = nbytes = 0
-    for n in pk.n_cells.tolist():
-        ops += (4 * n * D * sum(alleles) + 4 * n * sum(a * a for a in alleles)
-                + 4 * n)
-        nbytes += (28 * n + 12 + D * sum(alleles) + 8 * len(alleles)
-                   + 4 * sum(a * a + a for a in alleles))
-    nbytes += 8 * ncol * M
-    row, _ = k6_pack_row(pk, True, {"columns": ncol, "widest_cells": C,
-                                    "deepest_reads": D, "work": None},
-                         (ops, nbytes),
-                         f"{ncol} columns x {C} cells, a {As}-allele site")
-    log(f"K6 on a {As}-allele site with the ancestor ({ncol} columns x {C} "
-        f"cells, {D} reads; allele sums in device memory): kernel "
-        f"{row['ms']:.3f} ms, twin {row['plain_ms']:.1f} ms; identical to "
-        "the twin")
-    return row
+    for n, d, sa in zip(pk.n_cells.tolist(), pk.depth.tolist(),
+                        pk.site_a.tolist()):
+        alleles = [a for a in sa if a]
+        ops += 4 * n * d * sum(alleles) + 4 * n
+        ops += (4 * n * sum(a * a for a in alleles) if include_ancestor
+                else 2 * n * sum(alleles))
+        nbytes += 28 * n + 12 + d * sum(alleles) + 8 * len(alleles)
+        if include_ancestor:
+            nbytes += 4 * sum(a * a + a for a in alleles)
+    return ops, nbytes + 8 * pk.parts.shape[0] * pk.M
 
 
-def phase_rphmm(device="cuda", big=(31, 600, 220, (60, 150))):
-    """The stRPHmm FB on K6. (1) margin_tpu's path when the native engine
-    is absent, through the port's entry points with MARGIN_TPU_RPHMM=device
-    on the profile sequences of phase 4's region chunk with the most reads:
-    get_rp_hmms -> merge_two_tiling_paths -> fuse_tiling_path ->
-    forward_backward, timed bare, the K6 counter zeroed right before and
-    read right after; the traceback and genome fragment must equal the
-    host run's. A capture pass before it times each FB of the tree on the
-    host and through K6 (pack and read-back included) and keeps the
-    largest FB's pack, on which K6 is held against its twin and timed. (2) Every fused HMM the native engine returned for phase
-    4's chunks, FB'd again through K6, its twin and the host float64 path:
-    identical fields; timed on the one of most work. (3) A cross product
-    of two random read sets' tiling paths (as merge_two_tiling_paths FBs
-    it), of work >= the auto threshold 10,000,000: MARGIN_TPU_RPHMM=auto
-    sends it to K6 by itself; held and timed the same way."""
+def k6_wide_site(device="cuda"):
+    """K6 against its twin on a site of 300 alleles with the ancestor (its
+    allele sums in shared memory, 64 threads a block) and on one of 800
+    (beyond shared memory: in device memory): every output equal. Returns
+    the two rows."""
+    rows = []
+    for wide, place in ((300, "shared"), (800, "device")):
+        pk = wide_site_pack(device, wide=wide)
+        ncol, C, D, A, S, As, M = pk.dims
+        row, _ = k6_pack_row(pk, True, {"columns": ncol, "widest_cells": C,
+                                        "deepest_reads": D, "work": None},
+                             k6_pack_work(pk, True),
+                             f"{ncol} columns x {C} cells, a {As}-allele "
+                             "site")
+        if row["layout"]["sums"] != place:
+            raise AssertionError(f"K6 kept {As}-allele sums in "
+                                 f"{row['layout']['sums']} memory, not "
+                                 f"{place}")
+        k6_log(f"on a {As}-allele site with the ancestor ({ncol} columns x "
+               f"{C} cells, {D} reads)", row)
+        rows.append(row)
+    return rows
+
+
+def random_pack(device, seed=43, ncol=6, C=3000, n_sites=4, M=20_000,
+                full_range=True):
+    """A seeded K6 pack of ncol columns of 64 reads over n_sites sites of
+    2-3 alleles each, random merge maps into M slots; partitions over all
+    64 bits with full_range (bit 63 set on about half), else below 2**62 in
+    magnitude. The defaults: merge rows that do not fit K6's shared carry.
+    The tests and scripts/k6_compare.py build their packs here too."""
+    import numpy as np
+    import torch
+    from margin_tpu_torch.ops import rphmm_fb
+    rng = np.random.default_rng(seed)
+    top = 1 << 63 if full_range else 1 << 62
+    site_a = rng.integers(2, 4, (ncol, n_sites)).astype(np.int32)
+    site_off = (np.cumsum(site_a, axis=1) - site_a).astype(np.int32)
+    A = int(site_a.sum(axis=1).max())
+    sub = rng.integers(0, 90, (ncol, n_sites, 3, 3)).astype(np.int32)
+    prior = rng.integers(0, 30, (ncol, n_sites, 3)).astype(np.int32)
+    two = site_a == 2
+    sub[two, 2, :] = rphmm_fb.BIG
+    sub[two, :, 2] = rphmm_fb.BIG
+    prior[two, 2] = 0
+    arrays = (
+        rng.integers(-top, top - 1, (ncol, C), dtype=np.int64),
+        rng.integers(C // 2, C + 1, ncol).astype(np.int32),
+        np.full(ncol, 64, dtype=np.int32),
+        np.full(ncol, n_sites, dtype=np.int32),
+        rng.integers(0, 64, (ncol, A, 64)).astype(np.uint8),
+        site_off, site_a, sub, prior,
+        rng.integers(0, M, (ncol, C)).astype(np.int32),
+        rng.integers(0, M, (ncol, C)).astype(np.int32))
+    return rphmm_fb.RphmmPack(*(torch.from_numpy(a).to(device)
+                                for a in arrays), M)
+
+
+def k6_wide_merge(device="cuda"):
+    """K6 on merge rows of 20,000 slots (its carry in device memory), with
+    and without the ancestor, against its twin: every output equal."""
+    pk = random_pack(device)
+    ncol, C, D, A, S, As, M = pk.dims
+    rows = []
+    for anc in (False, True):
+        row, _ = k6_pack_row(pk, anc, {"columns": ncol, "widest_cells": C,
+                                       "deepest_reads": D, "work": None},
+                             k6_pack_work(pk, anc),
+                             f"{ncol} columns x {C} cells, {M} merge slots")
+        if row["layout"]["carry"] != "device":
+            raise AssertionError(f"K6 kept {M} merge slots in shared memory")
+        k6_log(f"on {M} merge slots ({ncol} columns x {C} cells, ancestor "
+               f"{anc})", row)
+        rows.append(row)
+    return rows
+
+
+def k6_merge_tree(fwd, rev, ref, params, device="cuda"):
+    """margin_tpu's path without the native engine on two read sets,
+    through the port's entry points: get_rp_hmms -> merge_two_tiling_paths
+    -> fuse_tiling_path -> forward_backward. A capture pass times each FB
+    on the host, through K6 (pack and read-back included) and its pack
+    alone, and keeps the largest FB's pack, on which K6 is held against its
+    twin and timed; then the tree is timed bare with
+    MARGIN_TPU_RPHMM=device (the K6 counter zeroed right before and read
+    right after) and =host, three turns each: the same traceback and genome
+    fragment every time."""
+    from margin_tpu_torch.ops import rphmm_fb
+    from margin_tpu_torch.phase import rphmm, rphmm_device
+    from margin_tpu_torch.phase.fragment import construct_genome_fragment
+    real_fbd = rphmm_device.forward_backward_device
+    largest, per_fb = {}, []
+
+    def record(hmm, include_ancestor, dev):
+        # each FB on the host, then through K6 with its pack and read-back
+        # (the one the tree goes on with), each timed, then its pack alone;
+        # the largest kept
+        w = rphmm_device.work(hmm)
+        os.environ["MARGIN_TPU_RPHMM"] = "host"
+        t0 = time.perf_counter()
+        hmm.forward_backward(include_ancestor=include_ancestor)
+        t1 = time.perf_counter()
+        os.environ["MARGIN_TPU_RPHMM"] = "device"
+        real_fbd(hmm, include_ancestor, dev)
+        torch_sync()
+        t2 = time.perf_counter()
+        pk = rphmm_device.pack(hmm, dev)
+        torch_sync()
+        per_fb.append((w, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                       (time.perf_counter() - t2) * 1e3))
+        if w > largest.get("work", -1):
+            largest.update(work=w, pk=pk,
+                           include_ancestor=include_ancestor,
+                           stats=rphmm_stats(hmm),
+                           bound=k6_work(hmm, include_ancestor))
+
+    def tree(mode):
+        os.environ["MARGIN_TPU_RPHMM"] = mode
+        t0 = time.perf_counter()
+        tp_f = rphmm.get_rp_hmms(fwd, ref, params, device)
+        tp_r = rphmm.get_rp_hmms(rev, ref, params, device)
+        merged = rphmm.merge_two_tiling_paths(tp_f, tp_r,
+                                              include_ancestor=False)
+        hmm = rphmm.fuse_tiling_path(merged)
+        hmm.forward_backward(include_ancestor=True)
+        path = hmm.forward_traceback()
+        gf = construct_genome_fragment(hmm, path)
+        torch_sync()
+        return path, fragment_key(gf), time.perf_counter() - t0
+
+    rphmm_device.forward_backward_device = record
+    try:
+        tree("device")
+    finally:
+        rphmm_device.forward_backward_device = real_fbd
+    dev_s, host_s, launches, outs = [], [], [], []
+    for _ in range(3):
+        rphmm_fb.RPHMM_FB.launches = 0
+        path, gf, secs = tree("device")
+        launches.append(rphmm_fb.RPHMM_FB.launches)
+        dev_s.append(secs)
+        outs.append((path, gf))
+        path, gf, secs = tree("host")
+        host_s.append(secs)
+        outs.append((path, gf))
+    if min(launches) == 0:
+        raise AssertionError("the merge tree under MARGIN_TPU_RPHMM=device "
+                             "launched no K6")
+    if any(o != outs[0] for o in outs):
+        raise AssertionError("the merge tree on K6 gave another traceback "
+                             "or genome fragment than on the host")
+    log(f"merge tree of {len(fwd)} + {len(rev)} reads on {ref.length} "
+        f"sites, three turns: MARGIN_TPU_RPHMM=device "
+        f"{[round(x, 3) for x in dev_s]} s, {launches[0]} K6 launches "
+        f"each; host {[round(x, 3) for x in host_s]} s; same traceback "
+        f"({len(outs[0][0])} columns) and genome fragment")
+    wins = [f for f in per_fb if f[2] < f[1]]
+    pack_ms = sum(f[3] for f in per_fb)
+    log(f"the merge tree's {len(per_fb)} FBs (work {min(per_fb)[0]}-"
+        f"{max(per_fb)[0]}): K6 with pack and read-back faster than the "
+        f"host float64 FB on {len(wins)}; the packs {pack_ms:.1f} ms in "
+        "all; (work, host ms, K6 with pack ms, pack ms): "
+        f"{[tuple(round(x, 3) for x in f) for f in sorted(per_fb)]}")
+    st = largest["stats"]
+    label = (f"the merge tree's largest FB, {st['columns']} columns x "
+             f"{st['widest_cells']} cells")
+    row, _ = k6_pack_row(largest["pk"], largest["include_ancestor"], st,
+                         largest["bound"], label)
+    k6_log(f"on {label} ({st})", row)
+    tree_info = {"reads": [len(fwd), len(rev)], "sites": ref.length,
+                 "device_s": statistics.median(dev_s),
+                 "host_s": statistics.median(host_s), "device_runs_s": dev_s,
+                 "host_runs_s": host_s, "launches": launches[0],
+                 "per_fb": per_fb}
+    return row, tree_info
+
+
+def k6_cross_product(big, device="cuda"):
+    """The cross product of two seeded random read sets' tiling paths (as
+    merge_two_tiling_paths FBs it) of most work, which must reach the auto
+    threshold 10,000,000; MARGIN_TPU_RPHMM=auto must send its FB to K6 by
+    itself (one launch)."""
     from margin_tpu_torch.ops import rphmm_fb
     from margin_tpu_torch.params import PhaseParams
     from margin_tpu_torch.phase import rphmm, rphmm_device
-    from margin_tpu_torch.phase.fragment import construct_genome_fragment
+    seed, n_sites, n_reads, span = big
+    bref, seqs = random_profile_seqs(seed, n_sites, n_reads, span)
+    bparams = PhaseParams()
+    os.environ["MARGIN_TPU_RPHMM"] = "host"
+    t0 = time.perf_counter()
+    tp1 = rphmm.get_rp_hmms(seqs[0::2], bref, bparams, device)
+    tp2 = rphmm.get_rp_hmms(seqs[1::2], bref, bparams, device)
+    crosses = []
+    for comp in rphmm.get_overlapping_components(tp1, tp2):
+        sub = rphmm.get_tiling_paths(comp)
+        if len(sub) == 2:
+            h1 = rphmm.fuse_tiling_path(sub[0])
+            h2 = rphmm.fuse_tiling_path(sub[1])
+            rphmm.RPHmm.align_columns(h1, h2)
+            crosses.append(rphmm.RPHmm.cross_product(h1, h2))
+    hmm = max(crosses, key=rphmm_device.work)
+    build_s = time.perf_counter() - t0
+    w = rphmm_device.work(hmm)
+    if w < 10_000_000:
+        raise AssertionError(f"the random cross product's work {w} is "
+                             "below the auto threshold")
+    os.environ.pop("MARGIN_TPU_RPHMM", None)
+    os.environ.pop("MARGIN_TPU_RPHMM_THRESHOLD", None)
+    n0 = rphmm_fb.RPHMM_FB.launches
+    hmm.forward_backward(include_ancestor=False)
+    if rphmm_fb.RPHMM_FB.launches != n0 + 1:
+        raise AssertionError("MARGIN_TPU_RPHMM=auto did not send the HMM "
+                             f"of work {w} to K6")
+    log(f"random cross product ({n_reads} reads on {n_sites} sites, built "
+        f"in {build_s:.1f} s): work {w}; MARGIN_TPU_RPHMM=auto sent its FB "
+        "to K6")
+    return k6_against(hmm, False, "a random cross product of work >= 10M",
+                      device)
+
+
+@contextlib.contextmanager
+def rphmm_env():
+    """MARGIN_TPU_RPHMM and its threshold as they were, after a phase that
+    sets them."""
+    saved = {k: os.environ.get(k) for k in ("MARGIN_TPU_RPHMM",
+                                            "MARGIN_TPU_RPHMM_THRESHOLD")}
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_rphmm(device="cuda", big=(31, 600, 220, (60, 150))):
+    """The stRPHmm FB on K6. (1) k6_merge_tree on the profile sequences of
+    phase 4's region chunk with the most reads: its bare run under
+    MARGIN_TPU_RPHMM=device is the main path's, with the K6 counter zeroed
+    right before and read right after. (2) Every fused HMM the native
+    engine returned for phase 4's chunks, FB'd again through K6, its twin
+    and the host float64 path: identical fields; timed on the one of most
+    work. (3) k6_cross_product, held and timed the same way. (4) K6 on
+    sites of 300 and 800 alleles and on merge rows of 20,000 slots, against
+    its twin."""
+    from margin_tpu_torch.ops import rphmm_fb
+    from margin_tpu_torch.phase import rphmm_device
     if not FUSED_HMMS:
         raise AssertionError("phase 4's region run gave no fused HMM")
-    saved = os.environ.get("MARGIN_TPU_RPHMM")
-    real_fbd = rphmm_device.forward_backward_device
     out = {}
-    try:
+    with rphmm_env():
         fwd, rev, ref, params, _ = max(FUSED_HMMS,
                                        key=lambda f: len(f[0]) + len(f[1]))
-        largest, per_fb = {}, []
-
-        def record(hmm, include_ancestor, dev):
-            # the capture pass: each FB on the host, then through K6 with
-            # its pack and read-back (the one the tree goes on with), each
-            # timed; the largest FB's pack kept
-            w = rphmm_device.work(hmm)
-            os.environ["MARGIN_TPU_RPHMM"] = "host"
-            t0 = time.perf_counter()
-            hmm.forward_backward(include_ancestor=include_ancestor)
-            t1 = time.perf_counter()
-            os.environ["MARGIN_TPU_RPHMM"] = "device"
-            real_fbd(hmm, include_ancestor, dev)
-            per_fb.append((w, (t1 - t0) * 1e3,
-                           (time.perf_counter() - t1) * 1e3))
-            if w > largest.get("work", -1):
-                largest.update(work=w, pk=rphmm_device.pack(hmm, dev),
-                               include_ancestor=include_ancestor,
-                               stats=rphmm_stats(hmm),
-                               bound=k6_work(hmm, include_ancestor))
-
-        def merge_tree(mode):
-            os.environ["MARGIN_TPU_RPHMM"] = mode
-            t0 = time.perf_counter()
-            tp_f = rphmm.get_rp_hmms(fwd, ref, params, device)
-            tp_r = rphmm.get_rp_hmms(rev, ref, params, device)
-            merged = rphmm.merge_two_tiling_paths(tp_f, tp_r,
-                                                  include_ancestor=False)
-            hmm = rphmm.fuse_tiling_path(merged)
-            hmm.forward_backward(include_ancestor=True)
-            path = hmm.forward_traceback()
-            gf = construct_genome_fragment(hmm, path)
-            torch_sync()
-            return path, fragment_key(gf), time.perf_counter() - t0
-
-        rphmm_device.forward_backward_device = record
-        try:
-            merge_tree("device")
-        finally:
-            rphmm_device.forward_backward_device = real_fbd
-        rphmm_fb.RPHMM_FB.launches = 0
-        path_d, gf_d, dev_s = merge_tree("device")
-        launches = rphmm_fb.RPHMM_FB.launches
-        path_h, gf_h, host_s = merge_tree("host")
-        if launches == 0:
-            raise AssertionError("the merge tree under MARGIN_TPU_RPHMM="
-                                 "device launched no K6")
-        if path_d != path_h or gf_d != gf_h:
-            raise AssertionError("the merge tree on K6 gave another "
-                                 "traceback or genome fragment than on the "
-                                 "host")
-        log(f"merge tree of {len(fwd)} + {len(rev)} reads on "
-            f"{ref.length} sites: MARGIN_TPU_RPHMM=device {dev_s:.3f} s, "
-            f"{launches} K6 launches; host {host_s:.3f} s; same traceback "
-            f"({len(path_d)} columns) and genome fragment")
-        wins = [f for f in per_fb if f[2] < f[1]]
-        log(f"the merge tree's {len(per_fb)} FBs (work {min(per_fb)[0]}-"
-            f"{max(per_fb)[0]}): K6 with pack and read-back faster than "
-            f"the host float64 FB on {len(wins)}; (work, host ms, K6 ms): "
-            f"{[(w, round(h, 3), round(k, 3)) for w, h, k in sorted(per_fb)]}")
-        st = largest["stats"]
-        row, _ = k6_pack_row(
-            largest["pk"], largest["include_ancestor"], st, largest["bound"],
-            f"the merge tree's largest FB, {st['columns']} columns x "
-            f"{st['widest_cells']} cells")
-        out["main_path"] = row
-        out["merge_tree"] = {"reads": [len(fwd), len(rev)],
-                             "sites": ref.length, "device_s": dev_s,
-                             "host_s": host_s, "launches": launches,
-                             "per_fb": per_fb}
-        out["launches"] = {"K6": launches}
-        log(f"K6 on the merge tree's largest FB ({st}): kernel "
-            f"{row['ms']:.3f} ms, twin {row['plain_ms']:.1f} ms, bound "
-            f"{row['bound_ms']:.3g} ms ({row['bound_by']}); identical to "
-            "the twin")
+        out["main_path"], out["merge_tree"] = k6_merge_tree(
+            fwd, rev, ref, params, device)
+        out["launches"] = {"K6": out["merge_tree"]["launches"]}
 
         # the fused HMMs of phase 4's chunks
         stats = []
@@ -3193,49 +3417,31 @@ def phase_rphmm(device="cuda", big=(31, 600, 220, (60, 150))):
         top = max(range(len(stats)), key=lambda i: stats[i]["work"])
         out["fused"] = {"hmms": stats, "largest": k6_against(
             FUSED_HMMS[top][4], True, "the largest fused HMM", device)}
-
-        # an HMM of work >= the auto threshold
-        seed, n_sites, n_reads, span = big
-        bref, seqs = random_profile_seqs(seed, n_sites, n_reads, span)
-        bparams = PhaseParams()
-        os.environ["MARGIN_TPU_RPHMM"] = "host"
-        t0 = time.perf_counter()
-        tp1 = rphmm.get_rp_hmms(seqs[0::2], bref, bparams, device)
-        tp2 = rphmm.get_rp_hmms(seqs[1::2], bref, bparams, device)
-        crosses = []
-        for comp in rphmm.get_overlapping_components(tp1, tp2):
-            sub = rphmm.get_tiling_paths(comp)
-            if len(sub) == 2:
-                h1 = rphmm.fuse_tiling_path(sub[0])
-                h2 = rphmm.fuse_tiling_path(sub[1])
-                rphmm.RPHmm.align_columns(h1, h2)
-                crosses.append(rphmm.RPHmm.cross_product(h1, h2))
-        hmm = max(crosses, key=rphmm_device.work)
-        build_s = time.perf_counter() - t0
-        w = rphmm_device.work(hmm)
-        if w < 10_000_000:
-            raise AssertionError(f"the random cross product's work {w} is "
-                                 "below the auto threshold")
-        os.environ.pop("MARGIN_TPU_RPHMM", None)
-        os.environ.pop("MARGIN_TPU_RPHMM_THRESHOLD", None)
-        n0 = rphmm_fb.RPHMM_FB.launches
-        hmm.forward_backward(include_ancestor=False)
-        if rphmm_fb.RPHMM_FB.launches != n0 + 1:
-            raise AssertionError("MARGIN_TPU_RPHMM=auto did not send the "
-                                 f"HMM of work {w} to K6")
-        log(f"random cross product ({n_reads} reads on {n_sites} sites, "
-            f"built in {build_s:.1f} s): work {w}; MARGIN_TPU_RPHMM=auto "
-            "sent its FB to K6")
-        out["threshold"] = k6_against(hmm, False,
-                                      "a random cross product of work >= "
-                                      "10M", device)
+        out["threshold"] = k6_cross_product(big, device)
         out["wide_site"] = k6_wide_site(device)
-    finally:
-        rphmm_device.forward_backward_device = real_fbd
-        if saved is None:
-            os.environ.pop("MARGIN_TPU_RPHMM", None)
-        else:
-            os.environ["MARGIN_TPU_RPHMM"] = saved
+        out["wide_merge"] = k6_wide_merge(device)
+    return out
+
+
+def phase_k6(device="cuda", big=(31, 600, 220, (60, 150)),
+             tree=(5, 24, 44, (10, 23))):
+    """K6's loop, needing no phase: k6_cross_product, the 300- and
+    800-allele sites, merge rows of 20,000 slots, and k6_merge_tree on the
+    two halves of a seeded random read set (random_profile_seqs(*tree));
+    each held against the twin (and the host FB where an HMM is behind it)
+    and timed."""
+    from margin_tpu_torch import _ext
+    from margin_tpu_torch.params import PhaseParams
+    log(f"k6: rphmm_fb built in "
+        f"{_ext.BUILD_SECONDS.get('rphmm_fb', 0.0):.1f} s")
+    out = {}
+    with rphmm_env():
+        out["threshold"] = k6_cross_product(big, device)
+        out["wide_site"] = k6_wide_site(device)
+        out["wide_merge"] = k6_wide_merge(device)
+        ref, seqs = random_profile_seqs(*tree)
+        out["main_path"], out["merge_tree"] = k6_merge_tree(
+            seqs[0::2], seqs[1::2], ref, PhaseParams(), device)
     return out
 
 
@@ -3265,7 +3471,7 @@ SOURCES = {
 
 PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools",
           "cram", "rphmm")
-CHOICES = PHASES + ("k1", "k5")
+CHOICES = PHASES + ("k1", "k5", "k6")
 
 
 def main(argv=None) -> int:
@@ -3275,7 +3481,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of %s to run after the "
                          "build, for iterating on one path (k1: K1's "
                          "shapes of the kernels phase alone; k5: both K5 "
-                         "designs on their loop's packs; tools and "
+                         "designs on their loop's packs; k6: K6 on its "
+                         "loop's HMMs and packs; tools and "
                          "rphmm need phase, cram needs phase and polish); "
                          "the kernels line is printed only when all of %s "
                          "run" % (CHOICES, PHASES))
@@ -3321,21 +3528,38 @@ def main(argv=None) -> int:
         log("h5py: absent (-f would stop naming it; the HELEN phases hold "
             "the arrays the HDF5 file would get)")
     t_start = time.perf_counter()
-    report = {"card": card, "device": torch.cuda.get_device_name(0)}
+    report = {"card": card, "device": torch.cuda.get_device_name(0),
+              "phase_s": {}}
+    t_lap = [t_start]
+
+    def lap(name):
+        """Log and keep the seconds since the previous lap."""
+        now = time.perf_counter()
+        report["phase_s"][name] = secs = now - t_lap[0]
+        t_lap[0] = now
+        log(f"... phase {name}: {secs:.1f} s")
     report["build"] = phase_build()
+    lap("build")
     if "kernels" in only or "k1" in only:
         report["k1"] = phase_k1("cuda")
+        lap("k1")
     if "k5" in only:
         report["k5"] = phase_k5("cuda")
+        lap("k5")
+    if "k6" in only:
+        report["k6"] = phase_k6("cuda")
+        lap("k6")
     if "kernels" in only:
         report["k2"] = phase_k2("cuda")
         report["k3"] = phase_k3("cuda")
         report["k3_deep"] = phase_k3_deep("cuda")
+        lap("kernels")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if "phase" in only:
             report["phase"], rec, phase_ds = phase_e2e("cuda", work, out_dir)
             report["main_path_shapes"] = phase_main_path_shapes(rec)
+            lap("phase")
         ds = None
         if "polish" in only:
             report["polish"], ds, prec = phase_polish("cuda", work, out_dir)
@@ -3344,26 +3568,34 @@ def main(argv=None) -> int:
             report["polish_region"] = phase_polish_region(ds, work)
             report.setdefault("main_path_shapes", {}).update(
                 phase_k3_main_path(prec))
+            lap("polish")
         if "diploid" in only:
             report["diploid"], dds = phase_diploid("cuda", work, out_dir)
             report["diploid_region"] = phase_diploid_region(dds, work)
+            lap("diploid")
         if ds is None and only & {"em", "helen", "tools"}:
             ds = polish_dataset(work)
         if "em" in only:
             report["em"] = phase_em(ds)
+            lap("em")
         if "helen" in only:
             report["helen"] = phase_helen(ds, work)
+            lap("helen")
         if "tools" in only:
             report["tools"] = phase_tools(phase_ds, f"{work}/full",
                                           report["phase"]["region"], ds,
                                           work, out_dir)
+            lap("tools")
         if "cram" in only:
             report["cram"] = phase_cram(phase_ds, report["phase"]["region"],
                                         ds, report["polish_region"]["args"],
                                         work, out_dir)
+            lap("cram")
         if "rphmm" in only:
             report["rphmm"] = phase_rphmm()
+            lap("rphmm")
         report["twins"] = run_twin_jobs(work)
+        lap("twins")
         if "phase" in only and "polish" in only:
             summed = {k: report["phase"]["kernel_ms"][k]
                       + report["polish"]["kernel_ms"][k]

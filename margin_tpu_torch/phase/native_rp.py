@@ -164,8 +164,7 @@ def phase_fused_hmm(fwd_seqs: List, rev_seqs: List, ref, params, device):
         bwd = p.arr(n_cells, np.float64)
         emis = p.arr(n_cells, np.float64)
         total = p.f64()
-        col = rphmm.Column(c_start, c_len, c_seqs,
-                           [int(x) for x in parts])
+        col = rphmm.Column(c_start, c_len, c_seqs, parts)
         col.forward = fwd
         col.backward = bwd
         col.emission = emis
@@ -179,7 +178,7 @@ def phase_fused_hmm(fwd_seqs: List, rev_seqs: List, ref, params, device):
         fp = p.arr(n_cells, np.uint64)
         tp = p.arr(n_cells, np.uint64)
         m = rphmm.MergeColumn(mask_from, mask_to)
-        m.set_cells([int(x) for x in fp], [int(x) for x in tp])
+        m.set_cells(fp, tp)
         merges.append(m)
 
     hmm = rphmm.RPHmm(ref, ref_start, ref_length,

@@ -50,19 +50,42 @@ def invert_partition(p: int, depth: int) -> int:
 class Column:
     """stRPColumn: run of sites sharing a constant read set (column.c)."""
 
-    __slots__ = ("ref_start", "length", "seqs", "partitions", "forward",
-                 "backward", "emission", "total_log_prob")
+    __slots__ = ("ref_start", "length", "seqs", "_partitions", "_parts_u64",
+                 "forward", "backward", "emission", "total_log_prob")
 
     def __init__(self, ref_start: int, length: int, seqs: List[ProfileSeq],
-                 partitions: List[int]):
+                 partitions):
         self.ref_start = ref_start
         self.length = length
         self.seqs = seqs  # bit i of a partition <-> seqs[i]
-        self.partitions = list(partitions)
+        self.partitions = partitions
         self.forward: Optional[np.ndarray] = None
         self.backward: Optional[np.ndarray] = None
         self.emission: Optional[np.ndarray] = None
         self.total_log_prob = LOG_ZERO
+
+    @property
+    def partitions(self) -> List[int]:
+        return self._partitions
+
+    @partitions.setter
+    def partitions(self, parts):
+        """Python ints, or a uint64 array, which parts_u64 then returns."""
+        if isinstance(parts, np.ndarray):
+            self._parts_u64 = parts.astype(np.uint64)
+            self._parts_u64.flags.writeable = False
+            self._partitions = parts.tolist()
+        else:
+            self._partitions = list(parts)
+            self._parts_u64 = None
+
+    def parts_u64(self) -> np.ndarray:
+        """The partitions as a read-only uint64 array, converted once until
+        they are set again."""
+        if self._parts_u64 is None:
+            self._parts_u64 = np.array(self._partitions, dtype=np.uint64)
+            self._parts_u64.flags.writeable = False
+        return self._parts_u64
 
     @property
     def depth(self) -> int:
@@ -104,15 +127,18 @@ class MergeColumn:
         self._from_sorted = None
         self._to_sorted = None
 
-    def set_cells(self, from_parts: List[int], to_parts: List[int]):
-        """Bulk add_cell."""
-        self.from_parts = from_parts
-        self.to_parts = to_parts
-        self.from_index = {p: i for i, p in enumerate(from_parts)}
-        self.to_index = {p: i for i, p in enumerate(to_parts)}
-        assert len(self.from_index) == len(from_parts)
-        assert len(self.to_index) == len(to_parts)
-        self._from_sorted = self._to_sorted = None
+    def set_cells(self, from_u64: np.ndarray, to_u64: np.ndarray):
+        """Bulk add_cell from the cells' partitions as uint64 arrays; the
+        sorted keys (sorted_keys) are built from them here, sparing a
+        conversion of the lists."""
+        self.from_parts = from_u64.tolist()
+        self.to_parts = to_u64.tolist()
+        self.from_index = {p: i for i, p in enumerate(self.from_parts)}
+        self.to_index = {p: i for i, p in enumerate(self.to_parts)}
+        assert len(self.from_index) == len(self.from_parts)
+        assert len(self.to_index) == len(self.to_parts)
+        self._from_sorted, self._from_order = _sorted(from_u64)
+        self._to_sorted, self._to_order = _sorted(to_u64)
 
     def size(self) -> int:
         return len(self.from_parts)
@@ -125,52 +151,55 @@ class MergeColumn:
         """Merge cell this column-cell feeds from (mergeColumn.c:72-79)."""
         return self.to_index.get(partition & self.mask_to)
 
+    def sorted_keys(self, side: str):
+        """(the uint64 keys in order, their indices) of from_parts (side
+        "from") or to_parts ("to"): built at first use, kept until the
+        cells change."""
+        if side == "from":
+            if self._from_sorted is None:
+                self._from_sorted, self._from_order = _sorted(
+                    np.array(self.from_parts, dtype=np.uint64))
+            return self._from_sorted, self._from_order
+        if self._to_sorted is None:
+            self._to_sorted, self._to_order = _sorted(
+                np.array(self.to_parts, dtype=np.uint64))
+        return self._to_sorted, self._to_order
+
     def next_idx_array(self, parts_u64: np.ndarray) -> np.ndarray:
         """Vectorized next_cell_idx over a partition array (all present)."""
-        if self._from_sorted is None:
-            vals = np.array(self.from_parts, dtype=np.uint64)
-            self._from_order = np.argsort(vals, kind="stable")
-            self._from_sorted = vals[self._from_order]
-        masked = parts_u64 & np.uint64(self.mask_from)
-        return self._from_order[np.searchsorted(self._from_sorted, masked)]
+        return _lookup(*self.sorted_keys("from"), parts_u64, self.mask_from)
 
     def prev_idx_array(self, parts_u64: np.ndarray) -> np.ndarray:
         """Vectorized prev_cell_idx over a partition array (all present)."""
-        if self._to_sorted is None:
-            vals = np.array(self.to_parts, dtype=np.uint64)
-            self._to_order = np.argsort(vals, kind="stable")
-            self._to_sorted = vals[self._to_order]
-        masked = parts_u64 & np.uint64(self.mask_to)
-        return self._to_order[np.searchsorted(self._to_sorted, masked)]
+        return _lookup(*self.sorted_keys("to"), parts_u64, self.mask_to)
 
     def next_idx_or_m1(self, parts_u64: np.ndarray) -> np.ndarray:
         """Vectorized next_cell_idx; -1 where the masked partition has no
         merge cell (the post-prune linkage test of hmm.c:1021-1047)."""
-        if self._from_sorted is None:
-            vals = np.array(self.from_parts, dtype=np.uint64)
-            self._from_order = np.argsort(vals, kind="stable")
-            self._from_sorted = vals[self._from_order]
-        if len(self._from_sorted) == 0:
-            return np.full(len(parts_u64), -1, dtype=np.int64)
-        masked = parts_u64 & np.uint64(self.mask_from)
-        pos = np.searchsorted(self._from_sorted, masked)
-        pos_c = np.minimum(pos, len(self._from_sorted) - 1)
-        hit = self._from_sorted[pos_c] == masked
-        return np.where(hit, self._from_order[pos_c], -1)
+        return _lookup_or_m1(*self.sorted_keys("from"), parts_u64,
+                             self.mask_from)
 
     def prev_idx_or_m1(self, parts_u64: np.ndarray) -> np.ndarray:
         """Vectorized prev_cell_idx; -1 where missing."""
-        if self._to_sorted is None:
-            vals = np.array(self.to_parts, dtype=np.uint64)
-            self._to_order = np.argsort(vals, kind="stable")
-            self._to_sorted = vals[self._to_order]
-        if len(self._to_sorted) == 0:
-            return np.full(len(parts_u64), -1, dtype=np.int64)
-        masked = parts_u64 & np.uint64(self.mask_to)
-        pos = np.searchsorted(self._to_sorted, masked)
-        pos_c = np.minimum(pos, len(self._to_sorted) - 1)
-        hit = self._to_sorted[pos_c] == masked
-        return np.where(hit, self._to_order[pos_c], -1)
+        return _lookup_or_m1(*self.sorted_keys("to"), parts_u64,
+                             self.mask_to)
+
+
+def _sorted(vals: np.ndarray):
+    order = np.argsort(vals, kind="stable")
+    return vals[order], order
+
+
+def _lookup(keys, order, parts_u64, mask):
+    return order[np.searchsorted(keys, parts_u64 & np.uint64(mask))]
+
+
+def _lookup_or_m1(keys, order, parts_u64, mask):
+    if len(keys) == 0:
+        return np.full(len(parts_u64), -1, dtype=np.int64)
+    masked = parts_u64 & np.uint64(mask)
+    pos = np.minimum(np.searchsorted(keys, masked), len(keys) - 1)
+    return np.where(keys[pos] == masked, order[pos], -1)
 
 
 class RPHmm:
@@ -358,8 +387,8 @@ class RPHmm:
             depth = c1.depth + c2.depth
             # vectorized pairwise merge, p1-major (== the reference's
             # nested-loop order); dedup + invert interleaving in plain ints
-            p1a = np.array(c1.partitions, dtype=np.uint64)
-            p2a = np.array(c2.partitions, dtype=np.uint64)
+            p1a = c1.parts_u64()
+            p2a = c2.parts_u64()
             mm = ((p2a[None, :] << np.uint64(c1.depth))
                   | p1a[:, None]).ravel()
             if inverted:
@@ -375,9 +404,9 @@ class RPHmm:
                 else:
                     inter = mm
                 _, first = np.unique(inter, return_index=True)
-                parts = inter[np.sort(first)].tolist()
+                parts = inter[np.sort(first)]
             else:
-                parts = mm.tolist()
+                parts = mm
             columns.append(Column(c1.ref_start, c1.length, c1.seqs + c2.seqs, parts))
             if ci < len(h1.columns) - 1:
                 m1, m2 = h1.merges[ci], h2.merges[ci]
@@ -410,10 +439,9 @@ class RPHmm:
                         inter_f, inter_t = fps, tps
                     _, first = np.unique(inter_f, return_index=True)
                     keep = np.sort(first)
-                    m.set_cells(inter_f[keep].tolist(),
-                                inter_t[keep].tolist())
+                    m.set_cells(inter_f[keep], inter_t[keep])
                 else:
-                    m.set_cells(fps.tolist(), tps.tolist())
+                    m.set_cells(fps, tps)
                 merges.append(m)
         return RPHmm(h1.ref, h1.ref_start, h1.ref_length,
                      h1.profile_seqs + h2.profile_seqs, columns, merges, params,
@@ -427,7 +455,7 @@ class RPHmm:
         n_cells = len(col.partitions)
         if col.depth == 0 or col.length == 0:
             return np.zeros(n_cells)
-        parts = np.array(col.partitions, dtype=np.uint64)
+        parts = col.parts_u64()
         d = col.depth
         bits = ((parts[:, None] >> np.arange(d, dtype=np.uint64)[None, :]) & np.uint64(1))
         m = bits.astype(np.int64)  # (C, D) membership of read i in hap1
@@ -484,8 +512,7 @@ class RPHmm:
         self.backward_log_prob = LOG_ZERO
 
         # per-column vectorized merge index maps, shared by both passes
-        parts_u64 = [np.array(c.partitions, dtype=np.uint64)
-                     for c in self.columns]
+        parts_u64 = [c.parts_u64() for c in self.columns]
         idx_prev = [None] * len(self.columns)  # merges[ci-1] <- col ci
         idx_next = [None] * len(self.columns)  # merges[ci]   <- col ci
         for ci in range(len(self.columns)):
@@ -553,7 +580,7 @@ class RPHmm:
         prev_merge = None  # merge column crossed to reach this column
         for ci in order_cols:
             col = self.columns[ci]
-            parts = np.array(col.partitions, dtype=np.uint64)
+            parts = col.parts_u64()
             # keep cells that still link backwards (getLinkedCells, hmm.c:1021-1047)
             if prev_merge is not None:
                 linkv = (prev_merge.prev_idx_or_m1(parts) if forwards
@@ -570,7 +597,7 @@ class RPHmm:
                 sel = sel[:n]
                 kept_post = kept_post[:n]
             # relink in sorted order, keep fb arrays consistent
-            col.partitions = parts[sel].tolist()
+            col.partitions = parts[sel]
             col.forward = col.forward[sel]
             col.backward = col.backward[sel]
             col.emission = col.emission[sel]
@@ -584,7 +611,7 @@ class RPHmm:
             if m is None:
                 prev_merge = None
                 continue
-            kept_parts = np.array(col.partitions, dtype=np.uint64)
+            kept_parts = col.parts_u64()
             links = (m.next_idx_or_m1(kept_parts) if forwards
                      else m.prev_idx_or_m1(kept_parts))
             assert (links >= 0).all()
@@ -627,8 +654,7 @@ class RPHmm:
             mcell = m.prev_cell_idx(col.partitions[best])
             ci -= 1
             col = self.columns[ci]
-            links = m.next_idx_or_m1(
-                np.array(col.partitions, dtype=np.uint64))
+            links = m.next_idx_or_m1(col.parts_u64())
             cand = np.where(links == mcell, col.forward, LOG_ZERO)
             best = int(np.argmax(cand))  # first strict max, like the C scan
             assert links[best] == mcell

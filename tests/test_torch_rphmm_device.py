@@ -8,6 +8,9 @@ must agree bit for bit. The inputs are tests/test_rphmm_device.py's: the
 same seeded random references and profile sequences, built into each
 package's own classes."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -233,6 +236,133 @@ def test_pack_layout():
     assert int(pk.sub.max()) == rphmm_fb.BIG
 
 
+def _pack_loop(hmm):
+    """The per-column loop that built the pack before it was made of whole
+    arrays: the reference the pack must equal array for array (on the
+    CPU)."""
+    cols, merges = hmm.columns, hmm.merges
+    ncol = len(cols)
+    offsets = hmm.ref.allele_offsets()
+    sites = hmm.ref.sites
+    C = max(len(c.partitions) for c in cols)
+    D = -(-max(1, max(c.depth for c in cols)) // 4) * 4
+    a_list = [int(offsets[c.ref_start + c.length] - offsets[c.ref_start])
+              for c in cols]
+    A = max(1, max(a_list))
+    S = max(1, max(c.length for c in cols))
+    As = max([sites[s].allele_number for c in cols
+              for s in range(c.ref_start, c.ref_start + c.length)] + [2])
+    M = max([m.size() for m in merges] + [1])
+    parts = np.zeros((ncol, C), dtype=np.int64)
+    n_cells = np.zeros(ncol, dtype=np.int32)
+    depth = np.zeros(ncol, dtype=np.int32)
+    n_sites = np.zeros(ncol, dtype=np.int32)
+    pt = np.zeros((ncol, A, D), dtype=np.uint8)
+    site_off = np.zeros((ncol, S), dtype=np.int32)
+    site_a = np.zeros((ncol, S), dtype=np.int32)
+    sub = np.full((ncol, S, As, As), rphmm_fb.BIG, dtype=np.int32)
+    prior = np.zeros((ncol, S, As), dtype=np.int32)
+    idx_prev = np.zeros((ncol, C), dtype=np.int32)
+    idx_next = np.zeros((ncol, C), dtype=np.int32)
+    for ci, col in enumerate(cols):
+        p64 = np.array(col.partitions, dtype=np.uint64)
+        n = len(p64)
+        parts[ci, :n] = p64.view(np.int64)
+        n_cells[ci] = n
+        depth[ci] = col.depth
+        n_sites[ci] = col.length
+        a0 = int(offsets[col.ref_start])
+        for i, ps in enumerate(col.seqs):
+            pt[ci, :a_list[ci], i] = ps.probs[
+                a0 - ps.allele_offset:a0 - ps.allele_offset + a_list[ci]]
+        for sj, s in enumerate(range(col.ref_start,
+                                     col.ref_start + col.length)):
+            site = sites[s]
+            na = site.allele_number
+            site_off[ci, sj] = site.allele_offset - a0
+            site_a[ci, sj] = na
+            sub[ci, sj, :na, :na] = site.substitution_log_probs
+            prior[ci, sj, :na] = site.allele_prior_log_probs
+        if ci > 0:
+            idx_prev[ci, :n] = merges[ci - 1].prev_idx_array(p64)
+        if ci < len(merges):
+            idx_next[ci, :n] = merges[ci].next_idx_array(p64)
+    return rphmm_fb.RphmmPack(*(torch.from_numpy(a) for a in (
+        parts, n_cells, depth, n_sites, pt, site_off, site_a, sub, prior,
+        idx_prev, idx_next)), M)
+
+
+def _cross_product(seed, n_sites, n_reads, span):
+    """The cross product of two seeded read sets' tiling paths of most
+    work, as merge_two_tiling_paths builds it (chip_smoke.py's HMM of work
+    >= 10M at a CPU size)."""
+    from margin_tpu_torch.phase import rphmm
+    rng = np.random.default_rng(seed)
+    ref = _random_ref(bubbles, rng, n_sites)
+    seqs = _random_pseqs(bubbles, rng, ref, n_reads)
+    offsets = ref.allele_offsets()
+    for i, ps in enumerate(seqs):
+        n = int(rng.integers(span[0], span[1]))
+        s = int(rng.integers(0, n_sites - n))
+        probs = rng.integers(0, 64, int(offsets[s + n] - offsets[s]))
+        seqs[i] = bubbles.ProfileSeq(None, f"r{i}", s, n, int(offsets[s]),
+                                     probs.astype(np.uint8))
+    params = PhaseParams()
+    tp1 = get_rp_hmms(seqs[0::2], ref, params, "cpu")
+    tp2 = get_rp_hmms(seqs[1::2], ref, params, "cpu")
+    crosses = []
+    for comp in rphmm.get_overlapping_components(tp1, tp2):
+        sub = rphmm.get_tiling_paths(comp)
+        if len(sub) == 2:
+            h1 = rphmm.fuse_tiling_path(sub[0])
+            h2 = rphmm.fuse_tiling_path(sub[1])
+            rphmm.RPHmm.align_columns(h1, h2)
+            crosses.append(rphmm.RPHmm.cross_product(h1, h2))
+    return max(crosses, key=rphmm_device.work)
+
+
+def _pack_cases():
+    kw = dict(minPartitionsInAColumn=4, maxPartitionsInAColumn=16,
+              minPosteriorProbabilityForPartition=0.01)
+    for seed in (0, 1, 2):
+        for hmm in _both(seed, 14, 12, **kw)[1]:
+            yield f"seed {seed}", hmm
+    yield "deep wide column", _both(11, 6, 40, max_alleles=5, span=(0, 6),
+                                    minPartitionsInAColumn=8,
+                                    maxPartitionsInAColumn=32,
+                                    minPosteriorProbabilityForPartition=0.001
+                                    )[1][0]
+    yield "cross product", _cross_product(31, 80, 40, (15, 40))
+    hmm = _both(7, 20, 16, max_alleles=2, minPartitionsInAColumn=4,
+                maxPartitionsInAColumn=8,
+                minPosteriorProbabilityForPartition=0.01)[1][0]
+    hmm.forward_backward()
+    hmm.prune()
+    yield "pruned", hmm
+    for hmm in _wide_site_hmms(13)[1]:
+        yield "300-allele site", hmm
+
+
+def test_pack_equals_the_column_loop(monkeypatch):
+    """The whole-array pack gives the per-column loop's arrays, array for
+    array (dtype, shape, values), on the seeded HMMs, a deep wide column, a
+    cross product, a pruned HMM and the 300-allele reference."""
+    monkeypatch.setenv("MARGIN_TPU_RPHMM", "host")
+    labels = []
+    for label, hmm in _pack_cases():
+        want = _pack_loop(hmm)
+        got = rphmm_device.pack(hmm, "cpu")
+        assert got.M == want.M, label
+        for name in ("parts", "n_cells", "depth", "n_sites", "pt",
+                     "site_off", "site_a", "sub", "prior", "idx_prev",
+                     "idx_next"):
+            g, w = getattr(got, name), getattr(want, name)
+            assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
+            assert torch.equal(g, w), (label, name)
+        labels.append(label)
+    assert {"cross product", "pruned", "300-allele site"} <= set(labels)
+
+
 def test_phase_without_the_native_engine_on_the_device_fb(tmp_path,
                                                          monkeypatch):
     """run_phase(device="cpu") with the native merge-tree engine absent and
@@ -285,23 +415,101 @@ def test_k6_matches_twin_on_the_card():
 
 
 def test_emission_smem_stages_the_profile_when_it_fits():
-    """K6 stages a column's profile bytes in shared memory beside the
-    ancestor's allele sums when both fit, reads them from device memory
-    when they do not, and keeps sums that alone overflow shared memory (a
-    site of more than 227 alleles) in device memory."""
-    sums = 2 * 3 * rphmm_fb.EMISSION_THREADS * 4
-    assert rphmm_fb.emission_smem(100, 64, 3, True) == (6400 + sums, True,
-                                                        True)
-    assert rphmm_fb.emission_smem(100, 64, 3, False) == (6400, True, True)
-    assert rphmm_fb.emission_smem(4000, 64, 3, True) == (sums, False, True)
-    assert rphmm_fb.emission_smem(4000, 64, 3, False) == (0, False, True)
-    # 300 alleles: the sums go to device memory, the profile stays staged
-    lay = rphmm_fb.emission_smem(310, 64, 300, True)
-    assert lay == (310 * 64, True, False)
-    assert not lay.sums_shared and lay.staged
-    assert rphmm_fb.emission_smem(310, 64, 300, False) == (310 * 64, True,
-                                                           True)
-    assert rphmm_fb.emission_smem(4000, 64, 300, True) == (0, False, False)
+    """K6 builds a column's bit planes (68 bytes an allele) and, with the
+    ancestor, stages its sites' substitutions and priors in shared memory
+    in one chunk when they fit, and in chunks of whole sites when they do
+    not (~4000 alleles at 64 reads); without the ancestor nothing is
+    staged but the planes."""
+    pb = rphmm_fb.PLANE_BYTES
+    lay = rphmm_fb.k6_launch(300, 100, 64, 3, 40, 150, True)
+    assert (lay.cap_a, lay.cap_s, lay.stage_sub) == (100, 40, True)
+    assert lay.emission_bytes == 100 * pb + 40 * (9 + 3) * 4
+    lay = rphmm_fb.k6_launch(300, 100, 64, 3, 40, 150, False)
+    assert (lay.cap_a, lay.cap_s, lay.stage_sub) == (100, 40, False)
+    assert lay.emission_bytes == 100 * pb
+    for ancestor in (True, False):
+        lay = rphmm_fb.k6_launch(200, 4000, 64, 3, 1600, 150, ancestor)
+        assert 3 <= lay.cap_a < 4000 and lay.emission_bytes <= 232_448
+        assert lay.emission_bytes == (lay.cap_a * pb + lay.stage_sub
+                                      * lay.cap_s * 48)
+    # a site that fits alone always fits a chunk
+    lay = rphmm_fb.k6_launch(10, 3400, 64, 3000, 3, 10, False)
+    assert lay.cap_a >= 3000
+
+
+@pytest.mark.parametrize("As, nr, sums, threads", [
+    (2, 4, "registers", 128), (4, 4, "registers", 128),
+    (5, 16, "registers", 128), (16, 16, "registers", 128),
+    (17, 16, "shared", 128), (212, 16, "shared", 128),
+    (213, 16, "shared", 64), (400, 16, "shared", 64),
+    (401, 16, "shared", 32), (717, 16, "shared", 32),
+    (718, 16, "device", 128)])
+def test_k6_launch_places_the_ancestor_sums(As, nr, sums, threads):
+    """With the ancestor a site's allele sums stay in registers up to the
+    bucket of 4 or 16 alleles; a wider site keeps 2 x As ints a thread in
+    shared memory at the most threads of 128, 64, 32 that fit beside its
+    planes (up to 717 alleles), else in device memory. Without the
+    ancestor no sums are kept."""
+    lay = rphmm_fb.k6_launch(1000, As + 5, 64, As, 3, 150, True)
+    assert (lay.nr, lay.sums, lay.threads) == (nr, sums, threads)
+    assert lay.tiles == -(-1000 // threads)
+    assert lay.stage_sub == (sums == "registers")
+    shared = 2 * As * threads * 4 if sums == "shared" else 0
+    assert lay.emission_bytes <= 232_448
+    assert lay.emission_bytes - shared == (
+        lay.cap_a * rphmm_fb.PLANE_BYTES
+        + lay.stage_sub * lay.cap_s * (As * As + As) * 4)
+    plain = rphmm_fb.k6_launch(1000, As + 5, 64, As, 3, 150, False)
+    assert (plain.sums, plain.threads, plain.stage_sub) == ("registers", 128,
+                                                           False)
+
+
+@pytest.mark.parametrize("M, carry", [(1, "shared"), (19_370, "shared"),
+                                      (19_371, "device"),
+                                      (40_000, "device")])
+def test_k6_launch_places_the_carry(M, carry):
+    """The chain keeps three merge rows a sweep in shared memory while
+    3 x M ints fit in 232,448 bytes, else its rows are m_fwd / m_bwd in
+    device memory."""
+    lay = rphmm_fb.k6_launch(2500, 26, 64, 3, 10, M, True)
+    assert lay.carry == carry
+    assert lay.chain_bytes == (3 * M * 4 if carry == "shared" else 0)
+    assert lay.chain_bytes <= 232_448
+
+
+@pytest.mark.parametrize("C, cpt, threads", [
+    (1, 1, 32), (1000, 1, 1024), (1025, 2, 544), (2500, 4, 640),
+    (4096, 4, 1024), (4097, 0, 1024)])
+def test_k6_launch_splits_the_chain_cells(C, cpt, threads):
+    """The chain's block holds a column's cells CPT a thread (1, 2 or 4,
+    the fewest that fit 1024 threads; threads a multiple of 32), and loads
+    them where used beyond 4096 cells."""
+    lay = rphmm_fb.k6_launch(C, 26, 64, 3, 10, 100, False)
+    assert (lay.chain_cpt, lay.chain_threads) == (cpt, threads)
+    assert not cpt or cpt * threads >= C
+
+
+def test_k6_launch_refuses_more_than_64_reads():
+    """A partition is 64 bits: K6 takes no column of more reads."""
+    rphmm_fb.k6_launch(10, 5, 64, 2, 2, 10, True)
+    with pytest.raises(ValueError, match="64"):
+        rphmm_fb.k6_launch(10, 5, 68, 2, 2, 10, True)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bitplane_sums_equal_the_twin_matmul(seed):
+    """The plain model of K6's bit-plane sums equals the twin's matmul
+    sums on seeded packs of 64 reads whose partitions have bit 63 set
+    (negative as int64), including all-ones and bit 63 alone."""
+    pk = _random_pack(seed, 3, 100, 4, 50, "cpu", full_range=True)
+    assert bool((pk.parts < 0).any())
+    pk.parts[0, 0] = -1
+    pk.parts[0, 1] = -(1 << 63)
+    for ci in range(pk.parts.shape[0]):
+        want = rphmm_fb.matmul_sums(pk.parts[ci], pk.pt[ci])
+        got = rphmm_fb.bitplane_sums(pk.parts[ci], pk.pt[ci])
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _wide_site_hmms(seed, n_reads=10, wide=300):
@@ -329,73 +537,153 @@ def _wide_site_hmms(seed, n_reads=10, wide=300):
 
 def test_twin_on_a_300_allele_site_matches_jax():
     """A site of 300 alleles with the ancestor, whose allele sums K6 keeps
-    in device memory: the twin (the device path on the CPU) equals
-    margin_tpu's _fb_jit and both host FBs bit for bit."""
+    in shared memory at 64 threads a block (beyond the register bucket):
+    the twin (the device path on the CPU) equals margin_tpu's _fb_jit and
+    both host FBs bit for bit."""
     jax_hmms, hmms = _wide_site_hmms(13)
     assert hmms and len(hmms) == len(jax_hmms)
     for jh, th in zip(jax_hmms, hmms):
         pk = rphmm_device.pack(th, "cpu")
-        _, _, D, A, _, As, _ = pk.dims
+        _, C, D, A, S, As, M = pk.dims
         assert As >= 300
-        assert not rphmm_fb.emission_smem(A, D, As, True).sums_shared
+        lay = rphmm_fb.k6_launch(C, A, D, As, S, M, True)
+        assert (lay.sums, lay.threads) == ("shared", 64)
         _four_ways(jh, th, True)
 
 
-def _random_pack(seed, ncol, C, n_sites, M, device):
-    """A seeded pack of `ncol` columns of 64 reads over `n_sites` sites of
-    2-3 alleles each, random merge maps into `M` slots."""
-    rng = np.random.default_rng(seed)
-    site_a = rng.integers(2, 4, (ncol, n_sites)).astype(np.int32)
-    site_off = (np.cumsum(site_a, axis=1) - site_a).astype(np.int32)
-    A = int(site_a.sum(axis=1).max())
-    sub = rng.integers(0, 90, (ncol, n_sites, 3, 3)).astype(np.int32)
-    prior = rng.integers(0, 30, (ncol, n_sites, 3)).astype(np.int32)
-    two = site_a == 2
-    sub[two, 2, :] = rphmm_fb.BIG
-    sub[two, :, 2] = rphmm_fb.BIG
-    prior[two, 2] = 0
-    arrays = (
-        rng.integers(-(1 << 62), 1 << 62, (ncol, C), dtype=np.int64),
-        rng.integers(C // 2, C + 1, ncol).astype(np.int32),
-        np.full(ncol, 64, dtype=np.int32),
-        np.full(ncol, n_sites, dtype=np.int32),
-        rng.integers(0, 64, (ncol, A, 64)).astype(np.uint8),
-        site_off, site_a, sub, prior,
-        rng.integers(0, M, (ncol, C)).astype(np.int32),
-        rng.integers(0, M, (ncol, C)).astype(np.int32))
-    return rphmm_fb.RphmmPack(*(torch.from_numpy(a).to(device)
-                                for a in arrays), M)
+def _random_pack(seed, ncol, C, n_sites, M, device, full_range=False):
+    """chip_smoke.random_pack: a seeded pack of `ncol` columns of 64 reads
+    over `n_sites` sites of 2-3 alleles each, random merge maps into `M`
+    slots; partitions over all 64 bits with `full_range`, else below 2**62
+    in magnitude."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.random_pack(device, seed, ncol, C, n_sites, M,
+                                  full_range)
+
+
+def _k6_against_twin(pk, include_ancestor):
+    launches = rphmm_fb.RPHMM_FB.launches
+    got = rphmm_fb.rphmm_fb(pk, include_ancestor)
+    torch.cuda.synchronize()
+    assert rphmm_fb.RPHMM_FB.launches == launches + 1
+    want = rphmm_fb.rphmm_fb_plain(pk, include_ancestor)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _layout(pk, include_ancestor):
+    _, C, D, A, S, As, M = pk.dims
+    return rphmm_fb.k6_launch(C, A, D, As, S, M, include_ancestor)
 
 
 @pytest.mark.cuda
 def test_k6_matches_twin_on_a_column_too_wide_to_stage():
-    """A column of ~4000 alleles at 64 reads: its profile does not fit in
-    shared memory, so K6 reads it from device memory; still the twin's
-    values bit for bit, with and without the ancestor."""
+    """A column of ~4000 alleles at 64 reads: its planes do not fit in
+    shared memory at once, so K6 builds them in chunks of whole sites;
+    still the twin's values bit for bit, with and without the ancestor."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K6 has no CPU mode")
     pk = _random_pack(3, 3, 200, 1600, 150, "cuda")
-    _, _, D, A, _, As, _ = pk.dims
     for include_ancestor in (True, False):
-        assert not rphmm_fb.emission_smem(A, D, As, include_ancestor)[1]
-        got = rphmm_fb.rphmm_fb(pk, include_ancestor)
-        want = rphmm_fb.rphmm_fb_plain(pk, include_ancestor)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        assert _layout(pk, include_ancestor).cap_a < pk.dims[3]
+        _k6_against_twin(pk, include_ancestor)
 
 
 @pytest.mark.cuda
 def test_k6_matches_twin_on_a_300_allele_site():
     """A site of 300 alleles with the ancestor: K6 keeps its allele sums in
-    device memory and still gives the twin's values bit for bit."""
+    shared memory at 64 threads a block and still gives the twin's values
+    bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K6 has no CPU mode")
     _, hmms = _wide_site_hmms(13)
     for hmm in hmms:
         pk = rphmm_device.pack(hmm, "cuda")
-        _, _, D, A, _, As, _ = pk.dims
-        assert not rphmm_fb.emission_smem(A, D, As, True).sums_shared
-        got = rphmm_fb.rphmm_fb(pk, True)
-        want = rphmm_fb.rphmm_fb_plain(pk, True)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        assert _layout(pk, True).sums == "shared"
+        _k6_against_twin(pk, True)
+
+
+@pytest.mark.cuda
+def test_k6_matches_twin_on_an_800_allele_site():
+    """A site of 800 alleles with the ancestor: its sums fit no shared
+    layout, so K6 keeps them in device memory; the twin's values bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 has no CPU mode")
+    _, hmms = _wide_site_hmms(17, wide=800)
+    for hmm in hmms:
+        pk = rphmm_device.pack(hmm, "cuda")
+        assert _layout(pk, True).sums == "device"
+        _k6_against_twin(pk, True)
+
+
+@pytest.mark.cuda
+def test_k6_matches_twin_on_merge_rows_past_the_shared_carry():
+    """Merge rows of 20,000 slots (3 x M ints beyond shared memory): the
+    chain keeps them in device memory, on columns of 2500 cells (four a
+    thread) and of 5000 (inputs loaded where used). The twin's values bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 has no CPU mode")
+    for C, cpt in ((2500, 4), (5000, 0)):
+        pk = _random_pack(5, 6, C, 4, 20_000, "cuda")
+        lay = _layout(pk, False)
+        assert (lay.carry, lay.chain_cpt) == ("device", cpt)
+        for include_ancestor in (True, False):
+            _k6_against_twin(pk, include_ancestor)
+
+
+@pytest.mark.cuda
+def test_k6_matches_twin_on_register_bucket_sites():
+    """Sites of 2-3 alleles (the bucket of 4) and of up to 16 alleles (the
+    bucket of 16) with the ancestor, their sums in registers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 has no CPU mode")
+    pk = _random_pack(6, 4, 300, 5, 200, "cuda")
+    assert _layout(pk, True).nr == 4
+    _k6_against_twin(pk, True)
+    _, hmms = _both(8, 8, 14, max_alleles=16, minPartitionsInAColumn=4,
+                    maxPartitionsInAColumn=32,
+                    minPosteriorProbabilityForPartition=0.001)
+    for hmm in hmms:
+        pk = rphmm_device.pack(hmm, "cuda")
+        lay = _layout(pk, True)
+        assert lay.sums == "registers" and lay.stage_sub
+        _k6_against_twin(pk, True)
+
+
+@pytest.mark.cuda
+def test_k6_matches_twin_with_bit_63_and_split_columns():
+    """64 reads with partitions over all 64 bits (bit 63 set, negative as
+    int64) on columns of 1000 cells, each split over eight emission
+    blocks, with and without the ancestor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 has no CPU mode")
+    pk = _random_pack(7, 5, 1000, 6, 400, "cuda", full_range=True)
+    assert bool((pk.parts < 0).any())
+    assert _layout(pk, True).tiles == 8
+    for include_ancestor in (True, False):
+        _k6_against_twin(pk, include_ancestor)
+
+
+@pytest.mark.cuda
+def test_k6_layout_mirror_matches_the_kernel():
+    """k6_launch's byte counts equal the kernel's own (k6_emission_bytes,
+    k6_chain_bytes) at each place of the sums and the carry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 has no CPU mode")
+    lib = rphmm_fb._k6()
+    for C, A, As, S, M, anc in ((2500, 26, 3, 10, 2500, True),
+                                (2500, 26, 3, 10, 2500, False),
+                                (256, 305, 300, 3, 150, True),
+                                (256, 810, 800, 3, 150, True),
+                                (200, 4000, 3, 1600, 30_000, True)):
+        lay = rphmm_fb.k6_launch(C, A, 64, As, S, M, anc)
+        assert lay.emission_bytes == lib.k6_emission_bytes(
+            lay.cap_a, lay.cap_s, As, lay.threads, int(lay.stage_sub),
+            rphmm_fb._SUMS[lay.sums])
+        assert lay.chain_bytes == lib.k6_chain_bytes(
+            M, rphmm_fb._CARRY[lay.carry])
