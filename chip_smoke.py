@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (margin_tpu_torch) of `margin phase`,
 haploid and diploid `margin polish` with HELEN features, Baum-Welch EM and
-the aux tools, from BAM and from CRAM and BCF inputs, and the
-read-partition HMM's device forward-backward, on one NVIDIA GPU and check
-it end to end.
+the aux tools, from BAM and from CRAM and BCF inputs, the
+read-partition HMM's device forward-backward, and chunks across threads,
+worker processes and hosts, on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--only kernels,phase,polish,diploid,em,helen,
-                           tools,cram,rphmm,k1,k5,k6]
+                           tools,cram,rphmm,scale,k1,k5,k6]
 
 (--only runs a subset after the build, for iterating on one path; k1 runs
 K1's shapes of phase 2 alone, about a minute with the build; k5 holds
@@ -15,9 +15,9 @@ both K5 designs against the twins and times them on packs of band widths
 (anchored every 6 bases, and on its kmers as the em phase's pairs), both
 logAdds, about 2.5 minutes with the build; k6 runs K6 on a cross
 product of work >= 10M, sites of 300 and 800 alleles, merge rows of
-20,000 slots and a seeded merge tree, each held and timed; tools and rphmm need
-phase, cram needs phase and polish; a plain run takes all but k1, k5 and
-k6 and is the one that prints the kernels line.)
+20,000 slots and a seeded merge tree, each held and timed; tools, rphmm
+and scale need phase, cram needs phase and polish; a plain run takes all
+but k1, k5 and k6 and is the one that prints the kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit) and whether h5py is
@@ -67,17 +67,20 @@ Phases (any failure raises and the script exits non-zero):
      its twin) and the torch-op extraction it replaced are timed on K2's
      pack beside it;
   6. run `python -m margin_tpu_torch polish` (cli.main, LUT logAdd) on a
-     seeded synthetic 120 kb draft at 30x (5-30 kb reads, ~8% errors,
-     100 kb chunks with 1 kb boundaries: two chunks, one stitch seam;
-     cut from 300 kb, then to 205, 150 and 120 kb, to keep the whole run
-     within its time limit); launch counters zeroed right before, read right after.
+     seeded synthetic 60 kb draft at 30x (5-30 kb reads, ~8% errors,
+     two chunks (half the draft each, rounded up to a kb: 31 kb) with
+     1 kb boundaries, one stitch seam; cut
+     from 300 kb, then to 205, 150, 120 (in 100 kb chunks) and 60 kb,
+     to keep the whole run within its time limit; the other phases keep
+     the set's 100 kb chunks); launch counters zeroed right before, read
+     right after.
      Checks: K1, K2 (K2-bwd as its WORDS instance) and K3 launched,
-     extract_packed never called, items on the segmented route, and the
-     polished contig's edit distance to the truth at most half the
+     extract_packed never called, items on the segmented route, two
+     chunks in the chunks CSV, and the polished contig's edit distance to the truth at most half the
      draft's; K2-bwd WORDS held against extract_packed on the run's
      largest K2 pack (also for phase 8's run) and timed there beside
      K2-bwd POST and the torch-op extraction;
-  7. polish a 5 kb sub-region in process (run_polish, the dataset's
+  7. polish a 4 kb sub-region in process (run_polish, the dataset's
      own POA-consensus iterations and bubble pass, channelRleWeight HELEN
      features labelled by the set's truth.bam) with SEG_MIN_D lowered to
      2048, through the kernels and (at the end) through the plain twins
@@ -90,17 +93,18 @@ Phases (any failure raises and the script exits non-zero):
      sweep is printed (a ratio that compares across cards where a time
      does not);
   8. run `python -m margin_tpu_torch polish --diploid` (cli.main, LUT
-     logAdd) on a seeded synthetic diploid 120 kb draft at 30x (two
+     logAdd) on a seeded synthetic diploid 80 kb draft at 30x (two
      haplotypes with a het SNV or 1-10 bp het indel every 1-1.5 kb, the
      draft made from haplotype 1 with phase 6's draft edits, 5-30 kb reads
-     from both, 100 kb chunks with 1 kb boundaries: two chunks, one
-     phased seam; cut from 205 and 150 kb to keep the whole run within
-     its time limit); launch counters zeroed right before, read right after.
+     from both, 41 kb chunks with 1 kb boundaries: two chunks, one
+     phased seam; cut from 205, 150 and 120 kb (in 100 kb chunks) to keep
+     the whole run within its time limit); launch counters zeroed right
+     before, read right after.
      Checks: K1, K2 and K3 launched, haplotag agreement with the reads'
      true haplotypes >= 90% (up to a swap: the stitched contig is one
      phase set); logs each haplotype FASTA's edit distance to each truth
      haplotype and the draft's, the stages and the device ms;
-  9. diploid-polish a 5 kb sub-region in process with SEG_MIN_D lowered
+  9. diploid-polish a 4 kb sub-region in process with SEG_MIN_D lowered
      to 2048 and the truth haplotypes riding along (-u truth.bam; they
      must land on different haplotypes), through the kernels and (at the
      end) through the plain twins bound in their place: identical hap
@@ -124,13 +128,13 @@ Phases (any failure raises and the script exits non-zero):
      read pairs as one pack, the 2 deepest each alone as add_expectations
      launches them (timed on the deepest), and every pack em_iteration
      launched;
- 11. helen: splitRleWeight labelled by truth.bam on the first 51 kb of
-     phase 6's set (one chunk; cut from its 101 kb production chunk to
-     keep the whole run within its time limit), counters zeroed right
-     before and read right after (the truth alignment, ~76k diagonals,
-     takes K3; at least a feature row a base; the consensus rows' labels
-     must be nucleotides);
-     simpleWeight (run-length encoding off) labelled on a 5 kb
+ 11. helen: splitRleWeight labelled by truth.bam on the first 31 kb of
+     phase 6's set (one chunk; cut from its 101 kb production chunk, then
+     from 51 kb, to keep the whole run within its time limit), counters
+     zeroed right before and read right after (the truth alignment, ~46k
+     diagonals, takes K3; at least a feature row a base; the consensus
+     rows' labels must be nucleotides);
+     simpleWeight (run-length encoding off) labelled on a 4 kb
      region through the kernels and (at the end) the twins: identical
      arrays and labels. The feature groups are held in memory, as the
      HDF5 file would get them (h5py is not on every card machine);
@@ -168,11 +172,27 @@ Phases (any failure raises and the script exits non-zero):
      and on one of 20,000 merge slots (the carry in device memory). Each
      K6 time has k6_emissions and k6_chain apart (torch.profiler) and the
      chain's ns a column; each FB of the merge tree its pack's ms;
- 15. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
+ 15. scale: chunks across threads, worker processes and hosts, each run
+     through cli.main with the launch counters zeroed right before and
+     read right after: phase 3's 1 Mb at -t 4, then with --workers
+     process -t 4 (four CPU workers, --device cpu, whose scoring this
+     process serves on the card: its K1 and K2 launch); a seeded 25 kb
+     diploid draft at 30x in 10 kb chunks (three chunks, two seams) at
+     -t 2, then with 2 workers and --checkpoint (the checkpoint
+     directory kept, as a killed run leaves it), then with one chunk's
+     file deleted --checkpoint -t 2, which resumes the other two; a
+     seeded 5 kb haploid draft at 30x in 2 kb chunks (three chunks, two
+     seams) at -t 2, then with 2 workers (the parent's K1 and K2
+     launch); phase 4's region as two --hosts processes of a gloo group
+     on the one card against -t 2. Byte-identical phased VCF,
+     phaseset.bed, polished and hap FASTAs and haplotagged BAM records
+     within each set, items on K3; each wall beside phase 3's -t 1 wall,
+     with the card;
+ 16. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
      a subprocess of its own sharing the card, then each comparison
-     (the polish, diploid and HELEN regions are TWIN_REGION_LEN = 5 kb,
-     cut from 10 kb to keep the whole run within its time limit: the
-     twins walk one diagonal at a time).
+     (the polish, diploid and HELEN regions are TWIN_REGION_LEN = 4 kb,
+     cut from 10 kb, then 5 kb, to keep the whole run within its time
+     limit: the twins walk one diagonal at a time).
 Each phase's seconds are logged as it ends ("... phase NAME: S s") and
 kept under "phase_s" in chiprun_out/chip_smoke.json.
 Every K1, K2, K3 and K4 timing also prints the deepest pair's or
@@ -1347,7 +1367,7 @@ def zero_counters():
               cuda_banded.FB_BACKWARD, cuda_banded.FB_WORDS,
               cuda_banded.SEG_FORWARD, cuda_banded.SEG_BACKWARD,
               cuda_banded.FB_EXPECT, rphmm_fb.RPHMM_FB):
-        c.launches = 0
+        c.reset()
     cuda_banded.FB_FORWARD_WIDE.reset()
     cuda_banded.FB_EXPECT_WIDE.reset()
 
@@ -1370,7 +1390,7 @@ def fasta_seq(path):
         return "".join(line.strip() for line in fh if not line.startswith(">"))
 
 
-def polish_dataset(work, span=120_000):
+def polish_dataset(work, span=60_000):
     """The seeded haploid polish set of phases 6, 7 and the em, helen and
     tools phases (with truth.bam)."""
     from margin_tpu_torch.testing.synth import (PolishSynthConfig,
@@ -1381,8 +1401,19 @@ def polish_dataset(work, span=120_000):
         seed=11))
 
 
-def phase_polish(device, work, out_dir, span=120_000):
-    """`margin polish` end to end on a seeded synthetic draft."""
+def params_chunked(params, chunk_size, path):
+    """A copy of a polish params file with another chunkSize."""
+    with open(params) as fh:
+        doc = json.load(fh)
+    doc["polish"]["chunkSize"] = chunk_size
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    return path
+
+
+def phase_polish(device, work, out_dir, span=60_000):
+    """`margin polish` end to end on a seeded synthetic draft, in two
+    chunks (half the draft each, rounded up to a kb): one stitch seam."""
     from margin_tpu_torch.ops import banded
     from margin_tpu_torch.parallel.executor import DEVICE_STATS
     from margin_tpu_torch.testing.synth import banded_edit_distance
@@ -1392,16 +1423,21 @@ def phase_polish(device, work, out_dir, span=120_000):
     log(f"polish dataset: {span} bp draft with {len(ds.draft_edits)} "
         f"edits, generated in {gen_s:.1f} s")
     log_path = os.path.join(out_dir, "chip_smoke_polish.log")
+    chunk_size = -(-len(fasta_seq(ds.draft)) // 2000) * 1000
+    params = params_chunked(ds.params, chunk_size,
+                            f"{work}/polish/params.seam.json")
     rec = Recorder()
     rec.install()
     zero_counters()
     try:
-        wall = run_cli(["polish", ds.bam, ds.draft, ds.params, "-o",
+        wall = run_cli(["polish", ds.bam, ds.draft, params, "-o",
                         f"{work}/pol", "--device", device, "--profile"],
                        log_path)
     finally:
         rec.restore()
     launches = read_counters()
+    with open(f"{work}/pol.chunks.csv") as fh:
+        n_chunks = len(fh.read().splitlines())
     rec.no_extraction("polish")
     routes = {"k2_items": banded.ROUTES.pack_items,
               "k3_items": banded.ROUTES.seg_items,
@@ -1421,7 +1457,9 @@ def phase_polish(device, work, out_dir, span=120_000):
     ed_draft = banded_edit_distance(draft, truth, 300)
     ed_pol = banded_edit_distance(polished, truth, 300)
     ed_s = time.perf_counter() - t0
-    log(f"polish {span} bp: wall {wall:.1f} s; launches {launches}; kernel "
+    log(f"polish {span} bp in {n_chunks} chunks of {chunk_size}: wall "
+        f"{wall:.1f} s; "
+        f"launches {launches}; kernel "
         f"ms { {k: round(v, 1) for k, v in kms.items()} }; routes {routes}; "
         f"edit distance to the truth: draft {ed_draft}, polished {ed_pol} "
         f"(lengths {len(truth)} / {len(draft)} / {len(polished)}; "
@@ -1434,6 +1472,9 @@ def phase_polish(device, work, out_dir, span=120_000):
                              f"{missing}")
     if routes["k3_items"] == 0:
         raise AssertionError("no item took the segmented route")
+    if n_chunks != 2:
+        raise AssertionError(f"polish ran {n_chunks} chunks, not two: no "
+                             "single stitch seam")
     if not 2 * ed_pol <= ed_draft:
         raise AssertionError(f"polish did not halve the draft's edit "
                              f"distance ({ed_draft} -> {ed_pol})")
@@ -1441,7 +1482,7 @@ def phase_polish(device, work, out_dir, span=120_000):
             "kernel_ms": kms, "k1_launches": k1l, "scoring": scoring,
             "profile": prof, "edit_distance_draft": ed_draft, "edit_distance_polished": ed_pol,
             "lengths": [len(truth), len(draft), len(polished)],
-            "dataset_s": gen_s, "span": span}, ds, rec
+            "dataset_s": gen_s, "span": span, "chunks": n_chunks}, ds, rec
 
 
 def twins():
@@ -1475,8 +1516,8 @@ def twins():
 
 TWIN_JOBS = []   # (label, spec, check): queued by the phases
 # the polish, diploid and HELEN twins' regions: a twin walks one diagonal
-# at a time, so these runs take most of phase 15 (10 kb took 264 s)
-TWIN_REGION_LEN = 5_000
+# at a time, so these runs take most of phase 16 (10 kb took 264 s)
+TWIN_REGION_LEN = 4_000
 
 
 def queue_twin(label, spec, check):
@@ -1677,7 +1718,7 @@ def haplotag_agreement(bam, read_hap):
     return max(agree, tagged - agree) / max(tagged, 1), tagged
 
 
-def phase_diploid(device, work, out_dir, span=120_000):
+def phase_diploid(device, work, out_dir, span=80_000):
     """`margin polish --diploid` end to end on a seeded synthetic diploid
     draft: launches, kernel ms, routes, stages, haplotag agreement, and
     each haplotype FASTA's edit distance to each truth haplotype."""
@@ -1690,7 +1731,7 @@ def phase_diploid(device, work, out_dir, span=120_000):
     ds = write_diploid_polish_dataset(
         f"{work}/diploid", DiploidPolishSynthConfig(
             contig_len=span, coverage=30.0, read_len=(5000, 30000),
-            p_sub=0.03, p_ins=0.02, p_del=0.03, chunk_size=100_000,
+            p_sub=0.03, p_ins=0.02, p_del=0.03, chunk_size=41_000,
             chunk_boundary=1000, seed=13))
     gen_s = time.perf_counter() - t0
     log(f"diploid dataset: {span} bp, {len(ds.hets)} het sites, "
@@ -2484,10 +2525,10 @@ def phase_em(ds, n_reads=1024, n_short=256, n_plain=16, n_deep=2,
 # HELEN features and the aux tools
 # ---------------------------------------------------------------------------
 
-def phase_helen(ds, work, device="cuda", region_len=51_000):
+def phase_helen(ds, work, device="cuda", region_len=31_000):
     """HELEN features: splitRleWeight labelled by truth.bam (-f -F
     splitRleWeight -u) on the first region_len bases of the polish set
-    (one chunk: the truth alignment is one K3 problem of about 76k
+    (one chunk: the truth alignment is one K3 problem of about 46k
     diagonals), kernels only, counters zeroed right before and read right
     after, at least one feature row a base of the region; then
     simpleWeight with -u on the set's params with run-length encoding
@@ -3275,7 +3316,7 @@ def k6_merge_tree(fwd, rev, ref, params, device="cuda"):
         rphmm_device.forward_backward_device = real_fbd
     dev_s, host_s, launches, outs = [], [], [], []
     for _ in range(3):
-        rphmm_fb.RPHMM_FB.launches = 0
+        rphmm_fb.RPHMM_FB.reset()
         path, gf, secs = tree("device")
         launches.append(rphmm_fb.RPHMM_FB.launches)
         dev_s.append(secs)
@@ -3445,6 +3486,184 @@ def phase_k6(device="cuda", big=(31, 600, 220, (60, 150)),
     return out
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_hosts(argv, n, log_path):
+    """`python -m margin_tpu_torch <argv>` as n processes of a gloo group
+    on a free localhost port, all on the one card; returns the wall. Every
+    process is stopped before this returns."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "a") as fh:
+            for h in range(n):
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "margin_tpu_torch"] + argv
+                    + ["--hosts", str(n), "--host-id", str(h),
+                       "--coordinator", f"127.0.0.1:{port}"], env=env,
+                    cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT))
+            rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise RuntimeError(f"--hosts {n} exited {rcs}; log in {log_path}")
+    return time.perf_counter() - t0
+
+
+def phase_scale(phase_ds, region, t1_wall, work, out_dir, card,
+                device="cuda", dip_config=None, hap_config=None):
+    """Chunks across threads, worker processes and hosts on the card, each
+    run through cli.main with the launch counters zeroed right before and
+    read right after: phase 3's 1 Mb at -t 4, then --workers process -t 4
+    (the parent's K1 and K2 launch; the workers run --device cpu); a
+    seeded 25 kb diploid draft at 30x in 10 kb chunks (three chunks, two
+    seams) at -t 2, then --workers process -t 2 --checkpoint (its
+    checkpoint directory kept, as a killed run would leave it), then,
+    with one chunk's file deleted, --checkpoint -t 2, which resumes the
+    other two; a seeded 5 kb haploid draft at 30x in 2 kb chunks (three
+    chunks, two seams) at -t 2, then --workers process -t 2; phase 4's
+    region as two --hosts processes of a gloo group and at -t 2.
+    Byte-identical outputs within each set; walls beside phase 3's -t 1
+    wall, with the card."""
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.testing.synth import (DiploidPolishSynthConfig,
+                                                PolishSynthConfig,
+                                                write_diploid_polish_dataset,
+                                                write_polish_dataset)
+    from margin_tpu_torch.utils import checkpoint
+    log_path = os.path.join(out_dir, "chip_smoke_scale.log")
+    hap_config = hap_config or PolishSynthConfig(
+        contig_len=5000, coverage=30.0, read_len=(1500, 4000), p_sub=0.03,
+        p_ins=0.02, p_del=0.03, chunk_size=2000, chunk_boundary=300,
+        seed=19)
+    walls, launches = {"phase -t 1": t1_wall}, {}
+    dip_config = dip_config or DiploidPolishSynthConfig(
+        contig_len=25_000, coverage=30.0, read_len=(5000, 30000),
+        p_sub=0.03, p_ins=0.02, p_del=0.03, chunk_size=10_000,
+        chunk_boundary=1000, seed=17)
+
+    def run(name, argv):
+        zero_counters()
+        banded.ROUTES.reset()
+        walls[name] = run_cli(argv, log_path)
+        launches[name] = read_counters()
+        launches[name]["K3 items"] = banded.ROUTES.seg_items
+        log(f"scale {name}: wall {walls[name]:.1f} s ({card}); launches in "
+            f"this process {launches[name]}")
+
+    # --- phase 1 Mb: threads, then worker processes
+    common = [phase_ds.bam, phase_ds.fasta, phase_ds.params, phase_ds.vcf,
+              "--device", device, "-a", "CRITICAL"]
+    run("phase -t 4", ["phase"] + common + ["-o", f"{work}/sc_t4", "-t",
+                                            "4"])
+    run("phase 4 workers", ["phase"] + common + [
+        "-o", f"{work}/sc_w4", "-t", "4", "--workers", "process"])
+    same_files(f"{work}/sc_t4", f"{work}/sc_w4",
+               ("phased.vcf", "phaseset.bed"))
+    if bam_records(f"{work}/sc_t4.haplotagged.bam") \
+            != bam_records(f"{work}/sc_w4.haplotagged.bam"):
+        raise AssertionError("phase: -t 4 and 4 workers' haplotagged BAM "
+                             "records differ")
+    for name in ("phase -t 4", "phase 4 workers"):
+        if not all(launches[name][k] for k in ("K1", "K2-fwd",
+                                               "K2-bwd WORDS")):
+            raise AssertionError(f"{name}: K1 or K2 never launched in this "
+                                 f"process: {launches[name]}")
+
+    # --- diploid 25 kb: threads, worker processes, a resumed checkpoint
+    t0 = time.perf_counter()
+    dds = write_diploid_polish_dataset(f"{work}/scale_dip", dip_config)
+    gen_s = time.perf_counter() - t0
+    dip = ["polish", dds.bam, dds.draft, dds.params, "--diploid",
+           "--device", device]
+    run("diploid -t 2", dip + ["-o", f"{work}/sd_t2", "-t", "2", "-a",
+                               "CRITICAL"])
+    keep = checkpoint.ChunkCheckpointer.finalize
+    checkpoint.ChunkCheckpointer.finalize = lambda self: None
+    try:
+        run("diploid 2 workers", dip + [
+            "-o", f"{work}/sd_ck", "-t", "2", "--workers", "process",
+            "--checkpoint", "-a", "CRITICAL"])
+    finally:
+        checkpoint.ChunkCheckpointer.finalize = keep
+    for ext in ("hap1.fa", "hap2.fa", "haplotagged.bam"):
+        shutil.copy(f"{work}/sd_ck.{ext}", f"{work}/sd_w2.{ext}")
+    ck_dir = f"{work}/sd_ck.checkpoint"
+    with open(f"{work}/sd_t2.chunks.csv") as fh:
+        n_chunks = len(fh.read().splitlines())
+    n_files = len([f for f in os.listdir(ck_dir) if f.startswith("chunk_")])
+    os.remove(os.path.join(ck_dir, "chunk_00001.pkl"))
+    at = os.path.getsize(log_path)
+    run("diploid resumed", dip + ["-o", f"{work}/sd_ck", "-t", "2",
+                                  "--checkpoint"])
+    with open(log_path) as fh:
+        fh.seek(at)
+        resumed = f"Resumed {n_chunks - 1} of {n_chunks} chunks" in fh.read()
+    for other in ("sd_w2", "sd_ck"):
+        same_files(f"{work}/sd_t2", f"{work}/{other}", ("hap1.fa", "hap2.fa"))
+        if bam_records(f"{work}/sd_t2.haplotagged.bam") \
+                != bam_records(f"{work}/{other}.haplotagged.bam"):
+            raise AssertionError(f"diploid: -t 2 and {other}'s haplotagged "
+                                 "BAM records differ")
+    k3_items = sum(launches[k]["K3 items"] for k in launches
+                   if k.startswith("diploid"))
+    if n_chunks != 3 or n_files != 3 or not resumed or k3_items == 0 \
+            or os.path.exists(ck_dir):
+        raise AssertionError(
+            f"diploid: {n_chunks} chunks and {n_files} checkpoint files "
+            f"(want 3), resumed {resumed}, {k3_items} K3 items, checkpoint "
+            f"left {os.path.exists(ck_dir)}")
+
+    # --- haploid 5 kb: threads, then worker processes
+    t0 = time.perf_counter()
+    hds = write_polish_dataset(f"{work}/scale_hap", hap_config)
+    gen_s += time.perf_counter() - t0
+    hap = ["polish", hds.bam, hds.draft, hds.params, "--device", device,
+           "-a", "CRITICAL"]
+    run("haploid -t 2", hap + ["-o", f"{work}/sp_t2", "-t", "2"])
+    run("haploid 2 workers", hap + ["-o", f"{work}/sp_w2", "-t", "2",
+                                    "--workers", "process"])
+    same_files(f"{work}/sp_t2", f"{work}/sp_w2", ("fa", "chunks.csv"))
+    with open(f"{work}/sp_t2.chunks.csv") as fh:
+        n_hap_chunks = len(fh.read().splitlines())
+    for name in ("haploid -t 2", "haploid 2 workers"):
+        if n_hap_chunks != 3 or not all(
+                launches[name][k] for k in ("K1", "K2-fwd", "K2-bwd WORDS")):
+            raise AssertionError(f"{name}: {n_hap_chunks} chunks (want 3), "
+                                 f"launches in this process "
+                                 f"{launches[name]}")
+
+    # --- phase 4's region: two hosts against -t 2
+    reg = ["phase"] + common + ["-r", region]
+    run("region -t 2", reg + ["-o", f"{work}/sh_t2", "-t", "2"])
+    walls["region 2 hosts"] = run_hosts(reg + ["-o", f"{work}/sh_h2"], 2,
+                                        log_path)
+    same_files(f"{work}/sh_t2", f"{work}/sh_h2",
+               ("phased.vcf", "phaseset.bed"))
+    if bam_records(f"{work}/sh_t2.haplotagged.bam") \
+            != bam_records(f"{work}/sh_h2.haplotagged.bam"):
+        raise AssertionError("region: -t 2 and 2 hosts' haplotagged BAM "
+                             "records differ")
+    log(f"scale walls ({card}): "
+        f"{ {k: round(v, 1) for k, v in walls.items()} }; polish datasets "
+        f"{gen_s:.1f} s; launches in this process {launches}; outputs "
+        "identical: phase -t 4 / 4 workers, diploid -t 2 / 2 workers / "
+        "resumed (2 of 3 chunks from the checkpoint), haploid -t 2 / 2 "
+        "workers (3 chunks), region -t 2 / 2 hosts")
+    return {"walls_s": walls, "card": card, "launches": launches,
+            "dataset_s": gen_s, "k3_items": k3_items}
+
+
 SOURCES = {
     "K1": ("margin_tpu_torch/csrc/pairhmm_forward.cu",
            "margin_tpu/ops/pairhmm.py:194"),
@@ -3470,7 +3689,7 @@ SOURCES = {
 
 
 PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools",
-          "cram", "rphmm")
+          "cram", "rphmm", "scale")
 CHOICES = PHASES + ("k1", "k5", "k6")
 
 
@@ -3482,8 +3701,8 @@ def main(argv=None) -> int:
                          "build, for iterating on one path (k1: K1's "
                          "shapes of the kernels phase alone; k5: both K5 "
                          "designs on their loop's packs; k6: K6 on its "
-                         "loop's HMMs and packs; tools and "
-                         "rphmm need phase, cram needs phase and polish); "
+                         "loop's HMMs and packs; tools, rphmm and "
+                         "scale need phase, cram needs phase and polish); "
                          "the kernels line is printed only when all of %s "
                          "run" % (CHOICES, PHASES))
     ap.add_argument("--twin-job", default=None, help=argparse.SUPPRESS)
@@ -3492,7 +3711,7 @@ def main(argv=None) -> int:
     if not only <= set(CHOICES):
         ap.error(f"--only takes names from {CHOICES}")
     for name, needs in (("tools", {"phase"}), ("rphmm", {"phase"}),
-                        ("cram", {"phase", "polish"})):
+                        ("cram", {"phase", "polish"}), ("scale", {"phase"})):
         if name in only and not needs <= only:
             ap.error(f"{name} needs {', '.join(sorted(needs))}")
     try:
@@ -3594,6 +3813,11 @@ def main(argv=None) -> int:
         if "rphmm" in only:
             report["rphmm"] = phase_rphmm()
             lap("rphmm")
+        if "scale" in only:
+            report["scale"] = phase_scale(
+                phase_ds, report["phase"]["region"],
+                report["phase"]["wall_s"], work, out_dir, card)
+            lap("scale")
         report["twins"] = run_twin_jobs(work)
         lap("twins")
         if "phase" in only and "polish" in only:

@@ -6,9 +6,12 @@ argument handling): the common flags, the `phase` subcommand, the
 the supplementary outputs and the HELEN features), the aux tools
 (`calcLocalPhasingCorrectness`, `tagFromIds`, `tagFromPhasedVcf`,
 `runLengthMatrix`) and `--device {cuda,cpu}`, which takes the place of
-JAX_PLATFORMS. `--workers process`, `--hosts`/`--host-id`/`--coordinator`
-and `--jaxTrace` are not ported yet and stop with an error naming their
-ROADMAP item.
+JAX_PLATFORMS. `--workers process -t N` runs the chunks in N worker
+processes on the CPU whose scoring this process serves on its device
+(parallel/ipc.py), then the ordinary `--shard merge`; `--hosts N --host-id
+I --coordinator HOST:PORT` partitions the chunks across a gloo process
+group (parallel/multihost.py). `--jaxTrace` traces JAX, which this
+package does not use.
 """
 
 from __future__ import annotations
@@ -17,7 +20,27 @@ import argparse
 import os
 import sys
 
+# the ROADMAP queue 1 item whose last part, the multi-GPU scoring
+# context, is not ported; nothing of it is reachable from this CLI
 _SCALE = "IPC workers, multi-GPU and multi-host"
+# flags a process worker does not inherit from its parent's command line
+_NOT_FOR_WORKERS = {"--workers", "-t", "--threads", "--device"}
+
+
+def _worker_argv(argv):
+    """This invocation minus --workers, -t/--threads, --profile and
+    --device (in any of their spellings), plus what every worker runs
+    with: one thread, quiet, the CPU (its scoring goes to the parent)."""
+    out, it = [], iter(argv)
+    for tok in it:
+        if tok in _NOT_FOR_WORKERS:
+            next(it, None)
+            continue
+        if tok == "--profile" or tok.split("=")[0] in _NOT_FOR_WORKERS \
+                or (tok.startswith("-t") and tok[2:].isdigit()):
+            continue
+        out.append(tok)
+    return out + ["-t", "1", "-a", "CRITICAL", "--device", "cpu"]
 
 
 def _add_polish(po):
@@ -103,18 +126,21 @@ def _add_common(p):
                         "--checkpoint")
     p.add_argument("--workers", default="thread",
                    choices=["thread", "process"],
-                   help="chunk worker kind for -t N ('process' is not "
-                        "ported yet)")
+                   help="chunk worker kind for -t N: host threads, or CPU "
+                        "worker processes whose scoring this process "
+                        "serves on its device")
     p.add_argument("--rngMode", default="st", choices=["st", "python"],
                    help="random stream: 'st' replays the reference "
                         "binary's glibc rand() stream exactly; 'python' "
                         "uses random.Random(seed)")
     p.add_argument("--hosts", type=int, default=None, metavar="N",
-                   help="multi-host scale-out (not ported yet)")
+                   help="multi-host scale-out: chunks partitioned across N "
+                        "processes of a gloo group, host 0 writes")
     p.add_argument("--host-id", type=int, default=None, metavar="I",
                    help="this process's id in the --hosts group")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="coordinator address for --hosts")
+                   help="coordinator address for --hosts (default: "
+                        "MASTER_ADDR / MASTER_PORT)")
     p.add_argument("--profile", action="store_true",
                    help="write structured per-chunk/per-stage timing to "
                         "<outputBase>.profile.json")
@@ -165,18 +191,11 @@ def main(argv=None):
             and args.skipPhasedVCF:
         top.error("With --skipHaplotypeBAM and --skipPhasedVCF there "
                   "will be no output.")
-    if args.command == "polish":
-        if args.diploid and (args.checkpoint or args.shard is not None
-                             or args.threads > 1):
-            top.error("--checkpoint, --shard and -t of --diploid are not "
-                      f"ported yet (ROADMAP queue 1, \"{_SCALE}\")")
-    if args.workers == "process" and args.threads > 1:
-        top.error("--workers process is not ported yet (ROADMAP queue 1, "
-                  f"\"{_SCALE}\")")
-    if args.hosts is not None or args.host_id is not None \
-            or args.coordinator is not None:
-        top.error("--hosts/--host-id/--coordinator are not ported yet "
-                  f"(ROADMAP queue 1, \"{_SCALE}\")")
+    hosts = None
+    if args.hosts is not None:
+        if args.host_id is None:
+            top.error("--hosts requires --host-id")
+        hosts = (args.coordinator, args.hosts, args.host_id)
     if args.jaxTrace is not None:
         top.error("--jaxTrace traces JAX, which this package does not use; "
                   "use --profile")
@@ -229,8 +248,26 @@ def main(argv=None):
     # --logLevel); DEBUG and INFO both print them here
     log = (lambda *a: None) if args.logLevel == "CRITICAL" else print
 
+    # a worker of --workers process sends its scoring to the parent (and
+    # stops if it cannot reach it)
+    from margin_tpu_torch.parallel.ipc import (maybe_install_client,
+                                               run_process_workers)
+    maybe_install_client()
+
     from margin_tpu_torch.utils import profiling
     profiler = profiling.Profiler(enabled=args.profile)
+    threads = args.threads
+    if args.workers == "process" and args.threads > 1 and shard is None:
+        # CPU worker processes fill the checkpoint directory, their
+        # scoring served here; then the ordinary merge pass on this
+        # process's device
+        for wp in run_process_workers(
+                _worker_argv(argv), args.threads, args.outputBase,
+                resume=args.checkpoint, device=args.device, log=log,
+                profile=args.profile):
+            profiler.merge_file(wp)
+            os.remove(wp)
+        shard, threads = ("merge",), 1
     if args.command == "phase":
         from margin_tpu_torch.phase.driver import run_phase
         run_phase(args.bam, args.reference, args.vcf, params,
@@ -239,7 +276,7 @@ def main(argv=None):
                   write_vcf=not args.skipPhasedVCF, seed=args.seed,
                   use_lut=args.lut_logadd, checkpoint=args.checkpoint,
                   shard=shard, profiler=profiler, rng_mode=args.rngMode,
-                  threads=args.threads, device=args.device, log=log)
+                  threads=threads, hosts=hosts, device=args.device, log=log)
     else:
         from margin_tpu_torch.polish.driver import run_polish
         feature_type = args.featureType
@@ -263,11 +300,18 @@ def main(argv=None):
                    skip_realignment=args.skipRealignment,
                    skip_haplotype_bam=args.skipHaplotypeBAM,
                    checkpoint=args.checkpoint, shard=shard,
-                   profiler=profiler, threads=args.threads,
+                   profiler=profiler, threads=threads, hosts=hosts,
                    device=args.device, log=log)
         profiler.log_summary(log)
-    profiler.write(f"{args.outputBase}.profile.json")
+    _write_profile(profiler, args.outputBase)
     return 0
+
+
+def _write_profile(profiler, output_base):
+    """A process worker writes its profile where run_process_workers asked
+    (MARGIN_TPU_PROFILE_OUT); any other run to <output_base>.profile.json."""
+    profiler.write(os.environ.get("MARGIN_TPU_PROFILE_OUT")
+                   or f"{output_base}.profile.json")
 
 
 if __name__ == "__main__":

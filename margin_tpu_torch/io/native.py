@@ -6,15 +6,23 @@ built, and callers use the pure-Python path."""
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 
 def lib() -> Optional[ctypes.CDLL]:
+    """The engine, loaded once under a lock (chunk threads ask at once)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

@@ -28,11 +28,21 @@ CUDA block walks each problem's own depth. The single-item
 `banded_posteriors`, which the JAX package runs on its XLA scan (K4),
 takes the same pack route here. On a CUDA device a wide band with no
 host engine raises (nothing carries on on the CPU twins); on the CPU the
-twins take it. The worker-process branch and the cross-chunk funnel
-`_FbFunnel` wait for a later slice; results do not depend on them. A pack
-on the card goes through K2-fwd and K2-bwd's WORDS instance, which emits
-the extraction words itself (no posterior grid); `extract_packed`, the
-torch-op extraction, is the WORDS instance's plain twin's second half.
+twins take it.
+
+Concurrent calls (chunk threads, the score server's handlers) merge in
+the cross-chunk funnel `_FbFunnel` (banded.py:1309-1401; off with
+MARGIN_TPU_FB_FUNNEL=0), whose dispatcher runs the pack loop `_PackRun`
+over the union of their items; results do not depend on it. In a
+process worker (`parallel/ipc.py`) the worker branch (banded.py:1656-1728)
+solves on its own host engine exactly the items `_route` sends to the
+host and ships the rest to the parent, so process mode routes every item
+as thread mode does; the JAX package's worker also keeps bands below
+`_device_min_cells` local, a threshold this port does not have (above).
+A pack on the card goes through K2-fwd and K2-bwd's WORDS instance, which
+emits the extraction words itself (no posterior grid); `extract_packed`,
+the torch-op extraction, is the WORDS instance's plain twin's second
+half.
 
 The transition expectations (`banded_expectations(_many)`, Baum-Welch EM)
 take K2-fwd and then K4 for any band up to 128 cells wide, whatever its
@@ -261,15 +271,17 @@ def _store_pack_results(refs, packed: np.ndarray, pack, t_wait: float):
 def _solve_native_items(tables, items, expansion, threshold, use_lut,
                         dynamic):
     """Host C++ banded FB (native/marginfb.cc) over a list of items,
-    threaded (each call releases the GIL)."""
+    threaded (each call releases the GIL) on MARGIN_TPU_NATIVE_FB_THREADS
+    threads, every core by default (a process worker is given its share)."""
     from margin_tpu_torch.ops import native_fb
 
     def one(i):
         return native_fb.posteriors_item(tables, items[i], expansion,
                                          threshold, use_lut, dynamic)
 
-    n_threads = max(1, min(os.cpu_count() or 1, len(items)))
-    with ThreadPoolExecutor(max_workers=n_threads) as ex:
+    cap = int(os.environ.get("MARGIN_TPU_NATIVE_FB_THREADS", "0")) \
+        or os.cpu_count() or 1
+    with ThreadPoolExecutor(max_workers=max(1, min(cap, len(items)))) as ex:
         return list(ex.map(one, range(len(items))))
 
 
@@ -304,6 +316,275 @@ def _route(geom: BandGeometry) -> str:
     return "pack"
 
 
+class _ItemRef:
+    """One item of a call, where its result goes, and the funnel request it
+    belongs to (None for a direct call)."""
+    __slots__ = ("item", "out", "idx", "req")
+
+    def __init__(self, item, out, idx, req=None):
+        self.item = item
+        self.out = out
+        self.idx = idx
+        self.req = req
+
+
+class _PackRun:
+    """Solves a stream of items. Each is routed by _route: wide bands go to
+    the host engine on a side thread while the device solves packs of one
+    (width bucket, RLE, segmented) kind, the fullest bucket first and its
+    deepest problems first (_packs). `drain(refill)` takes more items from
+    `refill()` between packs; `complete(ref)` runs once a result is
+    stored."""
+
+    def __init__(self, tables, expansion, threshold, use_lut, dynamic,
+                 complete=None):
+        self.tables = tables
+        self.expansion = expansion
+        self.threshold = threshold
+        self.use_lut = use_lut
+        self.dynamic = dynamic
+        self.complete = complete
+        self.buckets: dict = {}     # (w_pad, use_rle, seg) -> [(lx+ly, ref)]
+        self.host_jobs: list = []   # (future, [refs]) on the host engine
+        self._pool = None
+
+    def _store(self, ref, result):
+        ref.out[ref.idx] = result
+        if self.complete is not None:
+            self.complete(ref)
+
+    def add(self, refs):
+        from margin_tpu_torch.ops import native_fb
+        host = []
+        for ref in refs:
+            it = ref.item
+            lx, ly = len(it["x_sym"]), len(it["y_sym"])
+            if lx + ly == 0:
+                empty = np.zeros((0, 3), dtype=np.int64)
+                self._store(ref, ((empty, empty, empty), 0.0))
+                continue
+            geom = _item_geom(it, self.expansion, self.dynamic)
+            route = _route(geom)
+            if route == "host":
+                host.append(ref)
+                continue
+            use_rle = (it.get("rep_x") is not None
+                       and self.tables.repeat is not None)
+            self.buckets.setdefault(
+                (_bucket_w(geom.w_pad), use_rle, route == "seg"),
+                []).append((lx + ly, ref))
+        if not host:
+            return
+        if native_fb.lib() is not None:
+            # wide bands run on the host engine while the device solves
+            # the packs
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=1)
+            self.host_jobs.append((self._pool.submit(
+                _solve_native_items, self.tables, [r.item for r in host],
+                self.expansion, self.threshold, self.use_lut, self.dynamic),
+                host))
+        elif _on_card(self.tables):
+            raise RuntimeError(
+                f"the posteriors of {len(host)} bands wider than 128 "
+                "cells need the host banded engine (native/marginfb.cc, "
+                "margin_tpu_torch/_build/libmarginfb.so), which did not "
+                f"build or load ({K5_ITEM}: wide posteriors stay on the "
+                "host)")
+        else:
+            # on the CPU without the host engine the plain twins take the
+            # wide bands, as the JAX package's pure-XLA scan does there
+            for ref in host:
+                use_rle = (ref.item.get("rep_x") is not None
+                           and self.tables.repeat is not None)
+                self._solve([ref], _round8(ref.item["_geom"].w_pad),
+                            use_rle, False)
+
+    def _solve(self, refs, w_pad, use_rle, seg):
+        items = [r.item for r in refs]
+        (_solve_seg_pack if seg else _solve_pack)(
+            self.tables, items, [it["_geom"] for it in items], w_pad,
+            use_rle, self.expansion, self.use_lut, self.dynamic,
+            self.threshold, [(r.out, r.idx) for r in refs])
+        if self.complete is not None:
+            for r in refs:
+                self.complete(r)
+
+    def drain(self, refill=None):
+        """Launch packs until no bucket is left, absorbing what `refill()`
+        returns before each; then collect the host engine's results."""
+        try:
+            while True:
+                if refill is not None:
+                    self.add(refill())
+                if not self.buckets:
+                    break
+                key = max(self.buckets, key=lambda k: len(self.buckets[k]))
+                w_pad, use_rle, seg = key
+                entries = sorted(self.buckets.pop(key), key=lambda e: -e[0])
+                pack = next(_packs(entries, w_pad, seg))
+                if len(entries) > len(pack):
+                    self.buckets[key] = entries[len(pack):]
+                self._solve(pack, w_pad, use_rle, seg)
+                if seg:
+                    ROUTES.add(seg_items=len(pack), seg_packs=1)
+                else:
+                    ROUTES.add(pack_items=len(pack), packs=1)
+        finally:
+            jobs, self.host_jobs = self.host_jobs, []
+            try:
+                for fut, refs in jobs:
+                    for ref, r in zip(refs, fut.result()):
+                        self._store(ref, r)
+                    ROUTES.add(host_items=len(refs))
+            finally:
+                if self._pool is not None:
+                    self._pool.shutdown()
+                    self._pool = None
+
+
+class _FbRequest:
+    __slots__ = ("key", "items", "results", "remaining", "done", "error")
+
+    def __init__(self, key, items):
+        self.key = key
+        self.items = items
+        self.results = [None] * len(items)
+        self.remaining = len(items)
+        self.done = False
+        self.error = None
+
+
+class _FbFunnel:
+    """Cross-chunk combining funnel for banded_posteriors_many (the JAX
+    package's `_FbFunnel`, banded.py:1309-1401).
+
+    Chunk threads (and the score server's handlers for process workers)
+    each call banded_posteriors_many against the one device. Concurrent
+    calls with the same tables object, expansion, threshold, logAdd and
+    `dynamic` merge: the thread that finds the device free becomes the
+    dispatcher and runs a _PackRun over the union of the queued calls'
+    items, absorbing newly queued calls between packs, and releases each
+    caller once its own items are stored. A failure is raised on every
+    waiter. Per-item results equal direct calls: a K2 or K3 block never
+    reads across problems, and a pack's makeup changes only its padding."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._queue: list = []
+        self._busy = False
+
+    def solve(self, tables, items, expansion, threshold, use_lut, dynamic):
+        if not items:
+            return []
+        req = _FbRequest((id(tables), expansion, threshold, use_lut,
+                          dynamic), list(items))
+        with self._cond:
+            self._queue.append(req)
+            while not req.done:
+                if self._busy:
+                    self._cond.wait()
+                    continue
+                self._busy = True
+                self._cond.release()
+                try:
+                    self._dispatch(tables, req.key)
+                finally:
+                    self._cond.acquire()
+                    self._busy = False
+                    self._cond.notify_all()
+        if req.error is not None:
+            raise req.error
+        return req.results
+
+    def _complete(self, ref):
+        with self._cond:
+            ref.req.remaining -= 1
+            if ref.req.remaining == 0:
+                ref.req.done = True
+                self._cond.notify_all()
+
+    def _dispatch(self, tables, key):
+        _, expansion, threshold, use_lut, dynamic = key
+        seen: list = []
+
+        def refill():
+            with self._cond:
+                mine = [r for r in self._queue if r.key == key]
+                self._queue = [r for r in self._queue if r.key != key]
+            seen.extend(mine)
+            return [_ItemRef(it, r.results, i, r) for r in mine
+                    for i, it in enumerate(r.items)]
+
+        try:
+            _PackRun(tables, expansion, threshold, use_lut, dynamic,
+                     complete=self._complete).drain(refill)
+        except BaseException as e:
+            with self._cond:
+                for r in seen:
+                    if not r.done:
+                        r.error = e
+                        r.done = True
+                self._cond.notify_all()
+            raise
+
+
+_FB_FUNNEL = _FbFunnel()
+
+
+def _fb_funnel_enabled() -> bool:
+    return os.environ.get("MARGIN_TPU_FB_FUNNEL", "1") != "0"
+
+
+def _posteriors_direct(tables, items, expansion, threshold, use_lut,
+                       dynamic):
+    results = [None] * len(items)
+    run = _PackRun(tables, expansion, threshold, use_lut, dynamic)
+    run.add([_ItemRef(it, results, i) for i, it in enumerate(items)])
+    run.drain()
+    return results
+
+
+def _worker_posteriors(tables, items, expansion, threshold, use_lut,
+                       dynamic):
+    """A process worker's call (banded.py:1656-1728): the items the parent
+    would route to its host engine (bands wider than 128 cells, or deeper
+    than MAX_DIAGONALS) solve on this worker's own engine, the rest go to
+    the parent's device over the socket, shipped first so the parent works
+    while this worker solves; so process mode routes every item as thread
+    mode does."""
+    from margin_tpu_torch.ops import native_fb
+    from margin_tpu_torch.parallel import executor
+    local = []
+    if native_fb.lib() is not None:
+        local = [i for i, it in enumerate(items)
+                 if len(it["x_sym"]) + len(it["y_sym"]) > 0
+                 and _route(_item_geom(it, expansion, dynamic)) == "host"]
+    if not local:
+        return executor.ipc_banded(tables, items, expansion, threshold,
+                                   use_lut, dynamic)
+    results = [None] * len(items)
+    local_set = set(local)
+    remote = [i for i in range(len(items)) if i not in local_set]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(executor.ipc_banded, tables,
+                          [items[i] for i in remote], expansion, threshold,
+                          use_lut, dynamic) if remote else None
+        try:
+            for i, r in zip(local, _solve_native_items(
+                    tables, [items[i] for i in local], expansion, threshold,
+                    use_lut, dynamic)):
+                results[i] = r
+        except BaseException:
+            if fut is not None:
+                fut.exception()   # the shipped batch is waited for
+            raise
+        remote_res = fut.result() if fut is not None else []
+    for i, r in zip(remote, remote_res):
+        results[i] = r
+    return results
+
+
 def banded_posteriors_many(tables, items, expansion: int,
                            threshold: float = 0.01, use_lut: bool = False,
                            dynamic: bool = False):
@@ -311,72 +592,19 @@ def banded_posteriors_many(tables, items, expansion: int,
     of dicts with keys x_sym, y_sym, anchors, strand, and optional
     rep_x/rep_y, ragged_left/right. Returns a list of
     ((matches, gapx, gapy), total) in input order, each pair list int64
-    (prob scaled by 1e7, x, y) rows sorted by (x, y)."""
-    from margin_tpu_torch.ops import native_fb
-
-    results = [None] * len(items)
-    buckets: dict = {}        # (w_pad, use_rle, seg) -> [(lx+ly, i)]
-    host_idx = []
-    for i, it in enumerate(items):
-        lx, ly = len(it["x_sym"]), len(it["y_sym"])
-        if lx + ly == 0:
-            empty = np.zeros((0, 3), dtype=np.int64)
-            results[i] = ((empty, empty, empty), 0.0)
-            continue
-        geom = _item_geom(it, expansion, dynamic)
-        route = _route(geom)
-        if route == "host":
-            host_idx.append(i)
-            continue
-        use_rle = it.get("rep_x") is not None and tables.repeat is not None
-        buckets.setdefault((_bucket_w(geom.w_pad), use_rle, route == "seg"),
-                           []).append((lx + ly, i))
-
-    # wide bands run on the host engine while the device solves the packs
-    pool = fut = None
-    wide_on_host = bool(host_idx) and native_fb.lib() is not None
-    if wide_on_host:
-        pool = ThreadPoolExecutor(max_workers=1)
-        fut = pool.submit(_solve_native_items, tables,
-                          [items[i] for i in host_idx], expansion,
-                          threshold, use_lut, dynamic)
-    elif host_idx:
-        if _on_card(tables):
-            raise RuntimeError(
-                f"the posteriors of {len(host_idx)} bands wider than 128 "
-                "cells need the host banded engine (native/marginfb.cc, "
-                "margin_tpu_torch/_build/libmarginfb.so), which did not "
-                f"build or load ({K5_ITEM}: wide posteriors stay on the "
-                "host)")
-        # on the CPU without the host engine the plain twins take the wide
-        # bands, as the JAX package's pure-XLA scan does there
-        for i in host_idx:
-            geom = _item_geom(items[i], expansion, dynamic)
-            use_rle = (items[i].get("rep_x") is not None
-                       and tables.repeat is not None)
-            _solve_pack(tables, [items[i]], [geom], _round8(geom.w_pad),
-                        use_rle, expansion, use_lut, dynamic, threshold,
-                        [(results, i)])
-    try:
-        for (w_pad, use_rle, seg), entries in buckets.items():
-            for idxs in _packs(entries, w_pad, seg):
-                (_solve_seg_pack if seg else _solve_pack)(
-                    tables, [items[i] for i in idxs],
-                    [items[i]["_geom"] for i in idxs], w_pad, use_rle,
-                    expansion, use_lut, dynamic, threshold,
-                    [(results, i) for i in idxs])
-                if seg:
-                    ROUTES.add(seg_items=len(idxs), seg_packs=1)
-                else:
-                    ROUTES.add(pack_items=len(idxs), packs=1)
-    finally:
-        if fut is not None:
-            host_res = fut.result()
-            pool.shutdown()
-            for i, r in zip(host_idx, host_res):
-                results[i] = r
-            ROUTES.add(host_items=len(host_idx))
-    return results
+    (prob scaled by 1e7, x, y) rows sorted by (x, y). In a process worker
+    (an IPC client installed) the batch goes to the parent's device; else
+    through the cross-call funnel (MARGIN_TPU_FB_FUNNEL=0: a direct
+    _PackRun)."""
+    from margin_tpu_torch.parallel import executor
+    if executor.has_ipc_client() and items:
+        return _worker_posteriors(tables, items, expansion, threshold,
+                                  use_lut, dynamic)
+    if _fb_funnel_enabled():
+        return _FB_FUNNEL.solve(tables, items, expansion, threshold,
+                                use_lut, dynamic)
+    return _posteriors_direct(tables, items, expansion, threshold, use_lut,
+                              dynamic)
 
 
 def _on_card(tables) -> bool:

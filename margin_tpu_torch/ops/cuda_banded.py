@@ -397,12 +397,14 @@ class _WideCounter(_Counter):
         self.designs = dict.fromkeys(K5_DESIGNS, 0)
 
     def reset(self):
-        self.launches = 0
-        self.designs = dict.fromkeys(K5_DESIGNS, 0)
+        with self._lock:
+            self.launches = 0
+            self.designs = dict.fromkeys(K5_DESIGNS, 0)
 
     def add(self, design: str):
-        self.launches += 1
-        self.designs[design] += 1
+        with self._lock:
+            self.launches += 1
+            self.designs[design] += 1
 
 
 FB_FORWARD_WIDE = _WideCounter()
@@ -542,7 +544,7 @@ def fb_forward(pack: BandPack, use_lut: bool, chunk: Optional[int] = None):
     rc = _k2().k2_forward(_args(pack, fwd, totals), pack.B, pack.W, chunk,
                           int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "banded forward (K2-fwd)")
-    FB_FORWARD.launches += 1
+    FB_FORWARD.add()
     return fwd, totals
 
 
@@ -563,7 +565,7 @@ def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     rc = _k2().k2_backward(_args(pack, fwd, totals, post), pack.B, pack.W,
                            chunk, int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "banded backward (K2-bwd)")
-    FB_BACKWARD.launches += 1
+    FB_BACKWARD.add()
     return post
 
 
@@ -605,8 +607,8 @@ def fb_backward_words(pack: BandPack, fwd: torch.Tensor,
             int(bool(use_lut)), smem, float(threshold), cap, stream)
         _ext.check_launch(rc, "banded backward and extraction (K2-bwd "
                               "WORDS)")
-        FB_BACKWARD.launches += 1
-        FB_WORDS.launches += 1
+        FB_BACKWARD.add()
+        FB_WORDS.add()
         n = int(count.item())
         if n <= cap:
             return lo[:n], hi[:n]
@@ -632,7 +634,7 @@ def fb_expectations(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     rc = _k2().k2_expectations(_args(pack, fwd, totals, out), pack.B, pack.W,
                                chunk, int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "banded transition expectations (K4)")
-    FB_EXPECT.launches += 1
+    FB_EXPECT.add()
     return out
 
 
@@ -811,7 +813,7 @@ def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):
     rc = _k3().k3_forward(_args(pack, seg_off, ckpt, totals), pack.B, pack.W,
                           seg_d, int(bool(use_lut)), smem, stream)
     _ext.check_launch(rc, "segmented banded forward (K3-fwd)")
-    SEG_FORWARD.launches += 1
+    SEG_FORWARD.add()
     return ckpt, totals
 
 
@@ -845,7 +847,7 @@ def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
             pack.B, pack.W, seg_d, int(bool(use_lut)), smem,
             float(threshold), cap, stream)
         _ext.check_launch(rc, "segmented banded backward (K3-bwd)")
-        SEG_BACKWARD.launches += 1
+        SEG_BACKWARD.add()
         n = int(count.item())
         if n <= cap:
             return lo[:n], hi[:n]

@@ -10,12 +10,14 @@ by `margin_tpu_torch._ext` into the port's build directory.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 _I32P = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _I64P = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
@@ -24,6 +26,12 @@ _F64P = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 
 
 def lib() -> Optional[ctypes.CDLL]:
+    """The engine, loaded once under a lock (chunk threads ask at once)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

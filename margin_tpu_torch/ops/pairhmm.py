@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -244,10 +245,20 @@ def k1_launch(Lx: int, Ly: int, rle: bool) -> K1Launch:
 
 
 class _Counter:
-    """Plain launch counter of one kernel wrapper."""
+    """Launch counter of one kernel wrapper. Chunk threads launch at once,
+    so every change holds the lock; `launches` is read as is."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.launches = 0
+
+    def add(self):
+        with self._lock:
+            self.launches += 1
+
+    def reset(self):
+        with self._lock:
+            self.launches = 0
 
 
 FORWARD_TOTAL = _Counter()
@@ -321,7 +332,7 @@ def forward_total(tables: PairHmmTables, batch: PairBatch,
         int(bool(use_lut)), launch.warps, launch.rows, int(launch.stage_x),
         launch.smem, stream)
     _ext.check_launch(rc, "pairhmm forward (K1)")
-    FORWARD_TOTAL.launches += 1
+    FORWARD_TOTAL.add()
     return out
 
 

@@ -208,7 +208,7 @@ def rphmm_fb(pk: RphmmPack, include_ancestor: bool):
         lay.emission_bytes, lay.chain_cpt, lay.chain_threads,
         _CARRY[lay.carry], lay.chain_bytes, stream)
     _ext.check_launch(rc, "read-partition HMM forward-backward (K6)")
-    RPHMM_FB.launches += 1
+    RPHMM_FB.add()
     return tuple(out)
 
 

@@ -1,10 +1,11 @@
 """Pair scoring on one device, with cross-thread launch coalescing.
 
-Counterpart of `margin_tpu/parallel/executor.py`: `score_pairs` and the
-combining service `_PairScoreService` (executor.py:259-340). The JAX
-package's mesh context, `shard_map` and worker-process client are not
-ported (ROADMAP queue 1, "IPC workers, multi-GPU and multi-host").
-Batches are built on the device the tables live on.
+Counterpart of `margin_tpu/parallel/executor.py`: `score_pairs`, the
+combining service `_PairScoreService` (executor.py:259-340) and the
+worker-process client hooks (`install_ipc_client`, `has_ipc_client`,
+`ipc_banded`, executor.py:343-374). The JAX package's mesh context and
+`shard_map` are not ported (ROADMAP queue 1, "IPC workers, multi-GPU and
+multi-host"). Batches are built on the device the tables live on.
 """
 
 from __future__ import annotations
@@ -158,12 +159,35 @@ class _PairScoreService:
 
 
 _SCORER = _PairScoreService()
+_IPC_CLIENT = None
+
+
+def install_ipc_client(client) -> None:
+    """Route score_pairs and banded_posteriors_many over an IPC connection
+    to the device-owning parent (parallel/ipc.py). Process workers only."""
+    global _IPC_CLIENT
+    _IPC_CLIENT = client
+
+
+def has_ipc_client() -> bool:
+    return _IPC_CLIENT is not None
 
 
 def score_pairs(tables, pairs, strands, rep_pairs=None, use_lut: bool = False,
                 batch_max: int = 32768) -> np.ndarray:
     """Score a list of (x_sym, y_sym) pairs on the tables' device,
-    coalescing concurrent callers into shared launches. Returns
-    (len(pairs),) float32 scores in request order."""
+    coalescing concurrent callers into shared launches; in a process
+    worker, on the parent's device. Returns (len(pairs),) float32 scores
+    in request order."""
+    if _IPC_CLIENT is not None and len(pairs) > 0:
+        return _IPC_CLIENT.score(tables, pairs, strands, rep_pairs, use_lut,
+                                 batch_max)
     return _SCORER.score(tables, pairs, strands, rep_pairs, use_lut,
                          batch_max)
+
+
+def ipc_banded(tables, items, expansion, threshold, use_lut, dynamic):
+    """A process worker's banded_posteriors_many batch, solved on the
+    parent's device, where the funnel merges it with the other workers'."""
+    return _IPC_CLIENT.banded(tables, items, expansion, threshold, use_lut,
+                              dynamic)

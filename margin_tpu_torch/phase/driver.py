@@ -1,11 +1,10 @@
 """`margin phase` driver: chunked, device-batched phasing pipeline.
 
 Parity: phase_main (phase.c:56-570). Chunks are processed independently
-(sequentially or on a host thread pool, all scoring on one device) and
-stitched with the cis/trans phase vote. Counterpart of
-`margin_tpu/phase/driver.py` with an explicit `device`; multi-host runs
-wait for a later slice (ROADMAP queue 1, "IPC workers, multi-GPU and
-multi-host").
+(sequentially, on a host thread pool or in shard processes, all scoring
+on one device, or partitioned across a `--hosts` group) and stitched with
+the cis/trans phase vote. Counterpart of `margin_tpu/phase/driver.py`
+with an explicit `device`.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from margin_tpu_torch.io.vcf import parse_vcf, mark_svs
 from margin_tpu_torch.io.vcf_writer import update_haplotype_switching, write_phased_vcf
 from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.params import Params
+from margin_tpu_torch.parallel import multihost
 from margin_tpu_torch.phase import chunker as chunkermod
 from margin_tpu_torch.phase import phasing, variants
 from margin_tpu_torch.phase.downsample import downsample_reads_by_vcf_spans
@@ -43,6 +43,7 @@ class PhaseOutputs:
     phased_het_count: int = 0
 
 
+@multihost.scoped
 def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
               params: Params, output_base: str, region: Optional[str] = None,
               write_bam: bool = True, write_vcf: bool = True,
@@ -75,6 +76,11 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
     own chunk-seeded stream — identical to shard mode, so a threaded run
     equals the same run sharded (deterministic at any thread count).
 
+    hosts=(coordinator, N, host_id) partitions the chunks by index across
+    a gloo process group (parallel/multihost.py): one compressed
+    all-gather of the chunk results and VCF interior snapshots, then host
+    0 writes the outputs; the group is destroyed when the run ends.
+
     device: "cuda" (default) runs the scoring kernels on the GPU; "cpu"
     runs their plain PyTorch twins. CUDA asked for and absent raises.
 
@@ -83,14 +89,13 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
     chunk order (size-desc, phase.c:257-262) — making the downsampling
     Bernoulli stream identical to `margin phase` -t1 and the golden
     outputs exact. rng_mode="python" keeps a seeded random.Random."""
-    if hosts is not None:
-        raise NotImplementedError(
-            "multi-host phase is not ported yet (ROADMAP queue 1, "
-            "\"IPC workers, multi-GPU and multi-host\")")
     device = _ext.resolve_device(device)
     bamio.set_cram_reference(reference_fasta)
     from margin_tpu_torch.utils.strandom import GlibcRandom, make_rng
     rng = make_rng(rng_mode, seed)
+    # chunk-seeded RNG keeps any partitioning across hosts byte-identical
+    # to a single-host run with the same streams
+    mh = multihost.join(hosts, log)
     shard_idx = shard_n = None
     if shard is not None:
         checkpoint = True
@@ -99,7 +104,7 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
             if not 0 <= shard_idx < shard_n:
                 raise ValueError(f"bad shard {shard}")
     threads = max(int(threads), 1)
-    per_chunk_rng = shard is not None or threads > 1
+    per_chunk_rng = shard is not None or threads > 1 or hosts is not None
     t0 = time.time()
     out = PhaseOutputs()
 
@@ -166,6 +171,9 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
     if shard_idx is not None:
         ordered_chunks = [c for c in ordered_chunks
                           if c.chunk_idx % shard_n == shard_idx]
+    if mh is not None:
+        ordered_chunks = [c for c in ordered_chunks
+                          if c.chunk_idx % mh.num_hosts() == mh.host_id()]
 
     def make_chunk_rng(chunk_idx: int):
         if not per_chunk_rng:
@@ -243,6 +251,33 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
             f"checkpointed; run once more without a shard index to merge")
         return out
 
+    if mh is not None:
+        # the one collective: every host's chunk results and the VCF
+        # interior snapshots the writer needs (stitching.c:1573-1588's
+        # merge inputs), compressed on the wire; host 0 writes
+        with profiler.stage("host_gather"):
+            payload = mh.dumps_z({
+                "results": results,
+                "vcf": [(c.ref_name,
+                         snapshot_vcf_entries(vcf_entries, c.ref_name,
+                                              c.chunk_start, c.chunk_end))
+                        for c in ordered_chunks],
+            })
+            gathered_b = mh.allgather_bytes(payload)
+            gathered = [mh.loads_z(b) for b in gathered_b]
+        results = []
+        for hid, p in enumerate(gathered):
+            results.extend(p["results"])
+            if hid != mh.host_id():
+                for ref_name, snap in p["vcf"]:
+                    apply_vcf_snapshot(vcf_entries, ref_name, snap)
+        log(f"> Gathered {len(results)} chunk results from "
+            f"{mh.num_hosts()} hosts (sent {len(payload)} B, received "
+            f"{sum(len(b) for b in gathered_b)} B)")
+        if mh.host_id() != 0:
+            mh.barrier("phase-outputs")
+            return out
+
     # stitch (stitching.c:1558-1693) — results back in genomic chunk order
     results.sort(key=lambda r: r.chunk_idx)
     with profiler.stage("stitch"):
@@ -290,6 +325,8 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
                 f"avg:{total // len(lengths)}, min:{lengths[0]}, "
                 f"max:{lengths[-1]}, N50:{n50}")
 
+    if mh is not None:
+        mh.barrier("phase-outputs")
     if ckpt.enabled:
         log(f"> {ckpt.report()}")
     ckpt.finalize()

@@ -10,12 +10,11 @@ re-estimate run lengths, then stitch the chunk sequences into the polished
 FASTA, with HELEN features of each chunk's POA on request. Diploid adds
 bubble-graph phasing over the POA, per-haplotype consensus, phased
 stitching, the haplotagged BAM and, with a truth BAM, the truth
-haplotypes' partition.
-
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue 1 item: multi-host runs, and diploid polish's checkpoints, shards
-and chunk threads. The JAX package's device-mesh
-block has no counterpart (one GPU).
+haplotypes' partition. Both modes take chunk threads (-t), checkpoints,
+shards (the ground of `--workers process`, parallel/ipc.py) and a
+`--hosts` group (parallel/multihost.py). The JAX package's device-mesh
+block has no counterpart (ROADMAP queue 1, "IPC workers, multi-GPU and
+multi-host", part 4).
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from margin_tpu_torch.io import bam as bamio
 from margin_tpu_torch.io.fasta import FastaIndex, write_fasta
 from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.params import Params
+from margin_tpu_torch.parallel import multihost
 from margin_tpu_torch.phase import chunker as chunkermod
 from margin_tpu_torch.phase.downsample import knapsack_probs
 from margin_tpu_torch.polish import bubbles_poa, outputs, repeats, stitcher
@@ -116,14 +116,6 @@ def poa_realign_all(reads: List[PoaRead], alignments, reference: RleString,
     return poa
 
 
-_SCALE = "IPC workers, multi-GPU and multi-host"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                              f"\"{item}\")")
-
-
 def _truth_reads(true_reference_bam: str, chunk, rle_ref, pp):
     """The truth contigs over a chunk as reads named
     CTRID.<chunkIdx>.<name> (misc.c:443-473), with their alignments."""
@@ -170,6 +162,41 @@ def _write_chunks_csv(output_base: str, chunkr) -> None:
                      f"{c.chunk_overlap_end},{c.chunk_start},{c.chunk_end}\n")
 
 
+def _chunk_pool(bam_file, chunks, threads, work, io_lock, seed,
+                per_chunk_rng, rng):
+    """Run work(chunk, reader, chunk_rng) over the chunks in order: on this
+    thread with one reader, or on a pool of `threads` (polish.c:475-478's
+    `omp parallel for`) with a reader a thread; the chunk streams are
+    random.Random(f"{seed}:{chunk_idx}") when per_chunk_rng (always on the
+    pool), else the run's `rng`."""
+    if threads == 1:
+        reader = bamio.open_alignment(bam_file)
+        try:
+            return [work(c, reader, random.Random(f"{seed}:{c.chunk_idx}")
+                         if per_chunk_rng else rng) for c in chunks]
+        finally:
+            reader.close()
+    from concurrent.futures import ThreadPoolExecutor
+    tls = threading.local()
+    open_readers: list = []
+
+    def worker(chunk):
+        reader = getattr(tls, "reader", None)
+        if reader is None:
+            reader = tls.reader = bamio.open_alignment(bam_file)
+            with io_lock:
+                open_readers.append(reader)
+        return work(chunk, reader, random.Random(f"{seed}:{chunk.chunk_idx}"))
+
+    try:
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            return list(pool.map(worker, chunks))
+    finally:
+        for r in open_readers:
+            r.close()
+
+
+@multihost.scoped
 def run_polish(bam_file: str, reference_fasta: str, params: Params,
                output_base: str, region: Optional[str] = None,
                diploid: bool = False, seed: int = 0, use_lut: bool = False,
@@ -201,7 +228,10 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
     shard=(i, n) polishes every nth chunk (offset i) into the shared
     checkpoint directory; shard=("merge",) combines. threads>1 runs chunks
     on a host thread pool (polish.c:475-478) with per-chunk RNG streams,
-    the same streams as shard mode. device: "cuda" (default) runs the
+    the same streams as shard mode. hosts=(coordinator, N, host_id)
+    partitions the chunks across a gloo process group: one all-gather of
+    the chunk records, host 0 stitches and writes (not with HELEN
+    features, which are per host). device: "cuda" (default) runs the
     kernels on the GPU; "cpu" runs their plain PyTorch twins. CUDA asked
     for and absent raises.
 
@@ -209,8 +239,6 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
     aliases) writes HELEN features to `<output_base>.T00.h5`;
     true_reference_bam labels them with the truth (-u) and, in diploid
     mode, partitions the truth haplotypes (polish.c:423-431)."""
-    if hosts is not None:
-        _not_ported("multi-host polish", _SCALE)
     if diploid:
         return run_polish_diploid(
             bam_file, reference_fasta, params, output_base, region=region,
@@ -225,11 +253,15 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
             skip_filtered_reads=skip_filtered_reads,
             skip_realignment=skip_realignment,
             skip_haplotype_bam=skip_haplotype_bam, profiler=profiler,
-            threads=threads, device=device, log=log)
+            threads=threads, hosts=hosts, device=device, log=log)
     device = _ext.resolve_device(device)
     bamio.set_cram_reference(reference_fasta)
     profiler = profiler or profiling.NULL
     rng = random.Random(seed)
+    if hosts is not None and feature_type is not None:
+        raise ValueError("HELEN feature output is per-host; run --hosts "
+                         "without -f or shard features separately")
+    mh = multihost.join(hosts, log)
     shard_idx = shard_n = None
     if shard is not None:
         checkpoint = True
@@ -270,7 +302,7 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         log("> Checkpointing disabled: incompatible with HELEN feature output")
         checkpoint = False
     threads = max(int(threads), 1)
-    per_chunk_rng = shard is not None or threads > 1
+    per_chunk_rng = shard is not None or threads > 1 or hosts is not None
     ckpt = ChunkCheckpointer(
         f"{output_base}.checkpoint", enabled=checkpoint,
         meta={"bam": os.path.abspath(bam_file), "region": region,
@@ -280,6 +312,9 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         log=log)
     my_chunks = [c for c in chunkr.chunks
                  if shard_idx is None or c.chunk_idx % shard_n == shard_idx]
+    if mh is not None:
+        my_chunks = [c for c in my_chunks
+                     if c.chunk_idx % mh.num_hosts() == mh.host_id()]
     io_lock = threading.Lock()  # serializes HELEN output and checkpoints
 
     def process_chunk(chunk, reader, chunk_rng):
@@ -336,32 +371,8 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         return seq_rec
 
     with profiler.stage("chunks"):
-        if threads == 1:
-            reader = bamio.open_alignment(bam_file)
-            chunk_seqs = []
-            for chunk in my_chunks:
-                chunk_rng = (random.Random(f"{seed}:{chunk.chunk_idx}")
-                             if per_chunk_rng else rng)
-                chunk_seqs.append(process_chunk(chunk, reader, chunk_rng))
-            reader.close()
-        else:
-            from concurrent.futures import ThreadPoolExecutor
-            tls = threading.local()
-            open_readers: list = []
-
-            def worker(chunk):
-                reader = getattr(tls, "reader", None)
-                if reader is None:
-                    reader = tls.reader = bamio.open_alignment(bam_file)
-                    with io_lock:
-                        open_readers.append(reader)
-                return process_chunk(
-                    chunk, reader, random.Random(f"{seed}:{chunk.chunk_idx}"))
-
-            with ThreadPoolExecutor(max_workers=threads) as pool:
-                chunk_seqs = list(pool.map(worker, my_chunks))
-            for r in open_readers:
-                r.close()
+        chunk_seqs = _chunk_pool(bam_file, my_chunks, threads, process_chunk,
+                                 io_lock, seed, per_chunk_rng, rng)
     if ckpt.loaded:
         log(f"> Resumed {ckpt.loaded} of {len(chunkr.chunks)} chunks "
             f"from checkpoint")
@@ -375,24 +386,41 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
             f"to produce outputs")
         return PolishOutputs()
 
+    if mh is not None:
+        # the one collective: every host's (contig, chunk_idx, consensus)
+        # records, the stitch inputs (stitching.c:1573-1588), compressed
+        payload = mh.dumps_z(chunk_seqs)
+        gathered = mh.allgather_bytes(payload)
+        log(f"> Gathered chunk records from {mh.num_hosts()} hosts "
+            f"(sent {len(payload)} B, received "
+            f"{sum(len(b) for b in gathered)} B)")
+        chunk_seqs = [rec for b in gathered for rec in mh.loads_z(b)]
+        if mh.host_id() != 0:
+            mh.barrier("polish-outputs")
+            return PolishOutputs()
+
+    out = PolishOutputs()
     if skip_output_fasta:
         # polish.c --skipOutputFasta: supplementary files only
         if ckpt.enabled:
             log(f"> {ckpt.report()}")
         ckpt.finalize()
         log(f"> Finished (skipped FASTA output) in {time.time() - t0:.1f}s")
-        return PolishOutputs()
-    with profiler.stage("stitch"):
-        sequences = stitcher.stitch_sequences(chunk_seqs, params, device)
-    out = PolishOutputs(fasta=f"{output_base}.fa", sequences=sequences)
-    write_fasta(out.fasta, sequences)
-    if ckpt.enabled:
-        log(f"> {ckpt.report()}")
-    ckpt.finalize()
-    log(f"> Wrote polished FASTA {out.fasta} in {time.time() - t0:.1f}s")
+    else:
+        with profiler.stage("stitch"):
+            sequences = stitcher.stitch_sequences(chunk_seqs, params, device)
+        out = PolishOutputs(fasta=f"{output_base}.fa", sequences=sequences)
+        write_fasta(out.fasta, sequences)
+        if ckpt.enabled:
+            log(f"> {ckpt.report()}")
+        ckpt.finalize()
+        log(f"> Wrote polished FASTA {out.fasta} in {time.time() - t0:.1f}s")
+    if mh is not None:
+        mh.barrier("polish-outputs")
     return out
 
 
+@multihost.scoped
 def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
                        output_base: str, region: Optional[str] = None,
                        seed: int = 0, use_lut: bool = False,
@@ -422,21 +450,23 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
     to the VCF's (requires non-RLE params and skip_output_fasta,
     polish.c:364-371). true_reference_bam (-u): the truth contigs ride
     along as filtered reads and their partition between the haplotypes is
-    written to `<output_base>.truthHaplotypesPartition.tsv`."""
+    written to `<output_base>.truthHaplotypesPartition.tsv`. checkpoint,
+    shard, threads and hosts as in run_polish; with hosts the one gather
+    carries each chunk's (result, hap1, hap2) records."""
     from margin_tpu_torch.phase.driver import write_haplotagged_bam
     from margin_tpu_torch.phase.stitching import (ChunkPhaseResult,
                                                   stitch_next_chunk)
     from margin_tpu_torch.polish import diploid as diploidmod
-    if hosts is not None:
-        _not_ported("multi-host polish", _SCALE)
-    if checkpoint or shard is not None:
-        _not_ported("checkpoints and shards of diploid polish", _SCALE)
-    if threads > 1:
-        _not_ported("chunk threads (-t) of diploid polish", _SCALE)
     device = _ext.resolve_device(device)
     bamio.set_cram_reference(reference_fasta)
     profiler = profiler or profiling.NULL
     rng = random.Random(seed)
+    mh = multihost.join(hosts, log)
+    shard_idx = shard_n = None
+    if shard is not None:
+        checkpoint = True
+        if shard[0] != "merge":
+            shard_idx, shard_n = int(shard[0]), int(shard[1])
     t0 = time.time()
     pp = params.polish
     if not skip_filtered_reads and not pp.skipHaploidPolishingIfDiploid:
@@ -473,7 +503,30 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
         repeat=pp.repeat_sub_matrix if pp.useRepeatCountsInAlignment else None,
         device=device)
 
+    from margin_tpu_torch.utils.checkpoint import ChunkCheckpointer
+    threads = max(int(threads), 1)
+    per_chunk_rng = shard is not None or threads > 1 or hosts is not None
+    ckpt = ChunkCheckpointer(
+        f"{output_base}.checkpoint", enabled=checkpoint,
+        meta={"bam": os.path.abspath(bam_file), "region": region,
+              "seed": seed, "diploid": True, "vcf": vcf_file,
+              "n_chunks": len(chunkr.chunks),
+              "per_chunk_rng": per_chunk_rng},
+        log=log)
+    my_chunks = [c for c in chunkr.chunks
+                 if shard_idx is None or c.chunk_idx % shard_n == shard_idx]
+    if mh is not None:
+        my_chunks = [c for c in my_chunks
+                     if c.chunk_idx % mh.num_hosts() == mh.host_id()]
+    io_lock = threading.Lock()   # serializes the checkpoints
+
     def process_chunk(chunk, reader, rng):
+        payload = ckpt.load(chunk.chunk_idx)
+        if payload is not None:
+            if payload.get("rng_state") is not None:
+                rng.setstate(payload["rng_state"])
+            return (payload["res"], payload["hap1_seq"],
+                    payload["hap2_seq"])
         raw_ref = fasta.fetch(chunk.ref_name, chunk.chunk_overlap_start,
                               chunk.chunk_overlap_end).upper()
         rle_ref = (RleString.encode(raw_ref) if pp.useRunLengthEncoding
@@ -594,16 +647,42 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
                 res.hap1_reads[r.read_name] = -1.0
             elif r.read_name in hap2_names and r.read_name not in res.hap2_reads:
                 res.hap2_reads[r.read_name] = -1.0
+        with io_lock:
+            ckpt.save(chunk.chunk_idx, {
+                "res": res, "hap1_seq": hap1_seq, "hap2_seq": hap2_seq,
+                "rng_state": None if per_chunk_rng else rng.getstate()})
         log(f"  chunk {chunk.chunk_idx}: {len(reads)} reads -> "
             f"{len(res.hap1_reads)} hap1 / {len(res.hap2_reads)} hap2; "
             f"consensus {len(hap1_seq)}/{len(hap2_seq)}bp")
         return (res, hap1_seq, hap2_seq)
 
     with profiler.stage("chunks"):
-        reader = bamio.open_alignment(bam_file)
-        chunk_results = [process_chunk(chunk, reader, rng)
-                         for chunk in chunkr.chunks]
-        reader.close()
+        # (ChunkPhaseResult, hap1_seq, hap2_seq) a chunk
+        chunk_results = _chunk_pool(bam_file, my_chunks, threads,
+                                    process_chunk, io_lock, seed,
+                                    per_chunk_rng, rng)
+    if ckpt.loaded:
+        log(f"> Resumed {ckpt.loaded} of {len(chunkr.chunks)} chunks "
+            f"from checkpoint")
+    if shard_idx is not None:
+        log(f"> Shard {shard_idx}/{shard_n} complete: "
+            f"{len(chunk_results)} chunks checkpointed; run with "
+            f"--shard merge to produce outputs")
+        return PolishOutputs()
+
+    if mh is not None:
+        # one gather of the stitch inputs: each chunk's ChunkPhaseResult
+        # (hap read-name maps, switch flag) and its two hap consensus
+        # strings, compressed on the wire
+        payload = mh.dumps_z(chunk_results)
+        gathered = mh.allgather_bytes(payload)
+        log(f"> Gathered chunk records from {mh.num_hosts()} hosts "
+            f"(sent {len(payload)} B, received "
+            f"{sum(len(b) for b in gathered)} B)")
+        chunk_results = [rec for b in gathered for rec in mh.loads_z(b)]
+        if mh.host_id() != 0:
+            mh.barrier("polish-diploid-outputs")
+            return PolishOutputs()
 
     # phased stitch: vote + swap + trim both hap sequences
     # (mergeContigChunkz, stitching.c:1413-1499)
@@ -664,9 +743,14 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
         path = f"{output_base}.truthHaplotypesPartition.tsv"
         _write_truth_partition(path, chunkr.chunks, ids1, ids2)
         log(f"> Wrote truth haplotype partitioning to {path}")
+    if ckpt.enabled:
+        log(f"> {ckpt.report()}")
+    ckpt.finalize()
     bam_note = ("BAM skipped" if skip_haplotype_bam
                 else f"BAM H1 {h1} H2 {h2} H0 {h0}")
     log(f"> Diploid polish done in {time.time() - t0:.1f}s: "
         f"hap lengths {sum(len(s) for _, s in hap1_records)}/"
         f"{sum(len(s) for _, s in hap2_records)}, {bam_note}")
+    if mh is not None:
+        mh.barrier("polish-diploid-outputs")
     return out

@@ -14,18 +14,26 @@ Python `Poa` runs instead (host code either way).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 _U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _I64P = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 
 
 def lib() -> Optional[ctypes.CDLL]:
+    """The engine, loaded once under a lock (chunk threads ask at once)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

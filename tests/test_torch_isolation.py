@@ -85,12 +85,19 @@ def test_cuda_requested_without_cuda_raises(tmp_path):
 
 
 def test_cli_rejects_unported_parts(capsys):
-    """What is not ported stops with its ROADMAP item; the HELEN flags and
-    the aux tools parse (here they stop on the missing inputs and
-    arguments)."""
+    """What is not ported stops with its ROADMAP item. Diploid
+    --checkpoint, --workers process -t N, --hosts with --host-id, the
+    HELEN flags and the aux tools parse (here they stop on the missing
+    inputs and arguments); --hosts without --host-id is refused, as in
+    margin_tpu."""
     from margin_tpu_torch import cli
-    for flags, item in ((["--diploid", "--checkpoint"], "multi-host"),
-                        (["--workers", "process", "-t", "2"], "IPC workers"),
+    for flags, item in ((["--diploid", "--checkpoint"],
+                         "Could not read from input"),
+                        (["--workers", "process", "-t", "2"],
+                         "Could not read from input"),
+                        (["--hosts", "2", "--host-id", "1", "--coordinator",
+                          "127.0.0.1:1"], "Could not read from input"),
+                        (["--hosts", "2"], "--hosts requires --host-id"),
                         (["-u", "truth.bam"], "Could not read from input"),
                         (["-f"], "Could not read from input")):
         with pytest.raises(SystemExit):
