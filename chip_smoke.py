@@ -6,7 +6,7 @@ read-partition HMM's device forward-backward, and chunks across threads,
 worker processes and hosts, on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--only kernels,phase,polish,diploid,em,helen,
-                           tools,cram,rphmm,scale,k1,k5,k6]
+                           tools,cram,rphmm,scale,mesh,k1,k5,k6]
 
 (--only runs a subset after the build, for iterating on one path; k1 runs
 K1's shapes of phase 2 alone, about a minute with the build; k5 holds
@@ -15,9 +15,9 @@ both K5 designs against the twins and times them on packs of band widths
 (anchored every 6 bases, and on its kmers as the em phase's pairs), both
 logAdds, about 2.5 minutes with the build; k6 runs K6 on a cross
 product of work >= 10M, sites of 300 and 800 alleles, merge rows of
-20,000 slots and a seeded merge tree, each held and timed; tools, rphmm
-and scale need phase, cram needs phase and polish; a plain run takes all
-but k1, k5 and k6 and is the one that prints the kernels line.)
+20,000 slots and a seeded merge tree, each held and timed; tools, rphmm,
+scale and mesh need phase, cram needs phase and polish; a plain run takes
+all but k1, k5 and k6 and is the one that prints the kernels line.)
 
 Phases (any failure raises and the script exits non-zero):
   1. print the card (nvidia-smi name, power limit) and whether h5py is
@@ -174,21 +174,34 @@ Phases (any failure raises and the script exits non-zero):
      chain's ns a column; each FB of the merge tree its pack's ms;
  15. scale: chunks across threads, worker processes and hosts, each run
      through cli.main with the launch counters zeroed right before and
-     read right after: phase 3's 1 Mb at -t 4, then with --workers
-     process -t 4 (four CPU workers, --device cpu, whose scoring this
-     process serves on the card: its K1 and K2 launch); a seeded 25 kb
-     diploid draft at 30x in 10 kb chunks (three chunks, two seams) at
-     -t 2, then with 2 workers and --checkpoint (the checkpoint
-     directory kept, as a killed run leaves it), then with one chunk's
-     file deleted --checkpoint -t 2, which resumes the other two; a
-     seeded 5 kb haploid draft at 30x in 2 kb chunks (three chunks, two
-     seams) at -t 2, then with 2 workers (the parent's K1 and K2
-     launch); phase 4's region as two --hosts processes of a gloo group
-     on the one card against -t 2. Byte-identical phased VCF,
+     read right after: phase 4's 200 kb region at -t 4, then with
+     --workers process -t 4 (four CPU workers, --device cpu, whose
+     scoring this process serves on the card: its K1 and K2 launch) and
+     as two --hosts processes of a gloo group on the one card (cut from
+     phase 3's 1 Mb for -t 4 and the workers, and the hosts' -t 2 twin
+     dropped, to keep the phase within 100 s); a seeded 22 kb diploid
+     draft at 12x (cut from 25 kb at 30x) in 10 kb chunks (three chunks,
+     two seams) at -t 2, then with 2
+     workers and --checkpoint (the checkpoint directory kept, as a killed
+     run leaves it), then with one chunk's file deleted --checkpoint -t
+     2, which resumes the other two; a seeded 5 kb haploid draft at 30x
+     in 2 kb chunks (three chunks, two seams) at -t 2, then with 2
+     workers (the parent's K1 and K2 launch). Byte-identical phased VCF,
      phaseset.bed, polished and hap FASTAs and haplotagged BAM records
-     within each set, items on K3; each wall beside phase 3's -t 1 wall,
-     with the card;
- 16. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
+     within each set, items on K3; each wall beside the region's -t 1
+     wall (phase 4's kernel run), with the card;
+ 16. mesh: the multi-device scoring context on the one card, as device
+     lists with repeats. K1 through parallel/executor.py's DeviceContext
+     on [cuda:0] * 2 and * 4, on phase 3's largest K1 batch (630 pairs,
+     909x916) and on its first 9 pairs (pad lanes; on 4 shards an
+     all-pad shard): scores identical to the one-device context's, the
+     per-slot sums within rtol 1e-6 of float64 host sums, one K1 launch a
+     shard a call, ms beside the one-device ms; then
+     entry.dryrun_multichip(2, [cuda:0] * 2), counters zeroed right
+     before and read right after: phase 4's region at -t 2 and phase 9's
+     diploid region with and without the mesh, byte-identical outputs,
+     K1 and K2 launched;
+ 17. the queued twin runs (phases 4, 7, 9, 11, 12), all at once, each in
      a subprocess of its own sharing the card, then each comparison
      (the polish, diploid and HELEN regions are TWIN_REGION_LEN = 4 kb,
      cut from 10 kb, then 5 kb, to keep the whole run within its time
@@ -3524,17 +3537,17 @@ def phase_scale(phase_ds, region, t1_wall, work, out_dir, card,
                 device="cuda", dip_config=None, hap_config=None):
     """Chunks across threads, worker processes and hosts on the card, each
     run through cli.main with the launch counters zeroed right before and
-    read right after: phase 3's 1 Mb at -t 4, then --workers process -t 4
-    (the parent's K1 and K2 launch; the workers run --device cpu); a
-    seeded 25 kb diploid draft at 30x in 10 kb chunks (three chunks, two
-    seams) at -t 2, then --workers process -t 2 --checkpoint (its
-    checkpoint directory kept, as a killed run would leave it), then,
-    with one chunk's file deleted, --checkpoint -t 2, which resumes the
-    other two; a seeded 5 kb haploid draft at 30x in 2 kb chunks (three
-    chunks, two seams) at -t 2, then --workers process -t 2; phase 4's
-    region as two --hosts processes of a gloo group and at -t 2.
-    Byte-identical outputs within each set; walls beside phase 3's -t 1
-    wall, with the card."""
+    read right after: phase 4's 200 kb region of phase 3's set at -t 4,
+    then --workers process -t 4 (the parent's K1 and K2 launch; the
+    workers run --device cpu) and as two --hosts processes of a gloo
+    group; a seeded 22 kb diploid draft at 12x in 10 kb chunks (three
+    chunks, two seams) at -t 2, then --workers process -t 2
+    --checkpoint (its checkpoint directory kept, as a killed run would
+    leave it), then, with one chunk's file deleted, --checkpoint -t 2,
+    which resumes the other two; a seeded 5 kb haploid draft at 30x in 2
+    kb chunks (three chunks, two seams) at -t 2, then --workers process -t
+    2. Byte-identical outputs within each set; walls beside the region's
+    -t 1 wall (phase 4's kernel run, t1_wall), with the card."""
     from margin_tpu_torch.ops import banded
     from margin_tpu_torch.testing.synth import (DiploidPolishSynthConfig,
                                                 PolishSynthConfig,
@@ -3546,9 +3559,9 @@ def phase_scale(phase_ds, region, t1_wall, work, out_dir, card,
         contig_len=5000, coverage=30.0, read_len=(1500, 4000), p_sub=0.03,
         p_ins=0.02, p_del=0.03, chunk_size=2000, chunk_boundary=300,
         seed=19)
-    walls, launches = {"phase -t 1": t1_wall}, {}
+    walls, launches = {"region -t 1": t1_wall}, {}
     dip_config = dip_config or DiploidPolishSynthConfig(
-        contig_len=25_000, coverage=30.0, read_len=(5000, 30000),
+        contig_len=22_000, coverage=12.0, read_len=(5000, 30000),
         p_sub=0.03, p_ins=0.02, p_del=0.03, chunk_size=10_000,
         chunk_boundary=1000, seed=17)
 
@@ -3561,26 +3574,29 @@ def phase_scale(phase_ds, region, t1_wall, work, out_dir, card,
         log(f"scale {name}: wall {walls[name]:.1f} s ({card}); launches in "
             f"this process {launches[name]}")
 
-    # --- phase 1 Mb: threads, then worker processes
-    common = [phase_ds.bam, phase_ds.fasta, phase_ds.params, phase_ds.vcf,
-              "--device", device, "-a", "CRITICAL"]
-    run("phase -t 4", ["phase"] + common + ["-o", f"{work}/sc_t4", "-t",
-                                            "4"])
-    run("phase 4 workers", ["phase"] + common + [
-        "-o", f"{work}/sc_w4", "-t", "4", "--workers", "process"])
-    same_files(f"{work}/sc_t4", f"{work}/sc_w4",
-               ("phased.vcf", "phaseset.bed"))
-    if bam_records(f"{work}/sc_t4.haplotagged.bam") \
-            != bam_records(f"{work}/sc_w4.haplotagged.bam"):
-        raise AssertionError("phase: -t 4 and 4 workers' haplotagged BAM "
-                             "records differ")
-    for name in ("phase -t 4", "phase 4 workers"):
+    # --- phase 4's region: threads, worker processes and hosts; all four
+    # draw from the per-chunk RNG streams, so all write the same
+    reg = ["phase", phase_ds.bam, phase_ds.fasta, phase_ds.params,
+           phase_ds.vcf, "--device", device, "-a", "CRITICAL", "-r", region]
+    run("region -t 4", reg + ["-o", f"{work}/sc_t4", "-t", "4"])
+    run("region 4 workers", reg + ["-o", f"{work}/sc_w4", "-t", "4",
+                                   "--workers", "process"])
+    walls["region 2 hosts"] = run_hosts(reg + ["-o", f"{work}/sc_h2"], 2,
+                                        log_path)
+    for other, what in (("sc_w4", "4 workers"), ("sc_h2", "2 hosts")):
+        same_files(f"{work}/sc_t4", f"{work}/{other}",
+                   ("phased.vcf", "phaseset.bed"))
+        if bam_records(f"{work}/sc_t4.haplotagged.bam") \
+                != bam_records(f"{work}/{other}.haplotagged.bam"):
+            raise AssertionError(f"region: -t 4 and {what}'s haplotagged "
+                                 "BAM records differ")
+    for name in ("region -t 4", "region 4 workers"):
         if not all(launches[name][k] for k in ("K1", "K2-fwd",
                                                "K2-bwd WORDS")):
             raise AssertionError(f"{name}: K1 or K2 never launched in this "
                                  f"process: {launches[name]}")
 
-    # --- diploid 25 kb: threads, worker processes, a resumed checkpoint
+    # --- diploid 22 kb: threads, worker processes, a resumed checkpoint
     t0 = time.perf_counter()
     dds = write_diploid_polish_dataset(f"{work}/scale_dip", dip_config)
     gen_s = time.perf_counter() - t0
@@ -3642,26 +3658,120 @@ def phase_scale(phase_ds, region, t1_wall, work, out_dir, card,
             raise AssertionError(f"{name}: {n_hap_chunks} chunks (want 3), "
                                  f"launches in this process "
                                  f"{launches[name]}")
-
-    # --- phase 4's region: two hosts against -t 2
-    reg = ["phase"] + common + ["-r", region]
-    run("region -t 2", reg + ["-o", f"{work}/sh_t2", "-t", "2"])
-    walls["region 2 hosts"] = run_hosts(reg + ["-o", f"{work}/sh_h2"], 2,
-                                        log_path)
-    same_files(f"{work}/sh_t2", f"{work}/sh_h2",
-               ("phased.vcf", "phaseset.bed"))
-    if bam_records(f"{work}/sh_t2.haplotagged.bam") \
-            != bam_records(f"{work}/sh_h2.haplotagged.bam"):
-        raise AssertionError("region: -t 2 and 2 hosts' haplotagged BAM "
-                             "records differ")
     log(f"scale walls ({card}): "
         f"{ {k: round(v, 1) for k, v in walls.items()} }; polish datasets "
         f"{gen_s:.1f} s; launches in this process {launches}; outputs "
-        "identical: phase -t 4 / 4 workers, diploid -t 2 / 2 workers / "
-        "resumed (2 of 3 chunks from the checkpoint), haploid -t 2 / 2 "
-        "workers (3 chunks), region -t 2 / 2 hosts")
+        "identical: region -t 4 / 4 workers / 2 hosts, diploid -t "
+        "2 / 2 workers / resumed (2 of 3 chunks from the checkpoint), "
+        "haploid -t 2 / 2 workers (3 chunks)")
     return {"walls_s": walls, "card": card, "launches": launches,
             "dataset_s": gen_s, "k3_items": k3_items}
+
+
+def mesh_k1(tabs, batch, lut, label, card):
+    """K1 through a DeviceContext over [cuda:0] * 2 and * 4 on `batch`:
+    scores identical to the one-device context's, per-slot sums (about 8
+    pairs a slot) within rtol 1e-6 of the float64 host sums, one K1
+    launch a shard a call; each context's ms (median of 5 calls, the read
+    back included) beside the one-device ms."""
+    import numpy as np
+    from margin_tpu_torch.ops import pairhmm
+    from margin_tpu_torch.parallel import executor
+    from margin_tpu_torch.parallel import mesh as meshmod
+    b = batch.xs.shape[0]
+    one = executor.DeviceContext()
+    want = one.score_batch(tabs, batch, use_lut=lut)
+    n_slots = max(1, b // 8)
+    slots = np.arange(b) % n_slots
+    host = np.zeros(n_slots)
+    np.add.at(host, slots, want.astype(np.float64))
+    row = {"pairs": b, "Lx": batch.xs.shape[1], "Ly": batch.ys.shape[1],
+           "one_device_ms": cuda_ms(lambda: one.score_batch(
+               tabs, batch, use_lut=lut))}
+    for n in (2, 4):
+        ctx = executor.DeviceContext(meshmod.make_mesh(
+            n, devices=["cuda:0"] * n))
+        pairhmm.FORWARD_TOTAL.reset()
+        got = ctx.score_batch(tabs, batch, use_lut=lut)
+        scores, sums = ctx.score_slot_sums(tabs, batch, slots, n_slots,
+                                           use_lut=lut)
+        launches = pairhmm.FORWARD_TOTAL.launches
+        if not (np.array_equal(got, want) and np.array_equal(scores, want)):
+            raise AssertionError(f"mesh K1 {label} on {n} shards: scores "
+                                 "differ from one device")
+        rel = float(np.max(np.abs(sums - host) / np.abs(host)))
+        if not rel <= 1e-6 or launches != 2 * n:
+            raise AssertionError(f"mesh K1 {label} on {n} shards: slot sums "
+                                 f"off by {rel} (rtol 1e-6), {launches} K1 "
+                                 f"launches for 2 calls")
+        row[f"{n} shards"] = {
+            "ms": cuda_ms(lambda: ctx.score_batch(tabs, batch, use_lut=lut)),
+            "launches": launches, "slot_sums_rel_err": rel,
+            "pad_lanes": (-b) % n}
+    log(f"mesh K1 {label} (B={b}, {row['Lx']}x{row['Ly']}, {card}): one "
+        f"device {row['one_device_ms']:.3f} ms; "
+        + "; ".join(f"{n} shards {row[f'{n} shards']['ms']:.3f} ms, "
+                    f"{row[f'{n} shards']['launches']} launches for 2 "
+                    f"calls, slot sums rel err "
+                    f"{row[f'{n} shards']['slot_sums_rel_err']:.2e}"
+                    for n in (2, 4))
+        + "; scores identical")
+    return row
+
+
+def phase_mesh(rec, phase_ds, region, dip_ds, card):
+    """The multi-device scoring context on one card, as a device list with
+    repeats: K1 through DeviceContext on [cuda:0] * 2 and * 4 (mesh_k1) on
+    phase 3's largest K1 batch and on its first 9 pairs (pad lanes; on 4
+    shards the last shard is all pad); then entry.dryrun_multichip(2,
+    [cuda:0] * 2) with the launch counters zeroed right before and read
+    right after: level 1, level 2 on phase 4's region (phase 3's set,
+    -t 2 with and without the mesh: identical phased VCF and
+    phaseset.bed) and level 2b on phase 9's diploid region (the default
+    700 bp set without the diploid phase: identical hap FASTAs); level 3
+    (2 hosts) is the scale phase's region run."""
+    from margin_tpu_torch import entry
+    from margin_tpu_torch.ops import pairhmm
+    _, tabs, big, lut = rec.k1_max
+    odd = pairhmm.PairBatch(*(None if t is None else t[:9].contiguous()
+                              for t in (big.xs, big.ys, big.lxs, big.lys,
+                                        big.strands, big.ragged_left,
+                                        big.ragged_right, big.rep_x,
+                                        big.rep_y)))
+    out = {"k1": {"largest": mesh_k1(tabs, big, lut, "largest batch", card),
+                  "9 pairs": mesh_k1(tabs, odd, lut, "first 9 pairs",
+                                     card)}}
+    phase_set = {"bam": phase_ds.bam, "fasta": phase_ds.fasta,
+                 "vcf": phase_ds.vcf, "params": phase_ds.params,
+                 "region": region}
+    dip_set = None if dip_ds is None else {
+        "bam": dip_ds.bam, "fasta": dip_ds.draft, "params": dip_ds.params,
+        "region": mid_region(dip_ds, TWIN_REGION_LEN)}
+    keep = os.environ.get("MARGIN_TPU_DRYRUN_NO_MULTIHOST")
+    os.environ["MARGIN_TPU_DRYRUN_NO_MULTIHOST"] = "1"
+    zero_counters()
+    t0 = time.perf_counter()
+    try:
+        dry = entry.dryrun_multichip(2, devices=["cuda:0"] * 2,
+                                     phase_set=phase_set,
+                                     diploid_set=dip_set)
+    finally:
+        if keep is None:
+            os.environ.pop("MARGIN_TPU_DRYRUN_NO_MULTIHOST")
+        else:
+            os.environ["MARGIN_TPU_DRYRUN_NO_MULTIHOST"] = keep
+    torch_sync()
+    dry_s = time.perf_counter() - t0
+    launches = read_counters()
+    if not (launches["K1"] and launches["K2-fwd"] and "level2b" in dry):
+        raise AssertionError(f"mesh dryrun: K1 or K2 never launched, or a "
+                             f"level skipped: {launches}, {dry}")
+    log(f"mesh dryrun_multichip(2, [cuda:0] * 2) on {region} and the "
+        f"diploid {dip_set['region'] if dip_set else 'default set'}: "
+        f"{dry_s:.1f} s ({card}); {dry}; launches {launches}; outputs "
+        "identical with and without the mesh")
+    out["dryrun"] = {"report": dry, "wall_s": dry_s, "launches": launches}
+    return out
 
 
 SOURCES = {
@@ -3689,7 +3799,7 @@ SOURCES = {
 
 
 PHASES = ("kernels", "phase", "polish", "diploid", "em", "helen", "tools",
-          "cram", "rphmm", "scale")
+          "cram", "rphmm", "scale", "mesh")
 CHOICES = PHASES + ("k1", "k5", "k6")
 
 
@@ -3701,8 +3811,8 @@ def main(argv=None) -> int:
                          "build, for iterating on one path (k1: K1's "
                          "shapes of the kernels phase alone; k5: both K5 "
                          "designs on their loop's packs; k6: K6 on its "
-                         "loop's HMMs and packs; tools, rphmm and "
-                         "scale need phase, cram needs phase and polish); "
+                         "loop's HMMs and packs; tools, rphmm, scale and "
+                         "mesh need phase, cram needs phase and polish); "
                          "the kernels line is printed only when all of %s "
                          "run" % (CHOICES, PHASES))
     ap.add_argument("--twin-job", default=None, help=argparse.SUPPRESS)
@@ -3711,7 +3821,8 @@ def main(argv=None) -> int:
     if not only <= set(CHOICES):
         ap.error(f"--only takes names from {CHOICES}")
     for name, needs in (("tools", {"phase"}), ("rphmm", {"phase"}),
-                        ("cram", {"phase", "polish"}), ("scale", {"phase"})):
+                        ("cram", {"phase", "polish"}), ("scale", {"phase"}),
+                        ("mesh", {"phase"})):
         if name in only and not needs <= only:
             ap.error(f"{name} needs {', '.join(sorted(needs))}")
     try:
@@ -3788,6 +3899,7 @@ def main(argv=None) -> int:
             report.setdefault("main_path_shapes", {}).update(
                 phase_k3_main_path(prec))
             lap("polish")
+        dds = None
         if "diploid" in only:
             report["diploid"], dds = phase_diploid("cuda", work, out_dir)
             report["diploid_region"] = phase_diploid_region(dds, work)
@@ -3816,8 +3928,12 @@ def main(argv=None) -> int:
         if "scale" in only:
             report["scale"] = phase_scale(
                 phase_ds, report["phase"]["region"],
-                report["phase"]["wall_s"], work, out_dir, card)
+                report["phase"]["region_kernel_s"], work, out_dir, card)
             lap("scale")
+        if "mesh" in only:
+            report["mesh"] = phase_mesh(rec, phase_ds,
+                                        report["phase"]["region"], dds, card)
+            lap("mesh")
         report["twins"] = run_twin_jobs(work)
         lap("twins")
         if "phase" in only and "polish" in only:

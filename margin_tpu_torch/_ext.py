@@ -226,6 +226,16 @@ def kernel_lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launch(dev: torch.device, entry, *args) -> int:
+    """Call the C entry `entry(*args, stream)` with `dev` the calling
+    thread's current CUDA device and `dev`'s current stream last; returns
+    the entry's error code. The entries' cudaFuncSetAttribute and
+    <<<>>> act on the current device, which need not be the tensors'
+    (a mesh shard on cuda:1)."""
+    with torch.cuda.device(dev):
+        return entry(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def check_launch(rc: int, what: str) -> None:
     """The C entries return cudaGetLastError() after their launches."""
     if rc != 0:

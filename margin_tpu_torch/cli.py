@@ -20,9 +20,6 @@ import argparse
 import os
 import sys
 
-# the ROADMAP queue 1 item whose last part, the multi-GPU scoring
-# context, is not ported; nothing of it is reachable from this CLI
-_SCALE = "IPC workers, multi-GPU and multi-host"
 # flags a process worker does not inherit from its parent's command line
 _NOT_FOR_WORKERS = {"--workers", "-t", "--threads", "--device"}
 

@@ -540,9 +540,8 @@ def fb_forward(pack: BandPack, use_lut: bool, chunk: Optional[int] = None):
     fwd = torch.empty((pack.n_rows, 3, pack.W), dtype=torch.float32,
                       device=dev)
     totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k2().k2_forward(_args(pack, fwd, totals), pack.B, pack.W, chunk,
-                          int(bool(use_lut)), smem, stream)
+    rc = _ext.launch(dev, _k2().k2_forward, _args(pack, fwd, totals),
+                     pack.B, pack.W, chunk, int(bool(use_lut)), smem)
     _ext.check_launch(rc, "banded forward (K2-fwd)")
     FB_FORWARD.add()
     return fwd, totals
@@ -561,9 +560,8 @@ def fb_backward(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
     _check(totals, "totals", torch.float32, (pack.B,), dev)
     post = torch.empty_like(fwd)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k2().k2_backward(_args(pack, fwd, totals, post), pack.B, pack.W,
-                           chunk, int(bool(use_lut)), smem, stream)
+    rc = _ext.launch(dev, _k2().k2_backward, _args(pack, fwd, totals, post),
+                     pack.B, pack.W, chunk, int(bool(use_lut)), smem)
     _ext.check_launch(rc, "banded backward (K2-bwd)")
     FB_BACKWARD.add()
     return post
@@ -597,14 +595,14 @@ def fb_backward_words(pack: BandPack, fwd: torch.Tensor,
     _check(totals, "totals", torch.float32, (pack.B,), dev)
     if cap is None:
         cap = 2 * pack.n_rows + 16384
-    stream = torch.cuda.current_stream(dev).cuda_stream
     while True:
         count = torch.zeros(1, dtype=torch.int32, device=dev)
         lo = torch.empty(cap, dtype=torch.int32, device=dev)
         hi = torch.empty(cap, dtype=torch.int32, device=dev)
-        rc = _k2().k2_backward_words(
+        rc = _ext.launch(
+            dev, _k2().k2_backward_words,
             _args(pack, fwd, totals, count, lo, hi), pack.B, pack.W, chunk,
-            int(bool(use_lut)), smem, float(threshold), cap, stream)
+            int(bool(use_lut)), smem, float(threshold), cap)
         _ext.check_launch(rc, "banded backward and extraction (K2-bwd "
                               "WORDS)")
         FB_BACKWARD.add()
@@ -630,9 +628,9 @@ def fb_expectations(pack: BandPack, fwd: torch.Tensor, totals: torch.Tensor,
     _check(fwd, "fwd", torch.float32, (pack.n_rows, 3, pack.W), dev)
     _check(totals, "totals", torch.float32, (pack.B,), dev)
     out = torch.empty((pack.B, 3, 3), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k2().k2_expectations(_args(pack, fwd, totals, out), pack.B, pack.W,
-                               chunk, int(bool(use_lut)), smem, stream)
+    rc = _ext.launch(dev, _k2().k2_expectations,
+                     _args(pack, fwd, totals, out), pack.B, pack.W, chunk,
+                     int(bool(use_lut)), smem)
     _ext.check_launch(rc, "banded transition expectations (K4)")
     FB_EXPECT.add()
     return out
@@ -680,33 +678,30 @@ def _k5_strided_launch(pack: BandPack, ring_shared: Optional[bool]):
 
 def _k5_forward_step(pack, use_lut, fwd, totals):
     chunk, smem = _k5_step_launch(pack)
-    stream = torch.cuda.current_stream(pack.device).cuda_stream
-    return _k5().k5_step_forward(_args(pack, fwd, totals), pack.B, pack.W,
-                                 chunk, int(bool(use_lut)), smem, stream)
+    return _ext.launch(pack.device, _k5().k5_step_forward,
+                       _args(pack, fwd, totals), pack.B, pack.W, chunk,
+                       int(bool(use_lut)), smem)
 
 
 def _k5_forward_strided(pack, use_lut, fwd, totals, ring_shared):
     threads, smem, ring_shared, ring = _k5_strided_launch(pack, ring_shared)
-    stream = torch.cuda.current_stream(pack.device).cuda_stream
-    return _k5().k5_forward(_args(pack, fwd, totals, ring), pack.B, pack.W,
-                            threads, int(bool(use_lut)), smem,
-                            int(ring_shared), stream)
+    return _ext.launch(pack.device, _k5().k5_forward,
+                       _args(pack, fwd, totals, ring), pack.B, pack.W,
+                       threads, int(bool(use_lut)), smem, int(ring_shared))
 
 
 def _k5_expect_step(pack, use_lut, fwd, totals, out):
     chunk, smem = _k5_step_launch(pack)
-    stream = torch.cuda.current_stream(pack.device).cuda_stream
-    return _k5().k5_step_expectations(_args(pack, fwd, totals, out), pack.B,
-                                      pack.W, chunk, int(bool(use_lut)),
-                                      smem, stream)
+    return _ext.launch(pack.device, _k5().k5_step_expectations,
+                       _args(pack, fwd, totals, out), pack.B, pack.W, chunk,
+                       int(bool(use_lut)), smem)
 
 
 def _k5_expect_strided(pack, use_lut, fwd, totals, out, ring_shared):
     threads, smem, ring_shared, ring = _k5_strided_launch(pack, ring_shared)
-    stream = torch.cuda.current_stream(pack.device).cuda_stream
-    return _k5().k5_expectations(_args(pack, fwd, totals, out, ring),
-                                 pack.B, pack.W, threads, int(bool(use_lut)),
-                                 smem, int(ring_shared), stream)
+    return _ext.launch(pack.device, _k5().k5_expectations,
+                       _args(pack, fwd, totals, out, ring), pack.B, pack.W,
+                       threads, int(bool(use_lut)), smem, int(ring_shared))
 
 
 # K5's launchers by design: each fills the wrapper's outputs and returns
@@ -809,9 +804,9 @@ def seg_forward(pack: BandPack, use_lut: bool, seg_d: int):
     ckpt = torch.empty((n_total, 2, 3, pack.W), dtype=torch.float32,
                        device=dev)
     totals = torch.empty(pack.B, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k3().k3_forward(_args(pack, seg_off, ckpt, totals), pack.B, pack.W,
-                          seg_d, int(bool(use_lut)), smem, stream)
+    rc = _ext.launch(dev, _k3().k3_forward,
+                     _args(pack, seg_off, ckpt, totals), pack.B, pack.W,
+                     seg_d, int(bool(use_lut)), smem)
     _ext.check_launch(rc, "segmented banded forward (K3-fwd)")
     SEG_FORWARD.add()
     return ckpt, totals
@@ -837,15 +832,15 @@ def seg_backward(pack: BandPack, ckpt: torch.Tensor, totals: torch.Tensor,
     _check(totals, "totals", torch.float32, (pack.B,), dev)
     if cap is None:
         cap = 2 * pack.n_rows + 16384
-    stream = torch.cuda.current_stream(dev).cuda_stream
     while True:
         count = torch.zeros(1, dtype=torch.int32, device=dev)
         lo = torch.empty(cap, dtype=torch.int32, device=dev)
         hi = torch.empty(cap, dtype=torch.int32, device=dev)
-        rc = _k3().k3_backward(
+        rc = _ext.launch(
+            dev, _k3().k3_backward,
             _args(pack, seg_off, ckpt, totals, count, lo, hi),
             pack.B, pack.W, seg_d, int(bool(use_lut)), smem,
-            float(threshold), cap, stream)
+            float(threshold), cap)
         _ext.check_launch(rc, "segmented banded backward (K3-bwd)")
         SEG_BACKWARD.add()
         n = int(count.item())

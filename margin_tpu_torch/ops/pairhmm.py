@@ -295,8 +295,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 def forward_total(tables: PairHmmTables, batch: PairBatch,
                   use_lut: bool = False) -> torch.Tensor:
     """(B,) float32 total forward log-probabilities. A batch on a CUDA
-    device launches kernel K1 on the current stream; a batch on the CPU
-    runs `forward_total_plain`."""
+    device launches kernel K1 on that device's current stream; a batch on
+    the CPU runs `forward_total_plain`."""
     dev = batch.xs.device
     if dev.type != "cuda":
         return forward_total_plain(tables, batch, use_lut=use_lut)
@@ -321,16 +321,15 @@ def forward_total(tables: PairHmmTables, batch: PairBatch,
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k1_lib().k1_forward_total(
-        _ptr(batch.xs), _ptr(batch.ys), _ptr(batch.lxs), _ptr(batch.lys),
-        _ptr(batch.strands), _ptr(batch.ragged_left),
+    rc = _ext.launch(
+        dev, _k1_lib().k1_forward_total, _ptr(batch.xs), _ptr(batch.ys),
+        _ptr(batch.lxs), _ptr(batch.lys), _ptr(batch.strands), _ptr(batch.ragged_left),
         _ptr(batch.ragged_right), _ptr(batch.rep_x) if use_rle else None,
         _ptr(batch.rep_y) if use_rle else None, _ptr(tables.match),
         _ptr(tables.gap_x), _ptr(tables.gap_y), _ptr(tables.trans),
         _ptr(tables.repeat) if use_rle else None, _ptr(out), B, Lx, Ly,
         int(bool(use_lut)), launch.warps, launch.rows, int(launch.stage_x),
-        launch.smem, stream)
+        launch.smem)
     _ext.check_launch(rc, "pairhmm forward (K1)")
     FORWARD_TOTAL.add()
     return out

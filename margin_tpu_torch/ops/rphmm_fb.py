@@ -195,10 +195,9 @@ def rphmm_fb(pk: RphmmPack, include_ancestor: bool):
            for _ in range(3)]
     out += [torch.empty((ncol, M), dtype=torch.int32, device=dev)
             for _ in range(2)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _k6().k6_rphmm_fb(
-        pk.parts.data_ptr(), pk.n_cells.data_ptr(), pk.depth.data_ptr(),
-        pk.n_sites.data_ptr(), pk.pt.data_ptr(), pk.site_off.data_ptr(),
+    rc = _ext.launch(
+        dev, _k6().k6_rphmm_fb, pk.parts.data_ptr(),
+        pk.n_cells.data_ptr(), pk.depth.data_ptr(), pk.n_sites.data_ptr(), pk.pt.data_ptr(), pk.site_off.data_ptr(),
         pk.site_a.data_ptr(), pk.sub.data_ptr(), pk.prior.data_ptr(),
         pk.idx_prev.data_ptr(), pk.idx_next.data_ptr(),
         *(t.data_ptr() for t in out),
@@ -206,7 +205,7 @@ def rphmm_fb(pk: RphmmPack, include_ancestor: bool):
         ncol, C, D, A, S, As, M, int(include_ancestor), lay.threads,
         lay.cap_a, lay.cap_s, int(lay.stage_sub), _SUMS[lay.sums], lay.nr,
         lay.emission_bytes, lay.chain_cpt, lay.chain_threads,
-        _CARRY[lay.carry], lay.chain_bytes, stream)
+        _CARRY[lay.carry], lay.chain_bytes)
     _ext.check_launch(rc, "read-partition HMM forward-backward (K6)")
     RPHMM_FB.add()
     return tuple(out)

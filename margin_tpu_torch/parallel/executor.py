@@ -1,21 +1,37 @@
-"""Pair scoring on one device, with cross-thread launch coalescing.
+"""Process-global scoring context: one device or a (dp, sp) device mesh,
+with cross-thread launch coalescing.
 
-Counterpart of `margin_tpu/parallel/executor.py`: `score_pairs`, the
-combining service `_PairScoreService` (executor.py:259-340) and the
+Counterpart of `margin_tpu/parallel/executor.py`. Chunk orchestration
+stays on host threads; the dense pair-scoring batches that every chunk's
+bubble construction, het-group scoring and filtered-read partitioning
+produce go through `_CTX`:
+
+  * with no mesh (the default, and any single-device run) a batch runs
+    kernel K1 on the device it was built on, as it always has;
+  * `enable_mesh()` installs a `DeviceContext` over a `parallel/mesh.py`
+    grid: each batch's pair axis is split over every device, K1 runs on
+    each shard, and the scores are gathered back in order;
+  * `score_slot_sums` adds each slot's scores on every shard and reduces
+    the partials across the grid.
+
+The drivers enable a mesh themselves when more than one CUDA device is
+visible. `score_pairs`, the combining service `_PairScoreService` and the
 worker-process client hooks (`install_ipc_client`, `has_ipc_client`,
-`ipc_banded`, executor.py:343-374). The JAX package's mesh context and
-`shard_map` are not ported (ROADMAP queue 1, "IPC workers, multi-GPU and
-multi-host"). Batches are built on the device the tables live on.
+`ipc_banded`) score through the context. Batches are built on the device
+the tables live on.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Optional
 
 import numpy as np
+import torch
 
 from margin_tpu_torch.ops import pairhmm
+from margin_tpu_torch.parallel import mesh as meshmod
 
 
 class DeviceStats:
@@ -52,15 +68,152 @@ class DeviceStats:
 DEVICE_STATS = DeviceStats()
 
 
+class DeviceContext:
+    """Scoring executor. mesh=None -> the batch's own device."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self._replicas = meshmod.Replicas()
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def _sharded(self, tables, batch, use_lut):
+        """K1's scores of each shard of the padded batch, on the shard's
+        device: every shard launched before any is read."""
+        shards = meshmod.shard_batch(batch, self.mesh)
+        return meshmod.forward_shards(self._replicas, tables, shards,
+                                      use_lut)
+
+    def score_batch(self, tables, batch: pairhmm.PairBatch,
+                    use_lut: bool = False) -> np.ndarray:
+        """Total forward log-probs of one batch as a host (B,) float32
+        array; sharded over the mesh when one is installed."""
+        t0 = time.perf_counter()
+        b0 = batch.xs.shape[0]
+        if self.mesh is None:
+            out = pairhmm.forward_total(tables, batch,
+                                        use_lut=use_lut).cpu().numpy()
+            b = b0
+        else:
+            scores = self._sharded(tables, batch, use_lut)
+            out = torch.cat([s.cpu() for s in scores]).numpy()[:b0]
+            b = sum(s.shape[0] for s in scores)
+        lx = batch.xs.shape[1]
+        ly = batch.ys.shape[1]
+        DEVICE_STATS.add(b, b * (lx + ly) * (ly + 1),
+                         time.perf_counter() - t0)
+        return out
+
+    def score_slot_sums(self, tables, batch: pairhmm.PairBatch, slot_idx,
+                        n_slots: int, use_lut: bool = False):
+        """(per-pair scores, per-slot score sums) on the host. One device:
+        a host segment sum; a mesh: each shard's float32 partial sums,
+        reduced on the mesh's first device."""
+        if self.mesh is None:
+            scores = pairhmm.forward_total(tables, batch,
+                                           use_lut=use_lut).cpu().numpy()
+            sums = np.zeros(n_slots, dtype=scores.dtype)
+            np.add.at(sums, np.asarray(slot_idx), scores)
+            return scores, sums
+        b0 = batch.xs.shape[0]
+        scores = self._sharded(tables, batch, use_lut)
+        root = self.mesh.flat[0]
+        sums = meshmod.slot_sums(scores, slot_idx, n_slots, root)
+        return (meshmod.gather(scores, root).cpu().numpy()[:b0],
+                sums.cpu().numpy())
+
+
+def pad_batch(batch: pairhmm.PairBatch, multiple: int) -> pairhmm.PairBatch:
+    """The pair axis padded to a multiple of `multiple` with empty
+    (length-0) problems, which score LOG_ONE = 0: symbols 4, lengths,
+    strands and run lengths 0, no ragged ends (executor.py:188-192)."""
+    b = batch.xs.shape[0]
+    rem = (-b) % multiple
+    if rem == 0:
+        return batch
+
+    def pad(t, fill):
+        if t is None:
+            return None
+        block = torch.full((rem,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
+                           device=t.device)
+        return torch.cat([t, block])
+
+    return pairhmm.PairBatch(
+        pad(batch.xs, 4), pad(batch.ys, 4), pad(batch.lxs, 0),
+        pad(batch.lys, 0), pad(batch.strands, 0),
+        pad(batch.ragged_left, False), pad(batch.ragged_right, False),
+        pad(batch.rep_x, 0), pad(batch.rep_y, 0))
+
+
+_CTX = DeviceContext()
+
+
+def context() -> DeviceContext:
+    return _CTX
+
+
+def install(ctx: DeviceContext) -> None:
+    """Make `ctx` the process's scoring context (a one-device mesh keeps
+    the drivers' switch from installing another)."""
+    global _CTX
+    _CTX = ctx
+
+
+def enable_mesh(n_devices: Optional[int] = None, log=None,
+                devices=None) -> bool:
+    """Install a mesh-sharded context over `devices` (default: every
+    visible CUDA device). Returns True if a mesh of more than one device
+    was installed; with one device the context is the plain one."""
+    global _CTX
+    if devices is None:
+        n = n_devices or torch.cuda.device_count()
+    else:
+        n = n_devices or len(devices)
+    if n <= 1:
+        _CTX = DeviceContext()
+        return False
+    mesh = meshmod.make_mesh(n, devices=devices)
+    _CTX = DeviceContext(mesh)
+    if log is not None:
+        kinds = sorted({d.type for d in mesh.flat})
+        log(f"> Device mesh: {mesh.shape} over {mesh.size} "
+            f"{'/'.join(kinds)} devices")
+    return True
+
+
+def auto_mesh(device, log=None) -> bool:
+    """The drivers' mesh switch (phase/driver.py:146-152,
+    polish/driver.py:217-223): a mesh over every visible CUDA device when
+    no mesh is installed (an explicitly enabled one stays), `device` is
+    CUDA and more than one card is visible. Returns whether it installed
+    one."""
+    if (_CTX.mesh is not None or torch.device(device).type != "cuda"
+            or torch.cuda.device_count() <= 1):
+        return False
+    return enable_mesh(log=log)
+
+
+def disable_mesh() -> None:
+    global _CTX
+    _CTX = DeviceContext()
+
+
 def score_batch(tables, batch: pairhmm.PairBatch,
                 use_lut: bool = False) -> np.ndarray:
-    """Total forward log-probs of one batch as a host (B,) float32 array."""
-    t0 = time.perf_counter()
-    out = pairhmm.forward_total(tables, batch, use_lut=use_lut).cpu().numpy()
-    b, lx = batch.xs.shape
-    ly = batch.ys.shape[1]
-    DEVICE_STATS.add(b, b * (lx + ly) * (ly + 1), time.perf_counter() - t0)
-    return out
+    """Total forward log-probs of one batch as a host (B,) float32 array,
+    through the installed context."""
+    return _CTX.score_batch(tables, batch, use_lut=use_lut)
+
+
+def score_slot_sums(tables, batch, slot_idx, n_slots: int,
+                    use_lut: bool = False):
+    """(per-pair scores, per-slot score sums) through the installed
+    context."""
+    return _CTX.score_slot_sums(tables, batch, slot_idx, n_slots,
+                                use_lut=use_lut)
 
 
 class _ScoreRequest:
@@ -150,7 +303,7 @@ class _PairScoreService:
                 batch = pairhmm.make_batch(sel_pairs, strands=sel_strands,
                                            rep_pairs=sel_reps,
                                            device=tables.device)
-                scores = score_batch(tables, batch, use_lut=use_lut)
+                scores = _CTX.score_batch(tables, batch, use_lut=use_lut)
                 for (ri, i), s in zip(part, scores):
                     reqs[ri].out[i] = s
         except BaseException as e:  # surface on every waiter

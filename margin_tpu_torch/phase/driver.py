@@ -1,10 +1,11 @@
 """`margin phase` driver: chunked, device-batched phasing pipeline.
 
 Parity: phase_main (phase.c:56-570). Chunks are processed independently
-(sequentially, on a host thread pool or in shard processes, all scoring
-on one device, or partitioned across a `--hosts` group) and stitched with
-the cis/trans phase vote. Counterpart of `margin_tpu/phase/driver.py`
-with an explicit `device`.
+(sequentially, on a host thread pool or in shard processes, or
+partitioned across a `--hosts` group) and stitched with the cis/trans
+phase vote. Pair scoring runs on one device or, with more than one CUDA
+device, sharded over a device mesh (parallel/executor.py `auto_mesh`).
+Counterpart of `margin_tpu/phase/driver.py` with an explicit `device`.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from margin_tpu_torch.io.vcf import parse_vcf, mark_svs
 from margin_tpu_torch.io.vcf_writer import update_haplotype_switching, write_phased_vcf
 from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.params import Params
-from margin_tpu_torch.parallel import multihost
+from margin_tpu_torch.parallel import executor, multihost
 from margin_tpu_torch.phase import chunker as chunkermod
 from margin_tpu_torch.phase import phasing, variants
 from margin_tpu_torch.phase.downsample import downsample_reads_by_vcf_spans
@@ -142,6 +143,11 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
         repeat=(params.polish.repeat_sub_matrix
                 if params.polish.useRepeatCountsInAlignment else None),
         device=device)
+
+    # several cards: shard the scoring batches over a (dp, sp) mesh. A
+    # process worker scores over its socket, on the parent's device.
+    if not executor.has_ipc_client():
+        executor.auto_mesh(device, log=log)
 
     from margin_tpu_torch.utils.checkpoint import (ChunkCheckpointer,
                                              apply_vcf_snapshot,

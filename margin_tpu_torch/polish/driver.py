@@ -12,9 +12,10 @@ bubble-graph phasing over the POA, per-haplotype consensus, phased
 stitching, the haplotagged BAM and, with a truth BAM, the truth
 haplotypes' partition. Both modes take chunk threads (-t), checkpoints,
 shards (the ground of `--workers process`, parallel/ipc.py) and a
-`--hosts` group (parallel/multihost.py). The JAX package's device-mesh
-block has no counterpart (ROADMAP queue 1, "IPC workers, multi-GPU and
-multi-host", part 4).
+`--hosts` group (parallel/multihost.py); with more than one CUDA device
+the bubble scoring is sharded over a device mesh (parallel/executor.py
+`auto_mesh`), while the banded forward-backward stays on the tables'
+device.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from margin_tpu_torch.io import bam as bamio
 from margin_tpu_torch.io.fasta import FastaIndex, write_fasta
 from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.params import Params
-from margin_tpu_torch.parallel import multihost
+from margin_tpu_torch.parallel import executor, multihost
 from margin_tpu_torch.phase import chunker as chunkermod
 from margin_tpu_torch.phase.downsample import knapsack_probs
 from margin_tpu_torch.polish import bubbles_poa, outputs, repeats, stitcher
@@ -295,6 +296,9 @@ def run_polish(bam_file: str, reference_fasta: str, params: Params,
         repeat=pp.repeat_sub_matrix if pp.useRepeatCountsInAlignment else None,
         device=device)
 
+    # several cards: shard the scoring batches over a (dp, sp) mesh
+    executor.auto_mesh(device, log=log)
+
     from margin_tpu_torch.utils.checkpoint import ChunkCheckpointer
     if checkpoint and helen_h5 is not None:
         # the HDF5 feature file is rewritten whole each run, so skipped
@@ -502,6 +506,9 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
         pp.sm_forward, pp.sm_reverse,
         repeat=pp.repeat_sub_matrix if pp.useRepeatCountsInAlignment else None,
         device=device)
+
+    # several cards: shard the scoring batches over a (dp, sp) mesh
+    executor.auto_mesh(device, log=log)
 
     from margin_tpu_torch.utils.checkpoint import ChunkCheckpointer
     threads = max(int(threads), 1)
