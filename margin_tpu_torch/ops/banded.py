@@ -63,6 +63,7 @@ import torch
 
 from margin_tpu_torch.ops import cuda_banded
 from margin_tpu_torch.testing.oracle import build_band
+from margin_tpu_torch.utils import profiling
 
 MATCH, GAPX, GAPY = 0, 1, 2
 PACK_MAX_B = 128  # the extraction word's 9-bit tag holds 3*128+2
@@ -243,25 +244,28 @@ def _store_pack_results(refs, packed: np.ndarray, pack, t_wait: float):
     item."""
     from margin_tpu_torch.parallel.executor import DEVICE_STATS
     n = len(refs)
-    total = int(packed[0])
-    totals_np = packed[1:1 + n].view(np.float32).astype(np.float64)
-    lo = packed[1 + n:1 + n + total]
-    hi = packed[1 + n + total:1 + n + 2 * total]
     DEVICE_STATS.add(n, pack.n_rows * pack.W, t_wait)
-    xb_np = np.concatenate([g.x_base[:g.lx + g.ly + 1] for g in pack.geoms])
-    yb_np = np.concatenate([g.y_base[:g.lx + g.ly + 1] for g in pack.geoms])
-    geo_off = pack.geo_off.cpu().numpy()
-    vals, pxs, pys, tags = _unpack_extract(lo, hi, xb_np, yb_np, geo_off)
-    order = np.lexsort((pys, pxs, tags))
-    vals, pxs, pys, tags = (a[order] for a in (vals, pxs, pys, tags))
-    bounds = np.searchsorted(tags, np.arange(3 * n + 1))
-    for k, (out, idx) in enumerate(refs):
-        res = []
-        for s in range(3):
-            a, b = bounds[3 * k + s], bounds[3 * k + s + 1]
-            res.append(np.stack([vals[a:b], pxs[a:b], pys[a:b]],
-                                axis=1).astype(np.int64))
-        out[idx] = (tuple(res), float(totals_np[k]))
+    with profiling.span("banded.unpack", n):
+        total = int(packed[0])
+        totals_np = packed[1:1 + n].view(np.float32).astype(np.float64)
+        lo = packed[1 + n:1 + n + total]
+        hi = packed[1 + n + total:1 + n + 2 * total]
+        xb_np = np.concatenate([g.x_base[:g.lx + g.ly + 1]
+                                for g in pack.geoms])
+        yb_np = np.concatenate([g.y_base[:g.lx + g.ly + 1]
+                                for g in pack.geoms])
+        geo_off = pack.geo_off.cpu().numpy()
+        vals, pxs, pys, tags = _unpack_extract(lo, hi, xb_np, yb_np, geo_off)
+        order = np.lexsort((pys, pxs, tags))
+        vals, pxs, pys, tags = (a[order] for a in (vals, pxs, pys, tags))
+        bounds = np.searchsorted(tags, np.arange(3 * n + 1))
+        for k, (out, idx) in enumerate(refs):
+            res = []
+            for s in range(3):
+                a, b = bounds[3 * k + s], bounds[3 * k + s + 1]
+                res.append(np.stack([vals[a:b], pxs[a:b], pys[a:b]],
+                                    axis=1).astype(np.int64))
+            out[idx] = (tuple(res), float(totals_np[k]))
 
 
 # ---------------------------------------------------------------------------
@@ -355,24 +359,27 @@ class _PackRun:
 
     def add(self, refs):
         from margin_tpu_torch.ops import native_fb
+        if not refs:
+            return
         host = []
-        for ref in refs:
-            it = ref.item
-            lx, ly = len(it["x_sym"]), len(it["y_sym"])
-            if lx + ly == 0:
-                empty = np.zeros((0, 3), dtype=np.int64)
-                self._store(ref, ((empty, empty, empty), 0.0))
-                continue
-            geom = _item_geom(it, self.expansion, self.dynamic)
-            route = _route(geom)
-            if route == "host":
-                host.append(ref)
-                continue
-            use_rle = (it.get("rep_x") is not None
-                       and self.tables.repeat is not None)
-            self.buckets.setdefault(
-                (_bucket_w(geom.w_pad), use_rle, route == "seg"),
-                []).append((lx + ly, ref))
+        with profiling.span("banded.route", len(refs)):
+            for ref in refs:
+                it = ref.item
+                lx, ly = len(it["x_sym"]), len(it["y_sym"])
+                if lx + ly == 0:
+                    empty = np.zeros((0, 3), dtype=np.int64)
+                    self._store(ref, ((empty, empty, empty), 0.0))
+                    continue
+                geom = _item_geom(it, self.expansion, self.dynamic)
+                route = _route(geom)
+                if route == "host":
+                    host.append(ref)
+                    continue
+                use_rle = (it.get("rep_x") is not None
+                           and self.tables.repeat is not None)
+                self.buckets.setdefault(
+                    (_bucket_w(geom.w_pad), use_rle, route == "seg"),
+                    []).append((lx + ly, ref))
         if not host:
             return
         if native_fb.lib() is not None:
@@ -433,10 +440,13 @@ class _PackRun:
         finally:
             jobs, self.host_jobs = self.host_jobs, []
             try:
-                for fut, refs in jobs:
-                    for ref, r in zip(refs, fut.result()):
-                        self._store(ref, r)
-                    ROUTES.add(host_items=len(refs))
+                if jobs:
+                    with profiling.span("banded.host_engine",
+                                        sum(len(refs) for _, refs in jobs)):
+                        for fut, refs in jobs:
+                            for ref, r in zip(refs, fut.result()):
+                                self._store(ref, r)
+                            ROUTES.add(host_items=len(refs))
             finally:
                 if self._pool is not None:
                     self._pool.shutdown()
@@ -483,7 +493,9 @@ class _FbFunnel:
             self._queue.append(req)
             while not req.done:
                 if self._busy:
-                    self._cond.wait()
+                    with profiling.span("banded.queue"):
+                        while self._busy and not req.done:
+                            self._cond.wait()
                     continue
                 self._busy = True
                 self._cond.release()
@@ -624,7 +636,6 @@ def _solve_pack(tables, items, geoms, w_pad, use_rle, expansion, use_lut,
     packed, pack = cuda_banded.fb_posteriors_words(
         tables, items, w_pad, expansion, use_lut, dynamic, use_rle,
         threshold, geoms_in=geoms, device=tables.device)
-    packed = packed.cpu().numpy()
     _store_pack_results(refs, packed, pack, time.perf_counter() - t0)
 
 
@@ -635,7 +646,6 @@ def _solve_seg_pack(tables, items, geoms, w_pad, use_rle, expansion,
         tables, items, w_pad, expansion, use_lut, dynamic, use_rle,
         threshold, cuda_banded.SEG_D[w_pad], geoms_in=geoms,
         device=tables.device)
-    packed = packed.cpu().numpy()
     _store_pack_results(refs, packed, pack, time.perf_counter() - t0)
 
 

@@ -64,6 +64,7 @@ from margin_tpu_torch.ops.pairhmm import (LOG_ZERO, T_EXT_X, T_EXT_Y, T_MM,
                                           T_OPEN_Y, T_SW_X, T_SW_Y, _Counter,
                                           _check)
 from margin_tpu_torch.params import MAXIMUM_REPEAT_LENGTH
+from margin_tpu_torch.utils import profiling
 
 MATCH, GAPX, GAPY = 0, 1, 2
 _REP = MAXIMUM_REPEAT_LENGTH
@@ -1253,13 +1254,17 @@ def fb_posteriors_words(tables, items, w_pad: int, expansion: int,
     """Solve one pack (as fb_posteriors_group) into its extraction words:
     K2-fwd, then K2-bwd WORDS on a CUDA device (the plain twins on the
     CPU). Returns (the fused int32 readback [count, totals, lo words, hi
-    words] on `device`, pack): banded.extract_packed's words, in another
-    order, with no posterior grid made."""
-    pack = _pack_host(tables, items, w_pad, expansion, dynamic, use_rle,
-                      geoms_in, device)
-    fwd, totals = fb_forward(pack, use_lut)
-    lo, hi = fb_backward_words(pack, fwd, totals, use_lut, threshold)
-    return _fused(totals, lo, hi), pack
+    words] read back to a host array, pack): banded.extract_packed's
+    words, in another order, with no posterior grid made. Spans
+    `banded.pack` (the host pack and its copy to the device) and
+    `banded.device` (the first launch to the end of the read-back)."""
+    with profiling.span("banded.pack", len(items)):
+        pack = _pack_host(tables, items, w_pad, expansion, dynamic, use_rle,
+                          geoms_in, device)
+    with profiling.span("banded.device", len(items)):
+        fwd, totals = fb_forward(pack, use_lut)
+        lo, hi = fb_backward_words(pack, fwd, totals, use_lut, threshold)
+        return _fused(totals, lo, hi).cpu().numpy(), pack
 
 
 def _fused(totals, lo, hi) -> torch.Tensor:
@@ -1275,14 +1280,16 @@ def fb_posteriors_seg(tables, items, w_pad: int, expansion: int,
                       device="cuda"):
     """Solve one deep pack with the segmented forward-backward (K3-fwd,
     K3-bwd on a CUDA device). Returns (the fused int32 readback
-    [count, totals, lo words, hi words] on `device`, pack); the words are
-    those `banded.extract_packed` builds from the monolithic posteriors,
-    in another order."""
-    pack = _pack_host(tables, items, w_pad, expansion, dynamic, use_rle,
-                      geoms_in, device)
-    ckpt, totals = seg_forward(pack, use_lut, seg_d)
-    lo, hi = seg_backward(pack, ckpt, totals, use_lut, seg_d, threshold)
-    return _fused(totals, lo, hi), pack
+    [count, totals, lo words, hi words] read back to a host array, pack);
+    the words are those `banded.extract_packed` builds from the monolithic
+    posteriors, in another order. Spans as fb_posteriors_words."""
+    with profiling.span("banded.pack", len(items)):
+        pack = _pack_host(tables, items, w_pad, expansion, dynamic, use_rle,
+                          geoms_in, device)
+    with profiling.span("banded.device", len(items)):
+        ckpt, totals = seg_forward(pack, use_lut, seg_d)
+        lo, hi = seg_backward(pack, ckpt, totals, use_lut, seg_d, threshold)
+        return _fused(totals, lo, hi).cpu().numpy(), pack
 
 
 def fb_posteriors_seg_plain(pack: BandPack, use_lut: bool, threshold: float,

@@ -32,6 +32,7 @@ import torch
 
 from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.parallel import mesh as meshmod
+from margin_tpu_torch.utils import profiling
 
 
 class DeviceStats:
@@ -92,14 +93,15 @@ class DeviceContext:
         array; sharded over the mesh when one is installed."""
         t0 = time.perf_counter()
         b0 = batch.xs.shape[0]
-        if self.mesh is None:
-            out = pairhmm.forward_total(tables, batch,
-                                        use_lut=use_lut).cpu().numpy()
-            b = b0
-        else:
-            scores = self._sharded(tables, batch, use_lut)
-            out = torch.cat([s.cpu() for s in scores]).numpy()[:b0]
-            b = sum(s.shape[0] for s in scores)
+        with profiling.span("k1.device", b0):
+            if self.mesh is None:
+                out = pairhmm.forward_total(tables, batch,
+                                            use_lut=use_lut).cpu().numpy()
+                b = b0
+            else:
+                scores = self._sharded(tables, batch, use_lut)
+                out = torch.cat([s.cpu() for s in scores]).numpy()[:b0]
+                b = sum(s.shape[0] for s in scores)
         lx = batch.xs.shape[1]
         ly = batch.ys.shape[1]
         DEVICE_STATS.add(b, b * (lx + ly) * (ly + 1),
@@ -111,18 +113,20 @@ class DeviceContext:
         """(per-pair scores, per-slot score sums) on the host. One device:
         a host segment sum; a mesh: each shard's float32 partial sums,
         reduced on the mesh's first device."""
+        b0 = batch.xs.shape[0]
         if self.mesh is None:
-            scores = pairhmm.forward_total(tables, batch,
-                                           use_lut=use_lut).cpu().numpy()
+            with profiling.span("k1.device", b0):
+                scores = pairhmm.forward_total(tables, batch,
+                                               use_lut=use_lut).cpu().numpy()
             sums = np.zeros(n_slots, dtype=scores.dtype)
             np.add.at(sums, np.asarray(slot_idx), scores)
             return scores, sums
-        b0 = batch.xs.shape[0]
-        scores = self._sharded(tables, batch, use_lut)
-        root = self.mesh.flat[0]
-        sums = meshmod.slot_sums(scores, slot_idx, n_slots, root)
-        return (meshmod.gather(scores, root).cpu().numpy()[:b0],
-                sums.cpu().numpy())
+        with profiling.span("k1.device", b0):
+            scores = self._sharded(tables, batch, use_lut)
+            root = self.mesh.flat[0]
+            sums = meshmod.slot_sums(scores, slot_idx, n_slots, root)
+            return (meshmod.gather(scores, root).cpu().numpy()[:b0],
+                    sums.cpu().numpy())
 
 
 def pad_batch(batch: pairhmm.PairBatch, multiple: int) -> pairhmm.PairBatch:
@@ -262,7 +266,9 @@ class _PairScoreService:
             while not req.done:
                 if self._busy:
                     # a launch is in flight; the next dispatcher takes us
-                    self._cond.wait()
+                    with profiling.span("k1.queue"):
+                        while self._busy and not req.done:
+                            self._cond.wait()
                     continue
                 mine = [r for r in self._queue if r.key() == req.key()]
                 self._queue = [r for r in self._queue
@@ -295,14 +301,15 @@ class _PairScoreService:
                                      len(reqs[t[0]].pairs[t[1]][1])))
             for s0 in range(0, len(flat), batch_max):
                 part = flat[s0:s0 + batch_max]
-                sel_pairs = [reqs[ri].pairs[i] for ri, i in part]
-                sel_strands = np.array(
-                    [reqs[ri].strands[i] for ri, i in part], np.int32)
-                sel_reps = ([reqs[ri].reps[i] for ri, i in part]
-                            if use_rle else None)
-                batch = pairhmm.make_batch(sel_pairs, strands=sel_strands,
-                                           rep_pairs=sel_reps,
-                                           device=tables.device)
+                with profiling.span("k1.batch", len(part)):
+                    sel_pairs = [reqs[ri].pairs[i] for ri, i in part]
+                    sel_strands = np.array(
+                        [reqs[ri].strands[i] for ri, i in part], np.int32)
+                    sel_reps = ([reqs[ri].reps[i] for ri, i in part]
+                                if use_rle else None)
+                    batch = pairhmm.make_batch(
+                        sel_pairs, strands=sel_strands, rep_pairs=sel_reps,
+                        device=tables.device)
                 scores = _CTX.score_batch(tables, batch, use_lut=use_lut)
                 for (ri, i), s in zip(part, scores):
                     reqs[ri].out[i] = s

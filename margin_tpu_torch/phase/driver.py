@@ -298,7 +298,7 @@ def run_phase(bam_file: str, reference_fasta: str, vcf_file: str,
         with profiler.stage("write_bam"):
             h1, h2, h0 = write_haplotagged_bam(
                 bam_file, out.haplotagged_bam, region,
-                set(ids1), set(ids2), params)
+                set(ids1), set(ids2), params, log)
         out.hap1_count, out.hap2_count, out.untagged_count = h1, h2, h0
         log(f"> Wrote haplotagged BAM: H1 {h1}, H2 {h2}, H0 {h0}")
 
@@ -454,9 +454,12 @@ def phase_one_chunk(chunk, reader, fasta, vcf_entries, chunkr, params, tables,
 
 
 def write_haplotagged_bam(bam_in: str, bam_out: str, region: Optional[str],
-                          hap1_names: set, hap2_names: set, params: Params):
+                          hap1_names: set, hap2_names: set, params: Params,
+                          log=None):
     """writeHaplotaggedBam (htsIntegration.c:1310-1503). Uses the native
-    marginio engine when built; pure-Python fallback otherwise."""
+    marginio engine when built; the Python path otherwise (span
+    `write_bam.python`), and where the native engine raises, which is
+    logged to `log`."""
     from margin_tpu_torch.io.vcf import parse_region
     region_contig, region_start, region_end = parse_region(region)
 
@@ -502,11 +505,14 @@ def write_haplotagged_bam(bam_in: str, bam_out: str, region: Optional[str],
                 params.polish.includeSupplementaryAlignments)
             if res is not None:
                 return res
-    except Exception:
-        pass  # fall back to the Python path
+    except Exception as e:
+        if log is not None:
+            log(f"> The native BAM writer failed ({type(e).__name__}: {e}); "
+                "writing the haplotagged BAM on the Python path")
 
     h1 = h2 = h0 = 0
-    with bamio.open_alignment(bam_in) as reader:
+    with profiling.span("write_bam.python"), \
+            bamio.open_alignment(bam_in) as reader:
         with bamio.BamWriter(bam_out, reader.header) as writer:
             if region_contig is not None:
                 it = reader.fetch(region_contig, max(region_start - 1, 0),

@@ -744,7 +744,7 @@ def run_polish_diploid(bam_file: str, reference_fasta: str, params: Params,
         with profiler.stage("haplotag_bam"):
             h1, h2, h0 = write_haplotagged_bam(bam_file, out.haplotagged_bam,
                                                region, set(ids1), set(ids2),
-                                               params)
+                                               params, log)
         out.hap1_count, out.hap2_count = h1, h2
     if true_reference_bam is not None:
         path = f"{output_base}.truthHaplotypesPartition.tsv"

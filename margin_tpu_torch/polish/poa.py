@@ -25,6 +25,7 @@ from margin_tpu_torch.ops import banded, pairhmm
 from margin_tpu_torch.ops.logmath import np_log_add_lut
 from margin_tpu_torch.params import PolishParams
 from margin_tpu_torch.rle import RleString
+from margin_tpu_torch.utils import profiling
 
 PAIR1 = 10_000_000  # PAIR_ALIGNMENT_PROB_1 (pairwiseAligner.h:26)
 LOG_ZERO = -np.inf
@@ -667,59 +668,62 @@ def poa_realign(reads: List[PoaRead], anchor_alignments, reference: RleString,
     if params.useRunLengthEncoding:
         max_rc = (params.repeat_sub_matrix.max_repeat
                   if params.repeat_sub_matrix is not None else 51)
-    poa = _make_poa_builder(reference, max_rc, params)
     items = []
     firsts = []
     split_map = {}  # read idx -> [(item idx, (x1, y1)), ...]
-    for i, read in enumerate(reads):
-        anchors = (anchor_alignments[i]
-                   if anchor_alignments is not None else [])
-        item, first_ref = _crop_item(reference, read, anchors, params)
-        splits = banded.get_split_points(
-            item["anchors"], len(item["x_sym"]), len(item["y_sym"]),
-            params.p.splitMatrixBiggerThanThis, False, False)
-        if len(splits) > 1:
-            # large-gap reads: ragged sub-rectangles join the same
-            # batched solve (pairwiseAligner.c:984-1040 semantics)
-            subs, offs = banded.split_sub_items(
-                item, params.p.splitMatrixBiggerThanThis)
-            split_map[i] = [(len(items) + 1 + k, offs[k])
-                            for k in range(len(subs))]
-            item = {"x_sym": item["x_sym"][:0], "y_sym": item["y_sym"][:0],
-                    "anchors": [], "strand": item["strand"]}
-            items.append(item)
-            items.extend(subs)
-        else:
-            items.append(item)
-        firsts.append(first_ref)
+    with profiling.span("poa.items", len(reads)):
+        for i, read in enumerate(reads):
+            anchors = (anchor_alignments[i]
+                       if anchor_alignments is not None else [])
+            item, first_ref = _crop_item(reference, read, anchors, params)
+            splits = banded.get_split_points(
+                item["anchors"], len(item["x_sym"]), len(item["y_sym"]),
+                params.p.splitMatrixBiggerThanThis, False, False)
+            if len(splits) > 1:
+                # large-gap reads: ragged sub-rectangles join the same
+                # batched solve (pairwiseAligner.c:984-1040 semantics)
+                subs, offs = banded.split_sub_items(
+                    item, params.p.splitMatrixBiggerThanThis)
+                split_map[i] = [(len(items) + 1 + k, offs[k])
+                                for k in range(len(subs))]
+                item = {"x_sym": item["x_sym"][:0],
+                        "y_sym": item["y_sym"][:0], "anchors": [],
+                        "strand": item["strand"]}
+                items.append(item)
+                items.extend(subs)
+            else:
+                items.append(item)
+            firsts.append(first_ref)
     results = banded.banded_posteriors_many(
         tables, items, params.p.diagonalExpansion,
         threshold=params.p.threshold, use_lut=use_lut,
         dynamic=params.p.dynamicAnchorExpansion)
-    read_item_idx = {}
-    j = 0
-    for i in range(len(reads)):
-        read_item_idx[i] = j
-        j += 1 + len(split_map.get(i, ()))
-    for i, read in enumerate(reads):
-        if i in split_map:
-            parts = [[], [], []]
-            for sub_idx, (x1, y1) in split_map[i]:
-                (sm, sgx, sgy), _t = results[sub_idx]
-                for acc, arr in zip(parts, (sm, sgx, sgy)):
-                    if len(arr):
-                        arr = arr.copy()
-                        arr[:, 1] += x1
-                        arr[:, 2] += y1
-                        acc.append(arr)
-            empty = np.zeros((0, 3), dtype=np.int64)
-            m, gx, gy = (np.concatenate(p) if p else empty
-                         for p in parts)
-        else:
-            (m, gx, gy), _total = results[read_item_idx[i]]
-        for arr in (m, gx, gy):
-            if len(arr):
-                arr[:, 1] += firsts[i]
-        poa.augment(read.rle_read, read.forward_strand, i, m, gy, gx,
-                    params)
-    return _finish_poa(poa)
+    with profiling.span("poa.augment", len(reads)):
+        poa = _make_poa_builder(reference, max_rc, params)
+        read_item_idx = {}
+        j = 0
+        for i in range(len(reads)):
+            read_item_idx[i] = j
+            j += 1 + len(split_map.get(i, ()))
+        for i, read in enumerate(reads):
+            if i in split_map:
+                parts = [[], [], []]
+                for sub_idx, (x1, y1) in split_map[i]:
+                    (sm, sgx, sgy), _t = results[sub_idx]
+                    for acc, arr in zip(parts, (sm, sgx, sgy)):
+                        if len(arr):
+                            arr = arr.copy()
+                            arr[:, 1] += x1
+                            arr[:, 2] += y1
+                            acc.append(arr)
+                empty = np.zeros((0, 3), dtype=np.int64)
+                m, gx, gy = (np.concatenate(p) if p else empty
+                             for p in parts)
+            else:
+                (m, gx, gy), _total = results[read_item_idx[i]]
+            for arr in (m, gx, gy):
+                if len(arr):
+                    arr[:, 1] += firsts[i]
+            poa.augment(read.rle_read, read.forward_strand, i, m, gy, gx,
+                        params)
+        return _finish_poa(poa)

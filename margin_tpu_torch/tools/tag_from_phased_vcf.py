@@ -110,7 +110,8 @@ def main(argv=None):
     ids1, ids2, _sw = stitch_phase_results(
         results, primary_only=params.phase.stitchWithPrimaryReadsOnly)
     h1, h2, h0 = write_haplotagged_bam(args.bam, f"{args.outputBase}.haplotagged.bam",
-                                       args.region, set(ids1), set(ids2), params)
+                                       args.region, set(ids1), set(ids2), params,
+                                       print)
     print(f"Wrote {args.outputBase}.haplotagged.bam: H1 {h1}, H2 {h2}, H0 {h0}")
     return 0
 
