@@ -5,7 +5,8 @@ Counterpart of `margin_tpu/polish/native_poa.py`: poa_augment's run
 grouping, left-shift normalization and observation bookkeeping
 (poa.c:269-543) and poa_getConsensus run in C++, bit-identical to the
 Python `Poa`; after all reads are augmented the serialized graph is
-rebuilt into the ordinary `Poa`. The library is built from
+wrapped, column by column, in a `Poa` (PoaColumns), whose node objects
+are built only for the readers that walk them. The library is built from
 native/marginpoa.cc by `margin_tpu_torch._ext` into the port's build
 directory (never native/libmarginpoa.so). When it does not build, the
 Python `Poa` runs instead (host code either way).
@@ -84,19 +85,53 @@ def consensus(poa, params):
     from margin_tpu_torch.alphabet import seq_to_symbols
     from margin_tpu_torch.rle import RleString
 
-    nodes = poa.nodes
-    n_nodes = len(nodes)
+    n_nodes = len(poa._bw)
     # node weight arrays are views into the shared accumulators; nodes[0]
     # is the 'N' prefix and nodes[1:] mirror ref_string (poa.py _make_node)
-    bw = np.ascontiguousarray(poa._bw[:n_nodes], dtype=np.float64)
-    rw = np.ascontiguousarray(poa._rw[:n_nodes], dtype=np.float64)
+    bw = np.ascontiguousarray(poa._bw, dtype=np.float64)
+    rw = np.ascontiguousarray(poa._rw, dtype=np.float64)
     max_rc = int(poa.max_repeat_count)
     node_syms = np.empty(n_nodes, dtype=np.int8)
     node_syms[0] = 4
     node_syms[1:] = seq_to_symbols(poa.ref_string.bases)
+    if poa._cols is not None:
+        indels = poa._cols.consensus_indels(poa.ref_string)
+    else:
+        indels = _consensus_indels(poa.nodes)
+    (node_rcs, ins_node_counts, ins_off, ins_bases, ins_counts, ins_w,
+     del_node_counts, del_len, del_w) = indels
+
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    nbytes = L.mpoa_consensus(
+        n_nodes, bw, rw, max_rc, node_syms, node_rcs,
+        ins_node_counts, ins_off, ins_bases, ins_counts, ins_w,
+        del_node_counts, del_len, del_w,
+        float(params.referenceBasePenalty),
+        1 if params.useRunLengthEncoding else 0,
+        ctypes.byref(out))
+    if nbytes < 0:
+        return None
+    try:
+        raw = ctypes.string_at(out, nbytes)
+    finally:
+        L.mpoa_buf_free(out)
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    cons_len = int(buf[:8].view(np.int64)[0])
+    pad = (cons_len + 7) & ~7
+    bases = buf[8:8 + cons_len].tobytes().decode("ascii")
+    counts = buf[8 + pad:8 + pad + cons_len * 8].view(np.int64).copy()
+    map_off = 8 + pad + cons_len * 8
+    poa_to_consensus = buf[map_off:map_off + (n_nodes - 1) * 8] \
+        .view(np.int64).copy()
+    return RleString(bases, counts), poa_to_consensus
+
+
+def _consensus_indels(nodes):
+    """mpoa_consensus's repeat-count, insert and delete arguments walked
+    from the node objects (a Python-built graph's only form)."""
+    n_nodes = len(nodes)
     node_rcs = np.fromiter((n.repeat_count for n in nodes), dtype=np.int64,
                            count=n_nodes)
-
     ins_node_counts = np.fromiter((len(n.inserts) for n in nodes),
                                   dtype=np.int64, count=n_nodes)
     ins_w, ins_lens, bases_parts, counts_parts = [], [], [], []
@@ -122,33 +157,10 @@ def consensus(poa, params):
         for pd in n.deletes:
             del_len.append(pd.length)
             del_w.append(pd.weight_fwd + pd.weight_rev)
-    del_len = np.asarray(del_len, dtype=np.int64)
-    del_w = np.asarray(del_w, dtype=np.float64)
-
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    nbytes = L.mpoa_consensus(
-        n_nodes, bw, rw, max_rc, node_syms, node_rcs,
-        ins_node_counts, ins_off, np.ascontiguousarray(ins_bases),
-        ins_counts, ins_w,
-        del_node_counts, del_len, del_w,
-        float(params.referenceBasePenalty),
-        1 if params.useRunLengthEncoding else 0,
-        ctypes.byref(out))
-    if nbytes < 0:
-        return None
-    try:
-        raw = ctypes.string_at(out, nbytes)
-    finally:
-        L.mpoa_buf_free(out)
-    buf = np.frombuffer(raw, dtype=np.uint8)
-    cons_len = int(buf[:8].view(np.int64)[0])
-    pad = (cons_len + 7) & ~7
-    bases = buf[8:8 + cons_len].tobytes().decode("ascii")
-    counts = buf[8 + pad:8 + pad + cons_len * 8].view(np.int64).copy()
-    map_off = 8 + pad + cons_len * 8
-    poa_to_consensus = buf[map_off:map_off + (n_nodes - 1) * 8] \
-        .view(np.int64).copy()
-    return RleString(bases, counts), poa_to_consensus
+    return (node_rcs, ins_node_counts, ins_off,
+            np.ascontiguousarray(ins_bases), ins_counts, ins_w,
+            del_node_counts, np.asarray(del_len, dtype=np.int64),
+            np.asarray(del_w, dtype=np.float64))
 
 
 class NativePoaBuilder:
@@ -183,9 +195,9 @@ class NativePoaBuilder:
                              m, len(m), i, len(i), d, len(d))
 
     def finish(self):
-        """Export and rebuild the Python Poa; frees the handle."""
-        from margin_tpu_torch.polish.poa import Poa, PoaInsert, PoaDelete
-        from margin_tpu_torch.rle import RleString
+        """Export the graph into a Poa that holds it as PoaColumns (its
+        nodes are built on first access); frees the handle."""
+        from margin_tpu_torch.polish.poa import Poa
 
         out = ctypes.POINTER(ctypes.c_uint8)()
         n = self._L.mpoa_export(self._h, ctypes.byref(out))
@@ -198,98 +210,166 @@ class NativePoaBuilder:
             self._L.mpoa_free(self._h)
             self._h = None
 
-        buf = np.frombuffer(raw, dtype=np.uint8)
+        cols = PoaColumns(np.frombuffer(raw, dtype=np.uint8))
+        poa = Poa.__new__(Poa)
+        poa.ref_string = self.reference.copy()
+        poa.max_repeat_count = cols.max_rc
+        poa._bw = cols.bw.copy()
+        poa._rw = cols.rw.copy()
+        poa._cols = cols
+        return poa
+
+
+class PoaColumns:
+    """mpoa_export's buffer as columns (read-only views of it): the node
+    weights, then the node observations, the inserts and the deletes, each
+    in CSR form (a count per owner, then flat arrays in owner order; an
+    observation is a read number, an offset and a weight).
+
+    The score, the consensus, the anchors and the repeat counts read these;
+    `nodes` builds the PoaNode / PoaInsert / PoaDelete objects for the
+    readers that walk them (bubbles, HELEN, the supplemental writers)."""
+
+    def __init__(self, buf: np.ndarray):
         pos = 0
 
-        def i64s(count):
+        def take(count, dtype=np.int64):
             nonlocal pos
-            v = buf[pos:pos + count * 8].view(np.int64)
+            v = buf[pos:pos + count * 8].view(dtype)
             pos += count * 8
             return v
 
-        def f64s(count):
-            nonlocal pos
-            v = buf[pos:pos + count * 8].view(np.float64)
-            pos += count * 8
-            return v
+        def obs(total):
+            return take(total), take(total), take(total, np.float64)
 
-        def obs_lists(counts_arr, total):
+        (n_nodes, self.max_rc, n_obs, n_ins, ins_bases_pad, n_ins_counts,
+         n_ins_obs, n_del, n_del_obs, _rsv) = take(10).tolist()
+        self.bw = take(n_nodes * 5, np.float64).reshape(n_nodes, 5)
+        self.rw = take(n_nodes * self.max_rc,
+                       np.float64).reshape(n_nodes, self.max_rc)
+        self.node_obs_counts = take(n_nodes)
+        self.obs_rn, self.obs_off, self.obs_wt = obs(n_obs)
+        self.node_ins_counts = take(n_nodes)
+        self.ins_len = take(n_ins)
+        self.ins_bases = buf[pos:pos + n_ins_counts]
+        pos += ins_bases_pad
+        self.ins_counts = take(n_ins_counts)
+        self.ins_wf = take(n_ins, np.float64)
+        self.ins_wr = take(n_ins, np.float64)
+        self.ins_obs_counts = take(n_ins)
+        self.ins_obs = obs(n_ins_obs)
+        self.node_del_counts = take(n_nodes)
+        self.del_len = take(n_del)
+        self.del_wf = take(n_del, np.float64)
+        self.del_wr = take(n_del, np.float64)
+        self.del_obs_counts = take(n_del)
+        self.del_obs = obs(n_del_obs)
+        # the node observations' order after Poa.sort_observations (the
+        # tuples' order); None while they are in export order
+        self.obs_order = None
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.node_obs_counts)
+
+    def node_observations(self):
+        """(count per node, read numbers, offsets, weights), node-major in
+        the order the nodes' observation tuples have."""
+        rn, off, wt = self.obs_rn, self.obs_off, self.obs_wt
+        if self.obs_order is not None:
+            o = self.obs_order
+            rn, off, wt = rn[o], off[o], wt[o]
+        return self.node_obs_counts, rn, off, wt
+
+    def sort_observations(self):
+        """The order sortBaseObservations gives the tuples: per node by
+        read number, then by weight descending, ties kept (both sorts are
+        stable)."""
+        node = np.repeat(np.arange(self.n_nodes), self.node_obs_counts)
+        self.obs_order = np.lexsort((-self.obs_wt, self.obs_rn, node))
+
+    def consensus_indels(self, ref_string):
+        """mpoa_consensus's repeat-count, insert and delete arguments, as
+        native_poa._consensus_indels walks them from the nodes."""
+        node_rcs = np.empty(self.n_nodes, dtype=np.int64)
+        node_rcs[0] = 1
+        node_rcs[1:] = ref_string.counts
+        ins_off = np.zeros(len(self.ins_len) + 1, dtype=np.int64)
+        np.cumsum(self.ins_len, out=ins_off[1:])
+        return (node_rcs, self.node_ins_counts, ins_off, self.ins_bases,
+                self.ins_counts, self.ins_wf + self.ins_wr,
+                self.node_del_counts, self.del_len,
+                self.del_wf + self.del_wr)
+
+    def error_weight(self, base_terms: np.ndarray) -> float:
+        """poa_getTotalErrorWeight given each node's disagreement weight:
+        Poa._total_error_weight_py's float64 sums in its order, the
+        per-node insert and delete sums by the same builtin sum."""
+        ins = ((self.ins_wf + self.ins_wr) * self.ins_len).tolist()
+        dels = ((self.del_wf + self.del_wr) * self.del_len).tolist()
+        total = 0.0
+        i = d = 0
+        for b, ni, nd in zip(base_terms.tolist(),
+                             self.node_ins_counts.tolist(),
+                             self.node_del_counts.tolist()):
+            total += b
+            if ni:
+                total += sum(ins[i:i + ni])
+                i += ni
+            if nd:
+                total += sum(dels[d:d + nd])
+                d += nd
+        return total
+
+    def nodes(self, poa) -> list:
+        """The PoaNode / PoaInsert / PoaDelete objects of `poa`, with the
+        repeat counts its ref_string holds now."""
+        from margin_tpu_torch.polish.poa import PoaDelete, PoaInsert
+        from margin_tpu_torch.rle import RleString
+
+        def obs_lists(counts, cols):
             """All observation tuples in one zip, sliced per owner."""
-            rn = i64s(total).tolist()
-            off = i64s(total).tolist()
-            wt = f64s(total).tolist()
-            flat = list(zip(rn, off, wt))
+            flat = list(zip(*(c.tolist() for c in cols)))
             out = []
             a = 0
-            for c in counts_arr.tolist():
+            for c in counts.tolist():
                 out.append(flat[a:a + c])
                 a += c
             return out
 
-        (n_nodes, max_rc, n_obs, n_ins, ins_bases_pad, n_ins_counts,
-         n_ins_obs, n_del, n_del_obs, _rsv) = i64s(10).tolist()
-        poa = Poa.__new__(Poa)
-        poa.ref_string = self.reference.copy()
-        poa.max_repeat_count = max_rc
-        poa._bw = f64s(n_nodes * 5).reshape(n_nodes, 5).copy()
-        poa._rw = f64s(n_nodes * max_rc).reshape(n_nodes, max_rc).copy()
-
-        node_obs_counts = i64s(n_nodes)
-        obs_pos = pos  # flat (rn, off, wt) arrays start here
-        node_obs = obs_lists(node_obs_counts, n_obs)
-        # stash the flat per-node observation arrays: get_anchor_alignments
-        # consumes them vectorized instead of re-walking 10^6+ observation
-        # tuples per production chunk
-        poa._flat_obs = (
-            node_obs_counts.copy(),
-            buf[obs_pos:obs_pos + n_obs * 8].view(np.int64).copy(),
-            buf[obs_pos + n_obs * 8:obs_pos + 2 * n_obs * 8]
-            .view(np.int64).copy(),
-            buf[obs_pos + 2 * n_obs * 8:obs_pos + 3 * n_obs * 8]
-            .view(np.float64).copy())
-        node_ins_counts = i64s(n_nodes)
-        ins_len = i64s(n_ins)
-        ins_bases = buf[pos:pos + ins_bases_pad]
-        pos += ins_bases_pad
-        ins_counts = i64s(n_ins_counts)
-        ins_wf = f64s(n_ins).tolist()
-        ins_wr = f64s(n_ins).tolist()
-        ins_obs_counts = i64s(n_ins)
-        ins_obs = obs_lists(ins_obs_counts, n_ins_obs)
-        node_del_counts = i64s(n_nodes)
-        del_len = i64s(n_del).tolist()
-        del_wf = f64s(n_del).tolist()
-        del_wr = f64s(n_del).tolist()
-        del_obs_counts = i64s(n_del)
-        del_obs = obs_lists(del_obs_counts, n_del_obs)
-
+        node_obs = obs_lists(self.node_obs_counts,
+                             (self.obs_rn, self.obs_off, self.obs_wt))
+        ins_obs = obs_lists(self.ins_obs_counts, self.ins_obs)
+        del_obs = obs_lists(self.del_obs_counts, self.del_obs)
+        ins_wf, ins_wr = self.ins_wf.tolist(), self.ins_wr.tolist()
         inserts = []
-        b0 = c0 = 0
-        for j, ln in enumerate(ins_len.tolist()):
-            bases = ins_bases[b0:b0 + ln].tobytes().decode("ascii")
-            pi = PoaInsert(RleString(bases, ins_counts[c0:c0 + ln].copy()),
+        b0 = 0
+        for j, ln in enumerate(self.ins_len.tolist()):
+            bases = self.ins_bases[b0:b0 + ln].tobytes().decode("ascii")
+            pi = PoaInsert(RleString(bases,
+                                     self.ins_counts[b0:b0 + ln].copy()),
                            ins_wf[j], ins_wr[j])
             pi.observations = ins_obs[j]
             inserts.append(pi)
             b0 += ln
-            c0 += ln
+        del_len = self.del_len.tolist()
+        del_wf, del_wr = self.del_wf.tolist(), self.del_wr.tolist()
         deletes = []
-        for j in range(n_del):
-            pd = PoaDelete(int(del_len[j]), del_wf[j], del_wr[j])
+        for j in range(len(del_len)):
+            pd = PoaDelete(del_len[j], del_wf[j], del_wr[j])
             pd.observations = del_obs[j]
             deletes.append(pd)
 
         nodes = []
-        ref = self.reference
+        ref = poa.ref_string
         ref_bases = ref.bases.upper()
+        ref_counts = ref.counts.tolist()
         ins_at = del_at = 0
-        nic = node_ins_counts.tolist()
-        ndc = node_del_counts.tolist()
-        for idx in range(n_nodes):
+        nic = self.node_ins_counts.tolist()
+        ndc = self.node_del_counts.tolist()
+        for idx in range(self.n_nodes):
             base = "N" if idx == 0 else ref_bases[idx - 1]
-            if base not in "ACGT":
-                base = "N"
-            repeat = 1 if idx == 0 else int(ref.counts[idx - 1])
+            repeat = 1 if idx == 0 else ref_counts[idx - 1]
             node = poa._make_node(base, repeat, idx)
             node.observations = node_obs[idx]
             k = nic[idx]
@@ -299,5 +379,4 @@ class NativePoaBuilder:
             node.deletes = deletes[del_at:del_at + k]
             del_at += k
             nodes.append(node)
-        poa.nodes = nodes
-        return poa
+        return nodes

@@ -77,12 +77,15 @@ class PoaNode:
 
 
 class Poa:
-    """poa_getReferenceGraph (poa.c:112-127): node 0 is an 'N' prefix."""
+    """poa_getReferenceGraph (poa.c:112-127): node 0 is an 'N' prefix.
 
-    # flat per-node observation arrays (node_counts, read_no, offset,
-    # weight), stashed by NativePoaBuilder.finish for the vectorized
-    # anchor-alignment path; None on Python-built graphs
-    _flat_obs = None
+    A graph the native builder made holds its export as `_cols`
+    (native_poa.PoaColumns), which the score, consensus, anchors and
+    repeat counts read; its `nodes` are built from them on first access.
+    A Python-built graph has nodes only (`_cols` None)."""
+
+    _cols = None
+    _nodes = None
 
     def __init__(self, reference: RleString, max_repeat_count: int):
         self.ref_string = reference.copy()
@@ -97,6 +100,27 @@ class Poa:
             self.nodes.append(self._make_node(reference.bases[i].upper(),
                                               int(reference.counts[i]),
                                               i + 1))
+
+    @property
+    def nodes(self) -> List[PoaNode]:
+        if self._nodes is None:
+            with profiling.span("poa.materialise", self._cols.n_nodes):
+                self._nodes = self._cols.nodes(self)
+        return self._nodes
+
+    @nodes.setter
+    def nodes(self, nodes: List[PoaNode]):
+        self._nodes = nodes
+
+    def built_nodes(self) -> Optional[List[PoaNode]]:
+        """The node objects where they exist, without building them."""
+        return self._nodes
+
+    def _node_symbols(self) -> np.ndarray:
+        syms = np.empty(len(self._bw), dtype=np.int64)
+        syms[0] = 4
+        syms[1:] = seq_to_symbols(self.ref_string.bases)
+        return syms
 
     def _make_node(self, base: str, repeat: int, row: int) -> PoaNode:
         if base not in "ACGT":
@@ -230,10 +254,31 @@ class Poa:
     # -- scoring (poa.c:794-839) --------------------------------------------
 
     def total_match_weight(self) -> float:
-        return sum(n.base_weights[seq_to_symbols(n.base)[0]] for n in self.nodes)
+        if self._cols is None:
+            return self._total_match_weight_py()
+        # the oracle's sequential float64 sum, in node order
+        total = 0.0
+        for w in self._bw[np.arange(len(self._bw)),
+                          self._node_symbols()].tolist():
+            total += w
+        return total
 
     def total_error_weight(self) -> float:
         """poa_getTotalErrorWeight = disagreement + insert + delete weight."""
+        if self._cols is None:
+            return self._total_error_weight_py()
+        bw = self._bw
+        # each row's .sum() adds its five weights in order
+        row_sums = bw[:, 0] + bw[:, 1]
+        for b in range(2, 5):
+            row_sums += bw[:, b]
+        return self._cols.error_weight(
+            row_sums - bw[np.arange(len(bw)), self._node_symbols()])
+
+    def _total_match_weight_py(self) -> float:
+        return sum(n.base_weights[seq_to_symbols(n.base)[0]] for n in self.nodes)
+
+    def _total_error_weight_py(self) -> float:
         total = 0.0
         for n in self.nodes:
             ref_sym = seq_to_symbols(n.base)[0]
@@ -247,6 +292,8 @@ class Poa:
         weight desc."""
         for n in self.nodes:
             n.observations.sort(key=lambda o: (o[0], -o[2]))
+        if self._cols is not None:
+            self._cols.sort_observations()
 
     # -- consensus (poa.c:1350-1588) ----------------------------------------
 
@@ -377,7 +424,7 @@ class Poa:
 
     def get_anchor_alignments(self, poa_to_consensus: Optional[np.ndarray],
                               n_reads: int, params: PolishParams) -> List[List]:
-        if self._flat_obs is not None:
+        if self._cols is not None:
             return self._anchor_alignments_flat(poa_to_consensus, n_reads,
                                                 params)
         anchor_alignments: List[List] = [[] for _ in range(n_reads)]
@@ -407,12 +454,15 @@ class Poa:
 
     def _anchor_alignments_flat(self, poa_to_consensus, n_reads: int,
                                 params: PolishParams) -> List[np.ndarray]:
-        """Vectorized get_anchor_alignments over the flat observation
-        arrays the native POA export stashes: ladder thresholds via a
-        prefix-AND select, the per-read strictly-increasing greedy via the
-        native dedup — same anchors, same order, as the tuple walk (the
-        scalar path above remains the parity oracle)."""
-        node_counts, rn, off, wt = self._flat_obs
+        """Vectorized get_anchor_alignments over the node observation
+        columns in export order (also after sort_observations): ladder
+        thresholds via a prefix-AND select, the per-read strictly-increasing
+        greedy via the native dedup — same anchors, same order, as the
+        tuple walk of an unsorted graph (the scalar path above remains the
+        parity oracle)."""
+        c = self._cols
+        node_counts, rn, off, wt = (c.node_obs_counts, c.obs_rn, c.obs_off,
+                                    c.obs_wt)
         ladder = params.minPosteriorProbForAlignmentAnchors
         # consensus index per node (nodes[1:] -> rows 0..n-2)
         n_nodes = len(node_counts)

@@ -79,22 +79,16 @@ class _FlatObs:
     observed-count / weight / strand arrays, numerically identical inputs
     to the per-node path."""
 
-    def __init__(self, nodes, reads: List[PoaRead], max_rl: int):
-        lens = np.fromiter((len(n.observations) for n in nodes),
-                           dtype=np.int64, count=len(nodes))
-        self.starts = np.zeros(len(nodes) + 1, dtype=np.int64)
+    def __init__(self, lens, read_nos, offsets, weights,
+                 reads: List[PoaRead], max_rl: int):
+        self.starts = np.zeros(len(lens) + 1, dtype=np.int64)
         np.cumsum(lens, out=self.starts[1:])
-        total = int(self.starts[-1])
-        if total == 0:
+        if int(self.starts[-1]) == 0:
             self.counts = np.zeros(0, np.int64)
             self.weights = np.zeros(0, np.float64)
             self.strands = np.zeros(0, bool)
             return
-        flat = np.array([o for n in nodes for o in n.observations],
-                        dtype=np.float64).reshape(total, 3)
-        read_nos = flat[:, 0].astype(np.int64)
-        offsets = flat[:, 1].astype(np.int64)
-        self.weights = flat[:, 2].copy()
+        self.weights = weights
         read_lens = np.fromiter((r.rle_read.length for r in reads),
                                 dtype=np.int64, count=len(reads))
         base_off = np.zeros(len(reads) + 1, dtype=np.int64)
@@ -107,6 +101,27 @@ class _FlatObs:
                                       dtype=bool, count=len(reads))
         self.strands = strand_per_read[read_nos]
         self.read_nos = read_nos
+
+    @classmethod
+    def of_nodes(cls, nodes, reads: List[PoaRead], max_rl: int):
+        """From the nodes' observation tuples."""
+        lens = np.fromiter((len(n.observations) for n in nodes),
+                           dtype=np.int64, count=len(nodes))
+        flat = np.array([o for n in nodes for o in n.observations],
+                        dtype=np.float64).reshape(-1, 3)
+        return cls(lens, flat[:, 0].astype(np.int64),
+                   flat[:, 1].astype(np.int64), flat[:, 2].copy(), reads,
+                   max_rl)
+
+    @classmethod
+    def of_poa(cls, poa: Poa, reads: List[PoaRead], max_rl: int):
+        """Of poa.nodes[1:], from the columns where the graph has them
+        (in the tuples' order), else from the tuples."""
+        if poa._cols is None:
+            return cls.of_nodes(poa.nodes[1:], reads, max_rl)
+        lens, rn, off, wt = poa._cols.node_observations()
+        skip = int(lens[0])
+        return cls(lens[1:], rn[skip:], off[skip:], wt[skip:], reads, max_rl)
 
     def node(self, i: int):
         s, e = self.starts[i], self.starts[i + 1]
@@ -126,11 +141,9 @@ def estimate_repeat_counts(poa: Poa, reads: List[PoaRead],
             node.repeat_count = int(counts[i])
         poa.ref_string.non_rle_length = int(counts.sum())
         return
-    nodes = poa.nodes[1:]
-    flat = _FlatObs(nodes, reads, rm.max_repeat)
-    bases = np.empty(len(nodes), dtype=np.int64)
-    bases[:] = seq_to_symbols("".join(n.base for n in nodes))
-    for i, node in enumerate(nodes):
+    flat = _FlatObs.of_poa(poa, reads, rm.max_repeat)
+    bases = seq_to_symbols(poa.ref_string.bases).astype(np.int64)
+    for i in range(len(bases)):
         cnt, wts, strs = flat.node(i)
         if cnt is None or cnt.min() == rm.max_repeat:
             rc = 0
@@ -140,8 +153,17 @@ def estimate_repeat_counts(poa: Poa, reads: List[PoaRead],
                                        lo, hi)
             rc = lo + int(np.argmax(lp))
         counts[i] = max(rc, 1)
-        node.repeat_count = int(counts[i])
+    _set_node_repeat_counts(poa)
     poa.ref_string.non_rle_length = int(counts.sum())
+
+
+def _set_node_repeat_counts(poa: Poa):
+    """Copy ref_string.counts into the nodes where they have been built (a
+    later build takes them from ref_string)."""
+    nodes = poa.built_nodes()
+    if nodes is not None:
+        for node, rc in zip(nodes[1:], poa.ref_string.counts.tolist()):
+            node.repeat_count = rc
 
 
 def phased_ml_repeat_count(rm: RepeatSubMatrix, node, reads: List[PoaRead],
@@ -179,14 +201,12 @@ def estimate_phased_repeat_counts(poa: Poa, reads: List[PoaRead],
     Observations are flattened once (_FlatObs); the per-node float path
     (_log_probs_for_counts + the last-max-wins scan) is unchanged."""
     counts = poa.ref_string.counts
-    nodes = poa.nodes[1:]
-    flat = _FlatObs(nodes, reads, rm.max_repeat)
+    flat = _FlatObs.of_poa(poa, reads, rm.max_repeat)
     in_h1_read = np.fromiter((id(r) in hap1_ids for r in reads),
                              dtype=bool, count=len(reads))
-    bases = np.empty(len(nodes), dtype=np.int64)
-    bases[:] = seq_to_symbols("".join(n.base for n in nodes))
+    bases = seq_to_symbols(poa.ref_string.bases).astype(np.int64)
     esc = np.log(params.hetRunLengthSubstitutionProbability)
-    for i, node in enumerate(nodes):
+    for i in range(len(bases)):
         cnt, wts, strs = flat.node(i)
         if cnt is None or cnt.min() == rm.max_repeat:
             rc = 0
@@ -209,5 +229,5 @@ def estimate_phased_repeat_counts(poa: Poa, reads: List[PoaRead],
                     best_p = combined[k]
                     rc = lo + k
         counts[i] = max(rc, 1)
-        node.repeat_count = int(counts[i])
+    _set_node_repeat_counts(poa)
     poa.ref_string.non_rle_length = int(counts.sum())

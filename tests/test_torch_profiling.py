@@ -538,3 +538,16 @@ def test_a_polish_run_reaches_the_poa_and_banded_spans(polish_run):
     assert doc["chunk_stage_totals_s"]["realign"] == pytest.approx(
         spans["realign"]["total_s"], abs=2e-3)
     assert "counters" not in doc
+
+
+def test_a_polish_run_builds_the_poa_nodes_once_a_chunk(polish_run):
+    """The native graphs keep their columns through the POA iterations;
+    only the bubble pass builds node objects, once a chunk."""
+    doc = polish_run
+    spans = doc["spans"]
+    assert spans["poa.materialise"]["n"] == doc["n_chunks"] > 0
+    fields = doc["record_fields"]
+    recs = [dict(zip(fields, r)) for r in doc["records"]]
+    parents = {recs[r["parent"]]["name"] for r in recs
+               if r["name"] == "poa.materialise"}
+    assert parents == {"polish_bubbles"}
