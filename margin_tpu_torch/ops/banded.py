@@ -656,7 +656,7 @@ def _solve_seg_pack(tables, items, geoms, w_pad, use_rle, expansion,
 # The ROADMAP's title of the wide-band forward-backward: its forward and
 # expectation halves are kernels K5-fwd / K5-exp (csrc/banded_wide.cu);
 # wide posteriors stay on the host engine, as margin_tpu routes them.
-K5_ITEM = "ROADMAP queue 2, K5: the wide-band forward-backward"
+K5_ITEM = "K5: the wide-band forward-backward"
 
 
 def expectation_packs(tables, items, expansion: int, dynamic: bool = False):

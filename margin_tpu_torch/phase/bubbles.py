@@ -27,6 +27,7 @@ from margin_tpu_torch.ops import pairhmm
 from margin_tpu_torch.params import Params
 from margin_tpu_torch.rle import RleString
 from margin_tpu_torch.phase.readextract import ReadVcfSubstrings
+from margin_tpu_torch.utils import profiling
 
 PROFILE_PROB_SCALAR = 30.0  # margin.h:189
 
@@ -193,20 +194,24 @@ def build_bubble_graph(reads: List[ReadVcfSubstrings], vcf_entries: List[VcfEntr
     return BubbleGraph(bubbles), entries_to_bubbles
 
 
-def _score_pending(bubbles, pairs, strands, reps, slots, tables, use_rle,
-                   batch_max, use_lut, sv_limit: int = 0, expansion: int = 20):
-    if not pairs:
-        return
-    # SV-length alleles/read substrings are scored with the kmer-anchored
-    # banded kernel instead of the dense batch (bubbleGraph.c:1447-1453)
-    if sv_limit > 0:
-        from margin_tpu_torch.ops import banded
-        from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
-        sv_idx = [i for i in range(len(pairs))
-                  if len(pairs[i][0]) > sv_limit or len(pairs[i][1]) > sv_limit]
-        if sv_idx:
-            # one batched solve (funnel/IPC-routed) for every SV pair;
-            # threshold 2.0 = totals only, no pair extraction
+def score_sv_pairs(tables, pairs, strands, reps, owners, use_rle,
+                   sv_limit: int, expansion: int, use_lut: bool = False):
+    """Scores the SV-length pairs (either side longer than `sv_limit`) with
+    the kmer-anchored banded kernel instead of the dense batch
+    (bubbleGraph.c:1447-1453), so they don't inflate the dense batches: one
+    batched solve (funnel/IPC-routed) for all of them, threshold 2.0 =
+    totals only, no pair extraction. Returns ([(owner, total)] of the SV
+    pairs, then pairs, strands, reps and owners of the others), each in
+    the order given; with no SV pair (or sv_limit <= 0) the lists given."""
+    sv_idx = [i for i, (x_sym, y_sym) in enumerate(pairs)
+              if len(x_sym) > sv_limit or len(y_sym) > sv_limit] \
+        if sv_limit > 0 else []
+    if not sv_idx:
+        return [], pairs, strands, reps, owners
+    from margin_tpu_torch.ops import banded
+    from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
+    with profiling.span("phase.sv_score", len(sv_idx)):
+        with profiling.span("phase.sv_anchors", len(sv_idx)):
             items = []
             for i in sv_idx:
                 x_sym, y_sym = pairs[i]
@@ -218,19 +223,25 @@ def _score_pending(bubbles, pairs, strands, reps, slots, tables, use_rle,
                     it["rep_x"] = reps[i][0]
                     it["rep_y"] = reps[i][1]
                 items.append(it)
-            res = banded.banded_posteriors_many(
-                tables, items, expansion, threshold=2.0, use_lut=use_lut)
-            for i, (_pairs, total) in zip(sv_idx, res):
-                bidx, j, k = slots[i]
-                bubbles[bidx].allele_read_supports[j, k] = total
-            keep = [i for i in range(len(pairs)) if i not in set(sv_idx)]
-            pairs = [pairs[i] for i in keep]
-            strands = [strands[i] for i in keep]
-            if use_rle:
-                reps = [reps[i] for i in keep]
-            slots = [slots[i] for i in keep]
-            if not pairs:
-                return
+        res = banded.banded_posteriors_many(
+            tables, items, expansion, threshold=2.0, use_lut=use_lut)
+    gone = set(sv_idx)
+
+    def rest(seq):
+        return [v for i, v in enumerate(seq) if i not in gone]
+    return ([(owners[i], total) for i, (_pairs, total) in zip(sv_idx, res)],
+            rest(pairs), rest(strands), rest(reps), rest(owners))
+
+
+def _score_pending(bubbles, pairs, strands, reps, slots, tables, use_rle,
+                   batch_max, use_lut, sv_limit: int = 0, expansion: int = 20):
+    scored, pairs, strands, reps, slots = score_sv_pairs(
+        tables, pairs, strands, reps, slots, use_rle, sv_limit, expansion,
+        use_lut)
+    for (bidx, j, k), total in scored:
+        bubbles[bidx].allele_read_supports[j, k] = total
+    if not pairs:
+        return
     from margin_tpu_torch.parallel import executor
     scores = executor.score_pairs(tables, pairs, strands,
                                   rep_pairs=reps if use_rle else None,

@@ -21,7 +21,8 @@ from margin_tpu_torch.params import Params
 from margin_tpu_torch.phase import rphmm
 from margin_tpu_torch.phase.bubbles import (BubbleGraph, ProfileSeq, Reference,
                                       build_bubble_graph, get_profile_seqs,
-                                      get_reference, _qual_value)
+                                      get_reference, score_sv_pairs,
+                                      _qual_value)
 from margin_tpu_torch.phase.fragment import (GenomeFragment, construct_genome_fragment,
                                        log_prob_of_being_in_partition,
                                        refine_genome_fragment)
@@ -149,41 +150,12 @@ def score_het_groups(groups, params: Params, tables: pairhmm.PairHmmTables,
                 owners.append((g, k, j))
         dups.append(dup)
     # SV-length pairs take the kmer-anchored banded kernel
-    # (bubbleGraph.c:1447-1453) so they don't inflate the dense batches;
-    # they go through the BATCHED solver (one funnel/IPC round for all of
-    # them, threshold 2.0 = no pair extraction, totals only)
-    sv_limit = params.phase.referenceExpansionForStructuralVariants
-    if pairs and sv_limit > 0:
-        from margin_tpu_torch.ops import banded
-        from margin_tpu_torch.polish.kmers import get_kmer_alignment_anchors
-        expansion = params.polish.p.diagonalExpansion
-        sv_set = {i for i in range(len(pairs))
-                  if len(pairs[i][0]) > sv_limit or len(pairs[i][1]) > sv_limit}
-        sv_list = sorted(sv_set)
-        items = []
-        for i in sv_list:
-            x_sym, y_sym = pairs[i]
-            it = {"x_sym": x_sym, "y_sym": y_sym,
-                  "anchors": get_kmer_alignment_anchors(x_sym, y_sym,
-                                                        expansion),
-                  "strand": strands[i]}
-            if use_rle:
-                it["rep_x"] = reps[i][0]
-                it["rep_y"] = reps[i][1]
-            items.append(it)
-        if items:
-            res = banded.banded_posteriors_many(
-                tables, items, expansion, threshold=2.0, use_lut=use_lut)
-            for i, (_p, total) in zip(sv_list, res):
-                g, k, j = owners[i]
-                outs[g][k, j] = total
-        if sv_set:
-            keep = [i for i in range(len(pairs)) if i not in sv_set]
-            pairs = [pairs[i] for i in keep]
-            strands = [strands[i] for i in keep]
-            if use_rle:
-                reps = [reps[i] for i in keep]
-            owners = [owners[i] for i in keep]
+    scored, pairs, strands, reps, owners = score_sv_pairs(
+        tables, pairs, strands, reps, owners, use_rle,
+        params.phase.referenceExpansionForStructuralVariants,
+        params.polish.p.diagonalExpansion, use_lut)
+    for (g, k, j), total in scored:
+        outs[g][k, j] = total
     if pairs:
         from margin_tpu_torch.parallel import executor
         scores = executor.score_pairs(tables, pairs, strands,
